@@ -1,0 +1,97 @@
+"""Serving entry point: the continuous-batching engine over a synthetic trace
+(counterpart of ``repro/launch/serve.py``).
+
+Weights are random, drawn from ``--seed``; the run goes on the card unless
+``--device cpu`` is given (the plain PyTorch versions of the kernels).
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
+      --requests 16 --prompt-lens 64,128,256,512 --max-new 32,64 \\
+      --block-size 16 --num-blocks 2048
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import configs
+from repro_torch.device import resolve_device
+from repro_torch.models import transformer as T
+from repro_torch.serving.cache import PagedCacheConfig
+from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.scheduler import SchedulerConfig, poisson_trace
+
+
+def _ints(s: str) -> list[int]:
+    return [int(p) for p in s.split(",")]
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(allow_abbrev=False)
+    ap.add_argument("--arch", default="yi-6b", choices=configs.list_archs())
+    ap.add_argument("--smoke", action="store_true", help="use the reduced config")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--rate", type=float, default=0.5,
+                    help="Poisson arrivals per engine step")
+    ap.add_argument("--prompt-lens", default="8,16,24")
+    ap.add_argument("--max-new", default="8,16")
+    ap.add_argument("--block-size", type=int, default=8)
+    ap.add_argument("--num-blocks", type=int, default=128)
+    ap.add_argument("--max-batch", type=int, default=8)
+    ap.add_argument("--mode", default="continuous", choices=["continuous", "static"])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    device = resolve_device(args.device)
+    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = T.init_params(cfg, gen, device)
+
+    prompt_lens, max_new = _ints(args.prompt_lens), _ints(args.max_new)
+    max_tok = max(prompt_lens) + max(max_new)
+    pcfg = PagedCacheConfig(num_blocks=args.num_blocks, block_size=args.block_size,
+                            max_blocks_per_seq=-(-max_tok // args.block_size))
+    engine = ServingEngine(cfg, params, SchedulerConfig(
+        cache=pcfg, max_batch=args.max_batch, mode=args.mode))
+    reqs = poisson_trace(np.random.default_rng(args.seed), n_requests=args.requests,
+                         rate=args.rate, vocab=cfg.vocab_size,
+                         prompt_lens=prompt_lens, max_new=max_new)
+    engine.submit_all(reqs)
+
+    t0 = time.perf_counter()
+    outputs = engine.run()
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    dt = time.perf_counter() - t0
+    lat = [r.finish_step - r.arrival for r in engine.finished.values()]
+    lsum = engine.latency_summary()
+    result = {
+        "arch": args.arch, "mode": args.mode, "device": str(device),
+        "device_name": (torch.cuda.get_device_name(device)
+                        if device.type == "cuda" else "cpu"),
+        "requests": len(outputs),
+        "emitted_tokens": engine.stats["emitted_tokens"],
+        "engine_steps": engine.stats["engine_steps"],
+        "prefill_calls": engine.stats["prefill_calls"],
+        "decode_steps": engine.stats["decode_steps"],
+        "preemptions": engine.stats["preemptions"],
+        "tok_per_s": engine.stats["emitted_tokens"] / dt,
+        "mean_latency_steps": float(np.mean(lat)),
+        "ttft_ms": lsum["ttft_ms"], "itl_ms": lsum["itl_ms"],
+        "seconds": dt,
+    }
+    for rid in sorted(outputs)[:4]:
+        print(f"  req{rid}: {outputs[rid]}")
+    print(json.dumps(result))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,211 @@
+"""Shared model components: config, norms, RoPE, activations, embeddings and
+the LM head (counterpart of ``repro/models/common.py``).
+
+Single-process only: the port has no tensor parallelism yet, so the JAX
+``AxisCtx`` and its collectives have no counterpart here.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kops
+
+
+# ---------------------------------------------------------------------------
+# Model configuration (field-for-field copy of the JAX ModelConfig)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Architecture description covering dense / MoE / SSM / hybrid models.
+
+    The fields equal the JAX package's so a config round-trips through
+    ``dataclasses.asdict``.  ``kernels`` is kept for that equality only: the
+    port picks the kernel or the plain version from the tensor's device.
+    """
+
+    name: str
+    arch_type: str               # dense | moe | ssm | hybrid | audio | vlm
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0            # 0 -> d_model // num_heads
+    hidden_act: str = "silu"     # silu | gelu
+    glu: bool = True             # gated (SwiGLU/GeGLU) vs plain 2-layer MLP
+    norm: str = "rmsnorm"        # rmsnorm | rmsnorm_p1 | layernorm
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    embed_scale: bool = False    # gemma-style sqrt(d_model) embedding scaling
+    # --- attention extras -------------------------------------------------
+    sliding_window: int = 0              # >0: window size used by "local" layers
+    local_global_period: int = 0         # 0: all global. k>0: layer is global iff (i % k == k-1)
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    # --- MoE ---------------------------------------------------------------
+    num_experts: int = 0
+    experts_per_token: int = 0
+    moe_dense_residual: bool = False
+    moe_dense_ff: int = 0
+    router_aux_weight: float = 0.01
+    # --- SSM / hybrid ------------------------------------------------------
+    block_kind: str = "attn"             # attn | mamba | rwkv
+    hybrid_attn_period: int = 0
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    rwkv_heads: int = 0
+    # --- modality frontend stubs -------------------------------------------
+    input_mode: str = "tokens"           # tokens | embeddings | vlm
+    vision_prefix_len: int = 0
+    # --- numerics ----------------------------------------------------------
+    dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    kernels: bool = True
+
+    def __post_init__(self):
+        if self.head_dim == 0:
+            object.__setattr__(self, "head_dim", self.d_model // max(self.num_heads, 1))
+        if self.block_kind == "rwkv" and self.rwkv_heads == 0:
+            object.__setattr__(self, "rwkv_heads",
+                               self.d_model // self.ssm_head_dim)
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return getattr(torch, self.dtype)
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    # -- per-layer static tables (plain Python: torch needs no traced form) --
+    def layer_windows(self) -> list[int]:
+        """Per-layer attention window (0 = full/global attention)."""
+        k = self.local_global_period
+        if k <= 0 or self.sliding_window <= 0:
+            return [0] * self.num_layers
+        return [0 if i % k == k - 1 else self.sliding_window
+                for i in range(self.num_layers)]
+
+    def attn_layer_flags(self) -> list[int]:
+        """Hybrid models: 1 where the shared attention block runs after the layer."""
+        k = self.hybrid_attn_period
+        if k <= 0:
+            return [0] * self.num_layers
+        return [int(i % k == k - 1) for i in range(self.num_layers)]
+
+    def attn_slot_index(self) -> list[int]:
+        """KV-cache slot for each layer (0 where the layer has no KV cache)."""
+        if self.block_kind == "attn":
+            return list(range(self.num_layers))
+        out, n = [], 0
+        for f in self.attn_layer_flags():
+            out.append(n if f else 0)
+            n += f
+        return out
+
+    def num_attn_slots(self) -> int:
+        if self.block_kind == "attn":
+            return self.num_layers
+        if self.hybrid_attn_period > 0:
+            return self.num_layers // self.hybrid_attn_period
+        return 0
+
+
+# ---------------------------------------------------------------------------
+# Normalisation
+# ---------------------------------------------------------------------------
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
+               eps: float = 1e-5) -> torch.Tensor:
+    x32 = x.float()
+    mu = x32.mean(-1, keepdim=True)
+    var = (x32 - mu).square().mean(-1, keepdim=True)
+    y = (x32 - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+    """RMSNorm goes through the kernel dispatch (K1); LayerNorm has no
+    kernel in either package."""
+    if cfg.norm == "layernorm":
+        return layer_norm(x, p["scale"], p["bias"])
+    return kops.rmsnorm(x, p["scale"], plus_one=cfg.norm == "rmsnorm_p1")
+
+
+def init_norm(cfg: ModelConfig, d: int, device) -> dict:
+    """Norm parameters stay fp32: the kernel reads the scale in fp32."""
+    kw = dict(dtype=torch.float32, device=device)
+    if cfg.norm == "layernorm":
+        return {"scale": torch.ones(d, **kw), "bias": torch.zeros(d, **kw)}
+    if cfg.norm == "rmsnorm_p1":
+        return {"scale": torch.zeros(d, **kw)}
+    return {"scale": torch.ones(d, **kw)}
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embeddings (half-split, computed in fp32)
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: [..., S, H, D]; positions: [..., S] (broadcastable)."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)
+    angles = positions[..., :, None, None].float() * freqs      # [..., S, 1, D/2]
+    sin, cos = torch.sin(angles), torch.cos(angles)
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Activations
+# ---------------------------------------------------------------------------
+def activation(name: str):
+    if name == "silu":
+        return F.silu
+    if name == "gelu":
+        return lambda x: F.gelu(x, approximate="tanh")
+    if name == "relu":
+        return F.relu
+    raise ValueError(f"unknown activation {name!r}")
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return cap * torch.tanh(x / cap) if cap > 0 else x
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head
+# ---------------------------------------------------------------------------
+def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
+                 tokens: torch.Tensor) -> torch.Tensor:
+    """embed: [V, D]; tokens: [..., S] -> [..., S, D] in ``cfg.dtype``."""
+    x = embed[tokens.long()].to(cfg.torch_dtype)
+    if cfg.embed_scale:
+        # the factor is rounded to x's dtype first, as the JAX package does
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
+    return x
+
+
+def lm_logits(cfg: ModelConfig, head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """[..., D] -> fp32 logits [..., V]: the product in x's dtype, then the
+    final softcap in fp32."""
+    logits = (x @ head.to(x.dtype).t()).float()
+    return softcap(logits, cfg.final_logit_softcap)
+
+
+# ---------------------------------------------------------------------------
+# Initialisation helpers
+# ---------------------------------------------------------------------------
+def dense_init(generator: torch.Generator, shape, dtype, device, *,
+               scale: float | None = None) -> torch.Tensor:
+    s = scale if scale is not None else 1.0 / math.sqrt(shape[0])
+    w = torch.randn(shape, generator=generator, dtype=torch.float32, device=device)
+    return (w * s).to(dtype)

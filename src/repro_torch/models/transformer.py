@@ -1,0 +1,83 @@
+"""Transformer parameters and inputs (counterpart of
+``repro/models/transformer.py``; the serving steps in ``serving/steps.py``
+run the layer stack).
+
+Parameters are a plain dict whose names follow the JAX tree, with the layer
+stack as a list: ``layers.{i}.attn.wq`` and so on.  Matrices are stored in
+``cfg.dtype`` (the JAX package casts its fp32 leaves to it at every use, so
+the values are the same); norm scales stay fp32.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (ModelConfig, dense_init, embed_tokens,
+                                       init_norm)
+
+
+def init_layer(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    return {
+        "ln1": init_norm(cfg, cfg.d_model, device),
+        "attn": attn_mod.init_attention(cfg, generator, device),
+        "ln2": init_norm(cfg, cfg.d_model, device),
+        "mlp": mlp_mod.init_mlp(cfg, generator, device),
+    }
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+    """Random weights for a dense attention stack, drawn from ``generator``
+    (which must live on ``device``)."""
+    if cfg.block_kind != "attn" or cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: the port has dense attention "
+                                  f"stacks only so far")
+    dt = cfg.torch_dtype
+    params = {
+        "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model), dt, device,
+                            scale=0.02),
+        "layers": [init_layer(cfg, generator, device) for _ in range(cfg.num_layers)],
+        "final_norm": init_norm(cfg, cfg.d_model, device),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(generator, (cfg.vocab_size, cfg.d_model), dt,
+                                    device, scale=0.02)
+    return params
+
+
+def head_weight(cfg: ModelConfig, params: dict) -> torch.Tensor:
+    return params["embed"] if cfg.tie_embeddings else params["head"]
+
+
+def embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
+    """Returns (x [B, S, D], positions [B, S]) for token inputs."""
+    if cfg.input_mode != "tokens":
+        raise NotImplementedError(f"input mode {cfg.input_mode!r} is not ported yet")
+    x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    B, S = x.shape[:2]
+    positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
+    return x, positions
+
+
+def layer_tables(cfg: ModelConfig):
+    """(windows, shared-attention flags, KV slots), one Python int per layer."""
+    return cfg.layer_windows(), cfg.attn_layer_flags(), cfg.attn_slot_index()
+
+
+def to_device(params: dict, device) -> dict:
+    """A copy of the parameter tree on ``device``."""
+    return {k: ([to_device(lp, device) for lp in v] if isinstance(v, list)
+                else to_device(v, device) if isinstance(v, dict) else v.to(device))
+            for k, v in params.items()}
+
+
+def named_parameters(params: dict, prefix: str = ""):
+    """(dotted name, tensor) pairs in the JAX tree's naming."""
+    for key, val in params.items():
+        items = enumerate(val) if isinstance(val, list) else [(None, val)]
+        for i, sub in items:
+            name = f"{prefix}{key}" if i is None else f"{prefix}{key}.{i}"
+            if isinstance(sub, dict):
+                yield from named_parameters(sub, name + ".")
+            else:
+                yield name, sub

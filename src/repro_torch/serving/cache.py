@@ -1,0 +1,96 @@
+"""Paged KV cache: fixed-size blocks, per-request block tables, free list
+(counterpart of ``repro/serving/cache.py``).
+
+Pool layout, one pool per K and V:
+
+    [n_slots, num_blocks + 1, Hkv, block_size, head_dim]
+
+The ``+ 1`` is the *trash block*: writes for padded prompt chunks and idle
+engine slots go to pool index ``num_blocks``; no live position reads it.  The
+allocator hands out ids ``[0, num_blocks)`` only.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch.models.common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedCacheConfig:
+    """Shape of the paged pool."""
+
+    num_blocks: int              # allocatable blocks (pool holds one extra)
+    block_size: int              # tokens per block
+    max_blocks_per_seq: int      # block-table width (max context / block_size)
+
+    @property
+    def trash_block(self) -> int:
+        """Pool index absorbing masked writes; never allocated, never read."""
+        return self.num_blocks
+
+    @property
+    def max_context(self) -> int:
+        return self.max_blocks_per_seq * self.block_size
+
+    def blocks_for(self, n_tokens: int) -> int:
+        """Blocks covering ``n_tokens`` written positions."""
+        return -(-n_tokens // self.block_size)
+
+
+def init_paged_cache(cfg: ModelConfig, pcfg: PagedCacheConfig, device) -> dict:
+    """Zeroed K and V pools for the attention stack on ``device``."""
+    if cfg.block_kind != "attn":
+        raise ValueError(f"paged serving needs block_kind='attn' (got {cfg.block_kind!r})")
+    shape = (cfg.num_attn_slots(), pcfg.num_blocks + 1, cfg.num_kv_heads,
+             pcfg.block_size, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
+            "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
+
+
+def kv_bytes_per_token(cfg: ModelConfig) -> int:
+    """K+V bytes cached per token."""
+    itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
+    return 2 * cfg.num_attn_slots() * cfg.num_kv_heads * cfg.head_dim * itemsize
+
+
+class BlockAllocator:
+    """Free-list allocator over pool ids ``[0, num_blocks)``.
+
+    ``alloc`` is all-or-nothing (None when it cannot be satisfied — the
+    scheduler then preempts or defers); ``free`` rejects double frees and ids
+    it never issued.
+    """
+
+    def __init__(self, num_blocks: int):
+        self.num_blocks = num_blocks
+        self._free = list(range(num_blocks - 1, -1, -1))   # LIFO: reuse warm ids
+        self._used: set[int] = set()
+
+    @property
+    def available(self) -> int:
+        return len(self._free)
+
+    @property
+    def used(self) -> int:
+        return len(self._used)
+
+    def alloc(self, n: int) -> list[int] | None:
+        if n < 0:
+            raise ValueError(f"alloc({n})")
+        if n > len(self._free):
+            return None
+        out = [self._free.pop() for _ in range(n)]
+        self._used.update(out)
+        return out
+
+    def free(self, ids) -> None:
+        ids = list(ids)
+        for b in ids:
+            if b not in self._used:
+                raise ValueError(f"free of unallocated block {b}")
+        for b in ids:
+            self._used.remove(b)
+            self._free.append(b)

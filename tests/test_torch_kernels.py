@@ -1,0 +1,198 @@
+"""The port's kernels' plain versions against the JAX package's Pallas
+kernels (interpret mode on the CPU), and the device dispatch.  The CUDA
+kernels themselves are held against the plain versions on the card by
+``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels.flash_attention import flash_attention_fwd as jax_flash_fwd
+from repro.kernels.rmsnorm import rmsnorm as jax_rmsnorm
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import rmsnorm as rn
+from repro_torch.kernels.ref import (NEG_INF, flash_attention_fwd_ref,
+                                     paged_attention_ref, rmsnorm_ref)
+
+DT = {"float32": (np.float32, jnp.float32, torch.float32),
+      "bfloat16": (np.float32, jnp.bfloat16, torch.bfloat16)}
+
+
+def _both(a: np.ndarray, dtype: str):
+    """The same values as a JAX array and a torch tensor of ``dtype``."""
+    _, jdt, tdt = DT[dtype]
+    return jnp.asarray(a).astype(jdt), torch.from_numpy(a).to(tdt)
+
+
+def _np(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+# ---------------------------------------------------------------------------
+# K1 RMSNorm
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("plus_one", [False, True])
+def test_rmsnorm_plain_matches_pallas(dtype, plus_one):
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((3, 5, 256), np.float32) * 3
+    s = rng.standard_normal(256, np.float32)
+    xj, xt = _both(x, dtype)
+    want = jax_rmsnorm(xj, jnp.asarray(s), plus_one=plus_one, interpret=True)
+    got = rmsnorm_ref(xt, torch.from_numpy(s), plus_one=plus_one)
+    assert got.dtype == DT[dtype][2] and got.shape == xt.shape
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+
+
+# ---------------------------------------------------------------------------
+# K3 flash-attention forward (out and lse)
+# ---------------------------------------------------------------------------
+SHAPES = [(2, 64, 4, 2, 32), (1, 128, 8, 8, 64), (2, 48, 4, 1, 32),
+          (1, 96, 6, 3, 16)]
+VARIANTS = [(0, 0.0), (16, 0.0), (0, 30.0), (24, 50.0)]
+FLASH_CASES = (
+    [(shape, w, cap, True, 0, "float32") for shape in SHAPES for w, cap in VARIANTS]
+    + [((1, 48, 2, 2, 16), w, 0.0, False, 40, "float32") for w in (0, 12)]  # non-causal, padded keys
+    + [((1, 64, 2, 1, 16), 12, 0.0, True, 50, "float32"),   # windowed pad rows see no key
+       ((2, 64, 4, 2, 32), 0, 0.0, True, 0, "bfloat16")])
+
+
+def _live_rows(S, kv_len, causal, window):
+    q = np.arange(S)[:, None]
+    k = np.arange(S)[None, :]
+    mask = (k < kv_len) & (q >= k if causal else True)
+    if window > 0:
+        mask = mask & (q - k < window)
+    return np.broadcast_to(mask, (S, S)).any(-1)
+
+
+@pytest.mark.parametrize("shape,window,cap,causal,kv_len,dtype", FLASH_CASES)
+def test_flash_plain_matches_pallas(shape, window, cap, causal, kv_len, dtype):
+    B, S, Hq, Hkv, D = shape
+    rng = np.random.default_rng(B * S + window)
+    q = rng.standard_normal((B, S, Hq, D), np.float32)
+    k = rng.standard_normal((B, S, Hkv, D), np.float32)
+    v = rng.standard_normal((B, S, Hkv, D), np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, dtype) for a in (q, k, v))
+    out_j, lse_j = jax_flash_fwd(qj, kj, vj, causal=causal, window=window,
+                                 softcap=cap, kv_len=kv_len, block_q=16,
+                                 block_k=16, interpret=True)
+    out_t, lse_t = flash_attention_fwd_ref(qt, kt, vt, causal=causal, window=window,
+                                           softcap=cap, kv_len=kv_len)
+    assert out_t.dtype == qt.dtype and lse_t.dtype == torch.float32
+    live = _live_rows(S, kv_len or S, causal, window)
+    tol = 2e-2 if dtype == "bfloat16" else 1e-5
+    np.testing.assert_allclose(_np(out_t)[:, live], _np(out_j)[:, live],
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(lse_t.numpy()[..., live], np.asarray(lse_j)[..., live],
+                               rtol=1e-5, atol=1e-5)
+    # a row that sees no key: out 0 and lse NEG_INF (the TPU kernel gives
+    # NEG_INF too; its out there depends on which tiles its loop visits)
+    assert np.all(_np(out_t)[:, ~live] == 0)
+    assert np.all(lse_t.numpy()[..., ~live] == NEG_INF)
+    assert np.all(np.asarray(lse_j)[..., ~live] == NEG_INF)
+
+
+# ---------------------------------------------------------------------------
+# K7 paged decode
+# ---------------------------------------------------------------------------
+def _paged_inputs(R, hq, hkv, D, bs, N, maxb, seed):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((R, hq, D), np.float32)
+    kp = rng.standard_normal((N, hkv, bs, D), np.float32)
+    vp = rng.standard_normal((N, hkv, bs, D), np.float32)
+    bt = rng.integers(0, N, (R, maxb)).astype(np.int32)
+    return q, kp, vp, bt
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (5, 0.0), (0, 20.0), (7, 30.0)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)], ids=["mha", "gqa", "mqa"])
+def test_paged_plain_matches_pallas(window, softcap, hq, hkv):
+    q, kp, vp, bt = _paged_inputs(5, hq, hkv, 16, 8, 12, 4, seed=hq * 10 + hkv)
+    lens = np.array([1, 5, 17, 23, 32], np.int32)   # partial tails, one token, full table
+    want = jops.paged_attention(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                                jnp.asarray(bt), jnp.asarray(lens), window=window,
+                                softcap=softcap)
+    got = paged_attention_ref(*(torch.from_numpy(a) for a in (q, kp, vp, bt, lens)),
+                              window=window, softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_paged_plain_idle_rows_zero():
+    q, kp, vp, bt = _paged_inputs(4, 4, 2, 16, 8, 6, 2, seed=1)
+    lens = np.array([0, 3, 0, 9], np.int32)
+    want = jops.paged_attention(*(jnp.asarray(a) for a in (q, kp, vp, bt, lens)))
+    got = paged_attention_ref(*(torch.from_numpy(a) for a in (q, kp, vp, bt, lens))).numpy()
+    assert np.all(got[[0, 2]] == 0) and np.any(got[[1, 3]] != 0)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# Dispatch: CPU tensors take the plain versions and launch nothing
+# ---------------------------------------------------------------------------
+def test_cpu_dispatch_runs_plain_versions():
+    before = (rn.launches, fa.launches, pa.launches)
+    x = torch.randn(4, 64)
+    s = torch.rand(64)
+    torch.testing.assert_close(ops.rmsnorm(x, s), rmsnorm_ref(x, s), rtol=0, atol=0)
+    q, k = torch.randn(1, 8, 4, 16), torch.randn(1, 8, 2, 16)
+    torch.testing.assert_close(ops.flash_attention(q, k, k, window=3),
+                               flash_attention_fwd_ref(q, k, k, window=3)[0],
+                               rtol=0, atol=0)
+    kp = torch.randn(3, 2, 4, 16)
+    bt = torch.tensor([[0, 2], [1, 0]], dtype=torch.int32)
+    ctx = torch.tensor([5, 0], dtype=torch.int32)
+    torch.testing.assert_close(ops.paged_attention(q[0, :2], kp, kp, bt, ctx),
+                               paged_attention_ref(q[0, :2], kp, kp, bt, ctx),
+                               rtol=0, atol=0)
+    assert (rn.launches, fa.launches, pa.launches) == before
+
+
+def test_dispatch_rejects_other_devices():
+    x = torch.empty(2, 8, device="meta")
+    with pytest.raises(ValueError, match="device"):
+        ops.rmsnorm(x, torch.empty(8, device="meta"))
+
+
+def test_cuda_wrappers_refuse_cpu_tensors():
+    x = torch.randn(2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        rn.rmsnorm_cuda(x, torch.ones(64))
+    q = torch.randn(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_attention_fwd_cuda(q, q, q)
+    with pytest.raises(ValueError, match="CUDA"):
+        pa.paged_attention_cuda(q[0], q, q, torch.zeros(8, 1, dtype=torch.int32),
+                                torch.ones(8, dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# The build: no nvcc, or a failing nvcc, raises; nothing falls back
+# ---------------------------------------------------------------------------
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(_build.KernelError, match="nvcc not found"):
+        _build.build()
+
+
+def test_failed_build_raises_with_compiler_output(monkeypatch, tmp_path):
+    from repro_torch.kernels import _build
+    fake = tmp_path / "nvcc"
+    fake.write_text("#!/bin/sh\necho 'error: no sm_90a here' >&2\nexit 1\n")
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "find_nvcc", lambda: str(fake))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    with pytest.raises(_build.KernelError, match="no sm_90a here"):
+        _build.build()
+    assert list((tmp_path / "build").iterdir()) == []      # no library, no leftovers
