@@ -9,20 +9,26 @@ nonzero and prints no result:
   1. the card (name and power limit from nvidia-smi) and the nvcc build of
      every kernel from the sources in the checkout;
   2. each CUDA kernel against its plain PyTorch version on the card: the
-     shapes the Yi-6B serving path gives it in bf16 and fp32, plus window,
-     softcap, MQA, ragged-length, head-dim 64/256 and idle-row cases; at the
-     path shapes, the kernel's time, the plain version's, one PyTorch
-     library call's where one computes the same function (a yardstick the
-     port never calls) and the card's bound;
+     shapes the Yi-6B serving and training paths give it in bf16 and fp32,
+     plus window, softcap, MQA, ragged-length, head-dim 64/256, idle-row and
+     bf16-moment cases; at the path shapes, the kernel's time, the plain
+     version's, one PyTorch library call's where one computes the same
+     function (a yardstick the port never calls) and the card's bound;
   3. parity: Yi-6B at full width cut to 2 layers, fp32, one set of weights
      made on the CPU and copied to the card; 3 ragged prompts through prefill
-     and 4 decode steps on the card (kernels) and on the CPU (plain versions);
-  4. the full model: Yi-6B, 32 layers, bf16, weights made on the card, served
-     by ``ServingEngine`` over a seeded Poisson trace, with the exact kernel
-     launch counts of the run; then a ``torch.profiler`` window over decode
-     steps and a prefill call (device busy share, device time by kernel
-     group), which reports and never fails the run;
-  5. the ``kernels`` line, and as the last line
+     and 4 decode steps, and one layered, partitioned train step, each on the
+     card (kernels) and on the CPU (plain versions);
+  4. serving the full model: Yi-6B, 32 layers, bf16, weights made on the
+     card, served by ``ServingEngine`` over a seeded Poisson trace, with the
+     exact kernel launch counts of the run; then a ``torch.profiler`` window
+     over decode steps and a prefill call (device busy share, device time by
+     kernel group), which reports and never fails the run;
+  5. training at full width: ``python -m repro_torch.launch.train`` on Yi-6B
+     cut to 8 layers (bf16 compute over fp32 ZeRO-layout state, layered
+     accumulation, fused AdamW), global batch 8 x 2048 tokens in 4
+     micro-batches, with the exact launch counts of every step; then one
+     profiled step, which reports and never fails the run;
+  6. the ``kernels`` line, and as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -70,10 +76,15 @@ def bf16_ulp(scale: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(scale, 2.0 ** -100))) - 7)
 
 
-def tolerance(torch, ref) -> float:
+def tolerance(torch, ref, rel: bool = False) -> float:
+    """bf16: one ulp of the output's scale.  fp32: FP32_TOL, times the
+    output's scale when ``rel`` (the backward kernels' outputs are sums of
+    up to thousands of terms, so their summation-order error scales with
+    them)."""
+    scale = ref.float().abs().max().item()
     if ref.dtype == torch.bfloat16:
-        return bf16_ulp(ref.float().abs().max().item())
-    return FP32_TOL
+        return bf16_ulp(scale)
+    return FP32_TOL * max(1.0, scale) if rel else FP32_TOL
 
 
 def bound(nbytes: float, flops: float, dtype: str):
@@ -85,26 +96,28 @@ def bound(nbytes: float, flops: float, dtype: str):
 # ---------------------------------------------------------------------------
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
-def check_case(torch, name, got, want, failures) -> float:
+def check_case(torch, name, got, want, failures, parts=("", " [lse]"),
+               rel: bool = False) -> float:
     torch.cuda.synchronize()
     outs = got if isinstance(got, tuple) else (got,)
     refs = want if isinstance(want, tuple) else (want,)
     errs = []
-    for part, g, w in zip(("", " [lse]"), outs, refs):
+    for part, g, w in zip(parts, outs, refs):
         if g.shape != w.shape or g.dtype != w.dtype:
             failures.append(f"{name}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
             return float("inf")
         err = (g.float() - w.float()).abs().max().item()
-        tol = tolerance(torch, w)
+        tol = tolerance(torch, w, rel)
         errs.append(err)
         ok = err <= tol and bool(torch.isfinite(g.float()).all())
         say(f"  {name}{part}: max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
         if not ok:
             failures.append(name)
-    return errs[0]
+    return max(errs)
 
 
 def phase_kernels(torch, F):
+    from repro_torch.kernels import adamw as aw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import rmsnorm as rn
@@ -212,6 +225,141 @@ def phase_kernels(torch, F):
         library_ms=None,
         bound=bound(es * (2 * qd.numel() + 2 * live * Hkv * D) + 4 * (bt.numel() + R),
                     4 * Hq * D * live, "bfloat16"))
+    # -- K2 RMSNorm backward: training rows mb*S = 2*2048, d_model 4096
+    say("K2 rmsnorm_bwd (dx and dscale; fp32 tol 1e-4 of the output scale, bf16 one ulp)")
+    main = None
+    for rows_, D, dtype, p1 in [(4096, 4096, torch.bfloat16, False),
+                                (4096, 4096, torch.float32, False),
+                                (8, 4096, torch.bfloat16, False),
+                                (37, 3584, torch.bfloat16, True),
+                                (5, 2048, torch.float32, True)]:
+        x, dy, s = randn(rows_, D, dtype=dtype), randn(rows_, D, dtype=dtype), randn(D)
+        err = check_case(torch, f"rows={rows_} D={D} {str(dtype)[6:]} plus_one={p1}",
+                         rn.rmsnorm_bwd_cuda(x, s, dy, plus_one=p1),
+                         rn.plain_bwd(x, s, dy, plus_one=p1), failures,
+                         parts=(" [dx]", " [dscale]"), rel=True)
+        main = main or (x, dy, s, err)
+    x, dy, s, err = main
+    xr, sr = x.detach().requires_grad_(), s.to(x.dtype).requires_grad_()
+
+    def lib_fwd():
+        return F.rms_norm(xr, (x.shape[1],), sr, 1e-6)
+
+    def lib_fwd_bwd():
+        torch.autograd.grad(lib_fwd(), [xr, sr], dy)
+
+    es = x.element_size()
+    rows["rmsnorm_bwd"] = dict(
+        shape=f"x, dy [{x.shape[0]}, {x.shape[1]}] bf16", max_abs_err=err,
+        ms=cuda_ms(torch, lambda: rn.rmsnorm_bwd_cuda(x, s, dy), 200),
+        plain_ms=cuda_ms(torch, lambda: rn.plain_bwd(x, s, dy), 20),
+        library_ms=cuda_ms(torch, lib_fwd_bwd, 100) - cuda_ms(torch, lib_fwd, 100),
+        bound=bound(3 * x.numel() * es + 8 * x.shape[1], 10 * x.numel(), "bfloat16"))
+
+    # -- K4/K5 flash backward: training micro-batch 2 x 2048, 32 q heads, 4 KV heads
+    say("K4 flash_attention_bwd_dq (dq, delta) and K5 flash_attention_bwd_dkv (dk, dv), "
+        "fed the K3 forward's out and lse; fp32 tol 1e-4 of the output scale, bf16 one ulp")
+    main = None
+    for (B, S, Hq, Hkv, D), dtype, kw in [
+            ((2, 2048, 32, 4, 128), torch.bfloat16, dict(causal=True)),
+            ((1, 1024, 32, 4, 128), torch.float32, dict(causal=True)),
+            ((2, 512, 32, 4, 128), torch.bfloat16, dict(causal=True, window=128, softcap=50.0)),
+            ((2, 300, 16, 1, 128), torch.bfloat16, dict(causal=True)),            # MQA, ragged
+            ((3, 77, 8, 2, 128), torch.float32, dict(causal=True, kv_len=70)),
+            ((2, 300, 8, 2, 64), torch.bfloat16, dict(causal=True, window=40)),
+            ((2, 256, 8, 4, 256), torch.bfloat16, dict(causal=True, window=64, softcap=50.0)),
+            ((2, 50, 4, 2, 64), torch.float32, dict(causal=False, kv_len=41))]:
+        q, k, v = randn(B, S, Hq, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype), \
+            randn(B, S, Hkv, D, dtype=dtype)
+        do = randn(B, S, Hq, D, dtype=dtype)
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+        name = f"q={[B, S, Hq, D]} kv_heads={Hkv} {str(dtype)[6:]} {kw}"
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
+        dq_p, delta_p = fa.plain_bwd_dq(q, k, v, out, lse, do, **kw)
+        err4 = check_case(torch, "K4 " + name, (dq, delta), (dq_p, delta_p), failures,
+                          parts=(" [dq]", " [delta]"), rel=True)
+        got = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        err5 = check_case(torch, "K5 " + name, got,
+                          fa.plain_bwd_dkv(q, k, v, do, lse, delta_p, **kw), failures,
+                          parts=(" [dk]", " [dv]"), rel=True)
+        main = main or (q, k, v, do, out, lse, delta, err4, err5)
+        del out, lse, dq, delta, dq_p, delta_p, got
+    q, k, v, do, out, lse, delta, err4, err5 = main
+    B, S, Hq, D = q.shape
+    es = q.element_size()
+    pairs = B * Hq * S * (S + 1) // 2                       # causal, live (q, k) pairs
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), [qt, kt, vt], dot)
+
+    sdpa_bwd_ms = cuda_ms(torch, sdpa_fwd_bwd, 10) - cuda_ms(torch, sdpa, 10)
+    shape = (f"q [{B}, {S}, {Hq}, {D}] k/v [{B}, {S}, {k.shape[2]}, {D}] bf16 causal; "
+             f"library: SDPA's backward, dq, dk and dv together")
+    rows["flash_attention_bwd_dq"] = dict(
+        shape=shape, max_abs_err=err4,
+        ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do), 5),
+        plain_ms=cuda_ms(torch, lambda: fa.plain_bwd_dq(q, k, v, out, lse, do), 2),
+        library_ms=sdpa_bwd_ms,
+        bound=bound(es * (4 * q.numel() + 2 * k.numel()) + 8 * B * Hq * S,
+                    6 * D * pairs, "bfloat16"))
+    rows["flash_attention_bwd_dkv"] = dict(
+        shape=shape, max_abs_err=err5,
+        ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta), 5),
+        plain_ms=cuda_ms(torch, lambda: fa.plain_bwd_dkv(q, k, v, do, lse, delta), 2),
+        library_ms=sdpa_bwd_ms,
+        bound=bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * B * Hq * S,
+                    8 * D * pairs, "bfloat16"))
+    k3_train_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 5)
+    sdpa_fwd_ms = cuda_ms(torch, sdpa, 10)
+    k3_bound = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * B * Hq * S,
+                     4 * D * pairs, "bfloat16")
+    say(f"  time flash_attention_fwd at the training shape q [{B}, {S}, {Hq}, {D}] bf16 "
+        f"causal: kernel_ms={k3_train_ms:.4f} library_ms={sdpa_fwd_ms:.4f} bound_ms="
+        f"{k3_bound[0]:.4f} ({k3_bound[1]})")
+    del main, q, k, v, do, out, lse, delta, qt, kt, vt, dot
+
+    # -- K6 AdamW: the largest storage leaf of the 8-layer Yi-6B, the stacked w_up
+    say("K6 adamw (in place; fp32 tol 1e-4, bf16 moments one ulp of their scale)")
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    sc = torch.tensor([3e-3, 1 - 0.9 ** 3, 1 - 0.95 ** 3, 0.7], device=dev)
+    main = None
+    for shape, mdt in [((8, 1, 1, 4096 * 11008), torch.float32),
+                       ((3, 1, 1, 4099), torch.bfloat16),
+                       ((1, 1, 1000003), torch.bfloat16),
+                       ((5,), torch.float32)]:
+        p_, g_ = randn(*shape), randn(*shape) * 0.3
+        m_, v_ = (randn(*shape) * 0.1).to(mdt), (randn(*shape) * 0.01).square().to(mdt)
+        want = aw.plain(p_, m_, v_, g_, sc, **hyper)
+        got = [t.clone() for t in (p_, m_, v_)]
+        aw.adamw_cuda(*got, g_, sc, **hyper)
+        err = check_case(torch, f"leaf {list(shape)} moments {str(mdt)[6:]}", tuple(got),
+                         want, failures, parts=(" [p]", " [m]", " [v]"))
+        main = main or (p_, m_, v_, g_, err)
+        del got, want
+    p_, m_, v_, g_, err = main
+    n = p_.numel()
+    lib_ms = None
+    try:
+        steps_ = [torch.tensor(3.0, device=dev)]
+        lib_ms = cuda_ms(torch, lambda: torch._fused_adamw_(
+            [p_], [g_], [m_], [v_], [], steps_, lr=3e-3, beta1=0.9, beta2=0.95,
+            weight_decay=0.1, eps=1e-8, amsgrad=False, maximize=False), 20)
+    except (RuntimeError, TypeError) as e:   # the yardstick only; say why it is missing
+        say(f"  torch._fused_adamw_ not timed: {type(e).__name__}: {e}")
+    rows["adamw"] = dict(
+        shape=f"stacked w_up leaf [8, 1, 1, {4096 * 11008}] fp32, fp32 moments",
+        max_abs_err=err,
+        ms=cuda_ms(torch, lambda: aw.adamw_cuda(p_, m_, v_, g_, sc, **hyper), 20),
+        plain_ms=cuda_ms(torch, lambda: aw.plain(p_, m_, v_, g_, sc, **hyper), 5),
+        library_ms=lib_ms, bound=bound(28 * n, 15 * n, "float32"))
+    del main, p_, m_, v_, g_
+    torch.cuda.empty_cache()
+
     for name, r in rows.items():
         say(f"  time {name} at {r['shape']}: kernel_ms={r['ms']:.4f} plain_ms="
             f"{r['plain_ms']:.4f} library_ms={r['library_ms']} bound_ms="
@@ -267,6 +415,69 @@ def phase_parity(torch, np):
     if not (err <= tol and same and finite):
         raise AssertionError("card and CPU disagree at full width")
     return err
+
+
+def phase_train_parity(torch):
+    """One layered, partitioned train step of Yi-6B at full width (2 layers,
+    fp32, M = 2 micro-batches of 1 x 128 tokens) on the card and on the CPU
+    from the same weights."""
+    from repro_torch import configs, tree
+    from repro_torch.core import stepfn
+    from repro_torch.core.accumulation import AccumConfig
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.optim.adam import AdamConfig, adam_init
+
+    cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=2, dtype="float32")
+    opt_cfg = AdamConfig(lr=1e-3, warmup_steps=1, decay_steps=4)
+    step = stepfn.build_train_step(cfg, AccumConfig("layered", True, 2), opt_cfg)
+    batch = make_batch(DataConfig(cfg.vocab_size, 128, 2, 2, seed=SEED), 0)
+    state = {"cpu": stepfn.init_storage(cfg, SEED, partitioned=True, device="cpu")}
+    state["cuda"] = tree.tree_map(lambda t: t.to("cuda", copy=True), state["cpu"])
+    out = {}
+    for dev in ("cpu", "cuda"):
+        storage = state.pop(dev)
+        opt = adam_init(storage)
+        storage, opt, m = step(storage, opt, batch)
+        out[dev] = dict(loss=m["loss"].item(), gnorm=m["grad_norm"].item(), lr=m["lr"].item(),
+                        p=tree.leaves_with_path(storage), mu=tree.leaves(opt["mu"]),
+                        nu=tree.leaves(opt["nu"]))
+        del storage, opt
+    c, g = out["cpu"], out["cuda"]
+    problems, worst = [], {}
+    if not (math.isfinite(g["loss"]) and abs(g["loss"] - c["loss"]) <= 1e-5 * abs(c["loss"])
+            and abs(g["gnorm"] - c["gnorm"]) <= 1e-4 * abs(c["gnorm"])):
+        problems.append(f"loss {g['loss']} vs {c['loss']}, grad norm {g['gnorm']} vs {c['gnorm']}")
+    lr = c["lr"]
+
+    def ratio(mu, nu):
+        # Adam's first step: m/(1-b1) and v/(1-b2) are the clipped g and g^2
+        return (mu / (1 - opt_cfg.b1)) / (torch.sqrt(nu / (1 - opt_cfg.b2)) + opt_cfg.eps)
+
+    for i, ((path, p_g), (_, p_c)) in enumerate(zip(g["p"], c["p"])):
+        name = ".".join(path)
+        for kind, a, b in (("mu", g["mu"][i].cpu(), c["mu"][i]), ("nu", g["nu"][i].cpu(), c["nu"][i])):
+            # (1 - b1) g and (1 - b2) g^2: fp32 sums of thousands of products
+            # taken in another order
+            d = (a - b).abs().max().item()
+            worst[kind] = max(worst.get(kind, 0.0), d)
+            if d > 1e-4 * b.abs().max().item() + 1e-12:
+                problems.append(f"{kind} {name} max diff {d:.3e}")
+        # the weights: Adam's update lr * g / (|g| + eps) amplifies a gradient
+        # difference of d by up to lr * d / eps near g = 0, so the weights must
+        # differ by exactly what each side's own moments predict, to fp32 noise
+        pred = -lr * (ratio(g["mu"][i].cpu(), g["nu"][i].cpu()) - ratio(c["mu"][i], c["nu"][i]))
+        resid = ((p_g.cpu() - p_c) - pred).abs()
+        worst["p"] = max(worst.get("p", 0.0), (p_g.cpu() - p_c).abs().max().item())
+        worst["p - predicted"] = max(worst.get("p - predicted", 0.0), resid.max().item())
+        if bool((resid > 1e-6 + 1e-5 * p_c.abs()).any()):
+            problems.append(f"p {name} off its predicted update by {resid.max().item():.3e}")
+    say(f"  Yi-6B width 4096, 2 layers, fp32, one layered partitioned step, M=2 x 128 "
+        f"tokens: loss card {g['loss']:.6f} cpu {c['loss']:.6f}, grad norm card "
+        f"{g['gnorm']:.6f} cpu {c['gnorm']:.6f}; max abs diff of the updated leaves {worst} "
+        f"(tol: loss 1e-5 and grad norm 1e-4 relative; moments 1e-4 of each leaf's scale; "
+        f"weights 1e-6 + 1e-5 relative off the update each side's moments predict)")
+    if problems:
+        raise AssertionError("train step: card and CPU disagree: " + "; ".join(problems))
 
 
 # ---------------------------------------------------------------------------
@@ -439,11 +650,129 @@ def phase_profile(torch, np, params):
 
 
 # ---------------------------------------------------------------------------
+# Phase 5: training at full width through the entry point
+# ---------------------------------------------------------------------------
+TRAIN_LAYERS, TRAIN_MB, TRAIN_STEPS = 8, 4, 5
+TRAIN_ARGV = ["--arch", "yi-6b", "--layers", str(TRAIN_LAYERS), "--global-batch", "8",
+              "--seq-len", "2048", "--microbatches", str(TRAIN_MB), "--steps",
+              str(TRAIN_STEPS), "--lr", "3e-3", "--seed", str(SEED)]
+
+
+def phase_train(torch, smi):
+    from repro_torch.kernels import adamw as aw
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import train
+
+    L, M = TRAIN_LAYERS, TRAIN_MB
+    counters = {"rmsnorm": (rn, "launches"), "rmsnorm_bwd": (rn, "bwd_launches"),
+                "flash_attention_fwd": (fa, "launches"),
+                "flash_attention_bwd_dq": (fa, "bwd_dq_launches"),
+                "flash_attention_bwd_dkv": (fa, "bwd_dkv_launches"),
+                "adamw": (aw, "launches")}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    res = train.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+    # one layered step: the forward (2 norms, 1 attention per layer and
+    # micro-batch), the head (final norm forward and backward per
+    # micro-batch), the backward's recompute and its backward; AdamW once
+    # per storage leaf (9 stacked layer leaves, embed, head, final norm)
+    per_step = {"rmsnorm": 4 * L * M + M, "rmsnorm_bwd": 2 * L * M + M,
+                "flash_attention_fwd": 2 * L * M, "flash_attention_bwd_dq": L * M,
+                "flash_attention_bwd_dkv": L * M, "adamw": 12}
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    for r in res["records"]:
+        say(f"  step {r['step']}: {r['step_time_s']:.3f} s, {r['tokens_per_s']:.0f} tok/s, "
+            f"MFU {100 * r['mfu']:.2f}% of 989 TFLOP/s (6ND), loss {r['loss']:.4f}, "
+            f"grad norm {r['grad_norm']:.4f}, max memory allocated {r['peak_mem_gb']:.2f} GB")
+    steady = res["records"][1:]
+    say(f"  training on {smi}: Yi-6B width 4096 cut to {L} layers, bf16 compute, fp32 state, "
+        f"layered + partitioned, 8 x 2048 tokens in {M} micro-batches; steady steps "
+        f"(after the first) mean {sum(r['step_time_s'] for r in steady) / len(steady):.3f} s, "
+        f"{sum(r['tokens_per_s'] for r in steady) / len(steady):.0f} tok/s, MFU "
+        f"{100 * sum(r['mfu'] for r in steady) / len(steady):.2f}%")
+    say(f"  launches over {TRAIN_STEPS} steps {counts}; per step {per_step}")
+    problems = []
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in res["records"]):
+        problems.append("non-finite loss or grad norm")
+    if counts != want:
+        problems.append(f"launch counts {counts} != {want}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    try:
+        phase_train_profile(torch)
+    except Exception as e:  # noqa: BLE001 — the breakdown is optional; say why it is missing
+        say(f"  profile: not measured ({type(e).__name__}: {e})")
+    return counts
+
+
+def phase_train_profile(torch):
+    """Device time by group over one steady train step (after one warm-up
+    step) at the phase's configuration."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.core import stepfn
+    from repro_torch.core.accumulation import AccumConfig
+    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.optim.adam import AdamConfig, adam_init
+
+    cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=TRAIN_LAYERS)
+    step = stepfn.build_train_step(cfg, AccumConfig("layered", True, TRAIN_MB),
+                                   AdamConfig(lr=3e-3, warmup_steps=1, decay_steps=5))
+    storage = stepfn.init_storage(cfg, SEED, partitioned=True, device="cuda")
+    opt = adam_init(storage)
+    data = DataConfig(cfg.vocab_size, 2048, 8, TRAIN_MB, seed=SEED)
+    storage, opt, _ = step(storage, opt, make_batch(data, 0))
+    batch = make_batch(data, 1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        storage, opt, m = step(storage, opt, batch)
+        m["loss"].item()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    names = ("rmsnorm_kernel", "rmsnorm_bwd_kernel", "flash_fwd_kernel",
+             "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "adamw_kernel")
+    groups = dict.fromkeys((*names, "gemm", "other"), 0.0)
+    for e in kern:
+        key = e.key.lower()
+        hit = next((n for n in names if n in key), None)
+        if hit is None:
+            hit = "gemm" if any(k in key for k in ("gemm", "xmma", "cutlass", "nvjet",
+                                                    "gemv")) else "other"
+        groups[hit] += e.self_device_time_total
+    say(f"  profile train step: wall {wall_us / 1e3:.1f} ms, device busy {dev_us / 1e3:.1f} ms "
+        f"({100 * dev_us / wall_us:.1f}% of wall, idle {100 - 100 * dev_us / wall_us:.1f}%), "
+        f"kernel launches {sum(e.count for e in kern)}; device ms by group "
+        f"{ {k: round(v / 1e3, 2) for k, v in groups.items()} }")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        say(f"    {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<5d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu",
+                    "src/repro/kernels/rmsnorm.py:33"),
     "flash_attention_fwd": ("src/repro_torch/kernels/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:63"),
+    "flash_attention_bwd_dq": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                               "src/repro/kernels/flash_attention.py:133"),
+    "flash_attention_bwd_dkv": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                                "src/repro/kernels/flash_attention.py:171"),
+    "adamw": ("src/repro_torch/kernels/csrc/adamw.cu",
+              "src/repro/kernels/adamw.py:34"),
     "paged_attention_decode": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                                "src/repro/kernels/paged_attention.py:40"),
 }
@@ -488,15 +817,22 @@ def main() -> int:
 
         t0 = time.perf_counter()
         phase_parity(torch, np)
+        phase_train_parity(torch)
         say(f"[phase 3] full-width card vs CPU parity ok; {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        counts = phase_engine(torch, np, smi)
+        serve_counts = phase_engine(torch, np, smi)
         say(f"[phase 4] full Yi-6B engine run ok; {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        train_counts = phase_train(torch, smi)
+        say(f"[phase 5] full-width Yi-6B training run ok; {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
 
+    # launches: the serving run's plus the training run's
+    counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0) for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],
@@ -504,7 +840,7 @@ def main() -> int:
          "bound_ms": rows[name]["bound"][0], "bound_by": rows[name]["bound"][1],
          "library_ms": rows[name]["library_ms"]}
         for name, (src, rep) in KERNELS.items()]}
-    say(f"[phase 5] total {time.perf_counter() - t_all:.1f} s")
+    say(f"[phase 6] total {time.perf_counter() - t_all:.1f} s")
     say(smi)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,5 +1,7 @@
-"""Architecture registry: ``--arch <id>`` resolution (the attention-stack
-token models the port serves so far; the other families come later)."""
+"""Architecture registry: ``--arch <id>`` resolution (the dense
+attention-stack token models the port runs so far; the other families come
+later).  ``paper-*`` configs resolve but are kept out of ``list_archs()``,
+as in the JAX registry."""
 from __future__ import annotations
 
 import importlib
@@ -11,6 +13,7 @@ ARCHS = {
     "granite-20b": "granite_20b",
     "gemma-2b": "gemma_2b",
     "gemma2-9b": "gemma2_9b",
+    "paper-x32": "paper_x",
 }
 
 
@@ -22,4 +25,4 @@ def get_config(arch: str, *, smoke: bool = False) -> ModelConfig:
 
 
 def list_archs() -> list[str]:
-    return list(ARCHS)
+    return [a for a in ARCHS if not a.startswith("paper-")]

@@ -1,0 +1,58 @@
+"""Deterministic synthetic LM data (counterpart of
+``repro/data/synthetic.py``): an order-1 latent Markov token stream with
+per-sequence drift plus noise, so training shows a real loss decrease while
+staying offline and seeded.  The stream is numpy's, so a batch is bit-equal
+to the JAX package's for the same config and step.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from repro_torch.models.common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    n_microbatches: int = 1
+    seed: int = 0
+    noise: float = 0.1          # fraction of uniformly resampled tokens
+
+
+def _sequence(rng: np.random.Generator, cfg: DataConfig) -> np.ndarray:
+    """One learnable sequence: x_{t+1} = (a*x_t + b) mod V with noise."""
+    v = cfg.vocab_size
+    a = int(rng.integers(2, 8))
+    b = int(rng.integers(0, v))
+    x = np.empty(cfg.seq_len + 1, np.int64)
+    x[0] = rng.integers(0, v)
+    for t in range(cfg.seq_len):
+        if rng.random() < cfg.noise:
+            x[t + 1] = rng.integers(0, v)
+        else:
+            x[t + 1] = (a * x[t] + b) % v
+    return x
+
+
+def make_batch(cfg: DataConfig, step: int) -> dict:
+    """Global micro-batched batch: int32 CPU tensors [M, B/M, S]."""
+    rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, step]))
+    B, S, M = cfg.global_batch, cfg.seq_len, cfg.n_microbatches
+    if B % M:
+        raise ValueError(f"global batch {B} is not a multiple of {M} micro-batches")
+    seqs = np.stack([_sequence(rng, cfg) for _ in range(B)])
+    tokens = seqs[:, :-1].reshape(M, B // M, S).astype(np.int32)
+    labels = seqs[:, 1:].reshape(M, B // M, S).astype(np.int32)
+    return {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels),
+            "mask": torch.ones(tokens.shape, dtype=torch.int32)}
+
+
+def batch_for(model: ModelConfig, cfg: DataConfig, step: int) -> dict:
+    if model.input_mode != "tokens":
+        raise NotImplementedError(f"input mode {model.input_mode!r} is not ported yet")
+    return make_batch(cfg, step)

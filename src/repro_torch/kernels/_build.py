@@ -27,14 +27,21 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_LL = ctypes.c_longlong
 _LL3 = ctypes.POINTER(ctypes.c_longlong)
 # (name, argtypes) of every C entry point; each returns an int status
 ENTRY_POINTS = {
     "rt_rmsnorm_fwd": [_P, _P, _P, _I, _I, _F, _I, _I, _P],
+    "rt_rmsnorm_bwd": [_P, _P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
     "rt_flash_attention_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _LL3, _LL3, _LL3, _I, _I, _I, _F, _I, _P],
+    "rt_flash_attention_bwd_dq": [_P] * 8 + [_I] * 5 + [_LL3] * 5
+                                 + [_I, _I, _I, _F, _I, _P],
+    "rt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_LL3] * 4
+                                  + [_I, _I, _I, _F, _I, _P],
     "rt_paged_attention_decode": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                   _I, _I, _I, _F, _I, _P],
+    "rt_adamw": [_P, _P, _P, _P, _P, _LL, _F, _F, _F, _F, _F, _F, _I, _P],
 }
 
 

@@ -1,13 +1,19 @@
-"""Device dispatch for the kernels the model code calls.
+"""Device dispatch for the kernels the model and optimizer code call.
 
 A tensor on the CPU goes to the kernel's plain version (the CPU tests); a
 tensor on the card goes to the hand-written kernel, which launches or
 raises.  There is no fallback from one to the other.
+
+``rmsnorm`` and ``flash_attention`` are ``torch.autograd.Function``s whose
+backward is a kernel too (K2; K4 and K5), as the JAX package's custom VJPs
+are: a raw ctypes launch has no autograd rule, so without them a loss on the
+card would lose every gradient upstream of a norm or an attention.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import adamw as _aw
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rmsnorm as _rn
@@ -21,21 +27,68 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
 
 
+class _RMSNorm(torch.autograd.Function):
+    """K1 forward, K2 backward.  The kernels read the scale in fp32: a bf16
+    scale (the training path gathers every leaf in ``cfg.dtype``, as the JAX
+    package does) is widened exactly, and dscale is rounded back to the
+    scale's dtype, as the JAX custom VJP rounds it."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps, plus_one):
+        s32 = scale.float()
+        if _on_cuda(x, "rmsnorm"):
+            out = _rn.rmsnorm_cuda(x, s32, eps=eps, plus_one=plus_one)
+        else:
+            out = _rn.plain(x, s32, eps=eps, plus_one=plus_one)
+        ctx.save_for_backward(x, s32)
+        ctx.eps, ctx.plus_one, ctx.scale_dtype = eps, plus_one, scale.dtype
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, s32 = ctx.saved_tensors
+        fn = _rn.rmsnorm_bwd_cuda if x.is_cuda else _rn.plain_bwd
+        dx, ds = fn(x, s32, g.contiguous(), eps=ctx.eps, plus_one=ctx.plus_one)
+        return dx, ds.to(ctx.scale_dtype), None, None
+
+
 def rmsnorm(x, scale, *, eps: float = 1e-6, plus_one: bool = False):
-    """x: [..., D]; scale: fp32 [D].  ``plus_one`` is the ``rmsnorm_p1``
-    (gemma ``1 + scale``) variant."""
-    if _on_cuda(x, "rmsnorm"):
-        return _rn.rmsnorm_cuda(x, scale, eps=eps, plus_one=plus_one)
-    return _rn.plain(x, scale, eps=eps, plus_one=plus_one)
+    """x: [..., D]; scale: [D] (fp32, or bf16 on the training path).
+    ``plus_one`` is the ``rmsnorm_p1`` (gemma ``1 + scale``) variant.
+    Differentiable in x and scale."""
+    return _RMSNorm.apply(x, scale, float(eps), bool(plus_one))
+
+
+class _Flash(torch.autograd.Function):
+    """K3 forward (saving q, k, v, out and lse); K4 then K5 backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap, kv_len):
+        fn = _fa.flash_attention_fwd_cuda if _on_cuda(q, "flash_attention") else _fa.plain
+        out, lse = fn(q, k, v, causal=causal, window=window, softcap=softcap,
+                      kv_len=kv_len)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.spec = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        if q.is_cuda:
+            dq, delta = _fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **ctx.spec)
+            dk, dv = _fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **ctx.spec)
+        else:
+            dq, delta = _fa.plain_bwd_dq(q, k, v, out, lse, do, **ctx.spec)
+            dk, dv = _fa.plain_bwd_dkv(q, k, v, do, lse, delta, **ctx.spec)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
                     softcap: float = 0.0, kv_len: int = 0):
-    """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] -> out [B, S, Hq, D] (the
-    forward; the lse is dropped until the training slice needs it)."""
-    fn = _fa.flash_attention_fwd_cuda if _on_cuda(q, "flash_attention") else _fa.plain
-    out, _ = fn(q, k, v, causal=causal, window=window, softcap=softcap, kv_len=kv_len)
-    return out
+    """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] -> out [B, S, Hq, D].
+    Differentiable in q, k and v."""
+    return _Flash.apply(q, k, v, bool(causal), int(window), float(softcap), int(kv_len))
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
@@ -46,3 +99,16 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
     fn = _pa.paged_attention_cuda if _on_cuda(q, "paged_attention") else _pa.plain
     return fn(q, k_pool, v_pool, block_tables, context_lens, window=window,
               softcap=softcap)
+
+
+def fused_adamw(p, m, v, g, scalars, *, b1: float, b2: float, eps: float,
+                wd: float) -> None:
+    """One-pass AdamW on a storage leaf, in place (p, m and v are
+    overwritten).  ``scalars`` fp32 [4] = (lr, 1 - b1^t, 1 - b2^t, grad
+    scale), on the leaf's device."""
+    hyper = dict(b1=b1, b2=b2, eps=eps, wd=wd)
+    if _on_cuda(p, "fused_adamw"):
+        _aw.adamw_cuda(p, m, v, g, scalars, **hyper)
+        return
+    for dst, new in zip((p, m, v), _aw.plain(p, m, v, g, scalars, **hyper)):
+        dst.copy_(new)

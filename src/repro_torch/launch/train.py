@@ -1,0 +1,117 @@
+"""Training entry point: real steps on one card (counterpart of
+``repro/launch/train.py``).
+
+Runs ``build_train_step`` (layered or standard accumulation, over the fp32
+ZeRO chunk layout unless ``--no-partition``, then AdamW: the fused one-pass
+kernel on the chunks) on deterministic synthetic data.  Weights are random,
+drawn from ``--seed``; the run goes on the card unless ``--device cpu`` is
+given (the plain PyTorch versions of the kernels).
+
+Examples:
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \\
+      --device cpu --steps 3
+  PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --layers 8 \\
+      --global-batch 8 --seq-len 2048 --microbatches 4 --steps 5
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+
+import torch
+
+from repro_torch import configs
+from repro_torch.core import stepfn
+from repro_torch.core.accumulation import AccumConfig
+from repro_torch.data.synthetic import DataConfig, batch_for
+from repro_torch.device import resolve_device
+from repro_torch.obs import metrics as obs_metrics
+from repro_torch.optim.adam import AdamConfig, adam_init
+
+# the JAX trainer's flags for what the port has not yet: each is refused
+NOT_PORTED = ("--plan", "--stages", "--schedule", "--split-backward", "--checkpoint-dir",
+              "--resume", "--faults", "--metrics", "--trace", "--drift-report")
+
+
+def main(argv=None) -> dict:
+    ap = argparse.ArgumentParser(allow_abbrev=False)
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="use the reduced config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers at full width (0: the "
+                         "config's depth)")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (the kernels) or cpu (their plain versions)")
+    ap.add_argument("--steps", type=int, default=20)
+    ap.add_argument("--global-batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=64)
+    ap.add_argument("--microbatches", type=int, default=2)
+    ap.add_argument("--method", default="layered", choices=["layered", "standard"])
+    ap.add_argument("--no-partition", action="store_true")
+    ap.add_argument("--lr", type=float, default=3e-3)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mesh", default="1x1",
+                    help="data x model; the port runs 1x1 (one card) so far")
+    ap.add_argument("--log-every", type=int, default=1)
+    for flag in NOT_PORTED:
+        ap.add_argument(flag, nargs="?", const=True, default=None,
+                        help="not ported yet")
+    args = ap.parse_args(argv)
+    refused = [f for f in NOT_PORTED if getattr(args, f[2:].replace("-", "_")) is not None]
+    if args.mesh != "1x1":
+        refused.append(f"--mesh {args.mesh}")
+    if refused:
+        ap.error(f"not ported yet: {', '.join(refused)} (the port trains on one card: "
+                 f"--mesh 1x1, no pipeline, checkpoints or telemetry yet)")
+
+    device = resolve_device(args.device)
+    cfg = configs.get_config(args.arch, smoke=args.smoke)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    partitioned = not args.no_partition
+    opt_cfg = AdamConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
+                         decay_steps=args.steps)
+    acc = AccumConfig(method=args.method, partitioned=partitioned,
+                      n_microbatches=args.microbatches)
+    step = stepfn.build_train_step(cfg, acc, opt_cfg)
+    storage = stepfn.init_storage(cfg, args.seed, partitioned=partitioned, device=device)
+    opt = adam_init(storage, moment_dtype=opt_cfg.moment_dtype)
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+                      global_batch=args.global_batch, n_microbatches=args.microbatches,
+                      seed=args.seed)
+    tokens_per_step = args.global_batch * args.seq_len
+
+    history, records = [], []
+    t_start = time.time()
+    for i in range(args.steps):
+        batch = batch_for(cfg, data, i)
+        t0 = time.perf_counter()
+        storage, opt, metrics = step(storage, opt, batch)
+        loss = float(metrics["loss"])          # device sync: ends the step
+        dt = time.perf_counter() - t0
+        tok_s = tokens_per_step / dt
+        rec = {"step": i, "loss": loss, "lr": float(metrics["lr"]),
+               "grad_norm": float(metrics["grad_norm"]), "step_time_s": dt,
+               "tokens_per_s": tok_s,
+               "mfu": obs_metrics.mfu_estimate(cfg, global_batch=args.global_batch,
+                                               seq_len=args.seq_len, step_time_s=dt),
+               "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
+                               if device.type == "cuda" else None)}
+        records.append(rec)
+        history.append(loss)
+        if i % args.log_every == 0:
+            print(f"step {i:5d}  loss {loss:8.4f}"
+                  f"  lr {rec['lr']:.2e}"
+                  f"  gnorm {rec['grad_norm']:7.3f}"
+                  f"  {tok_s:9.0f} tok/s"
+                  f"  {time.time()-t_start:6.1f}s", flush=True)
+    result = {"arch": args.arch, "first_loss": history[0], "last_loss": history[-1],
+              "steps": len(history), "seconds": round(time.time() - t_start, 1)}
+    print(json.dumps(result))
+    return dict(result, records=records, device=str(device))
+
+
+if __name__ == "__main__":
+    main()

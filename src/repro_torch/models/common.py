@@ -115,6 +115,16 @@ class ModelConfig:
             return self.num_layers // self.hybrid_attn_period
         return 0
 
+    # -- parameter counting (the MFU numerator), dense attention stacks ----
+    def params_per_layer(self) -> int:
+        d, h = self.d_model, self.head_dim
+        n = d * h * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * h * d
+        return n + (3 if self.glu else 2) * d * self.d_ff
+
+    def param_count(self) -> int:
+        return (self.num_layers * self.params_per_layer()
+                + self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2))
+
 
 # ---------------------------------------------------------------------------
 # Normalisation
@@ -129,8 +139,8 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
-    """RMSNorm goes through the kernel dispatch (K1); LayerNorm has no
-    kernel in either package."""
+    """RMSNorm goes through the differentiable kernel dispatch (K1 forward,
+    K2 backward); LayerNorm has no kernel in either package."""
     if cfg.norm == "layernorm":
         return layer_norm(x, p["scale"], p["bias"])
     return kops.rmsnorm(x, p["scale"], plus_one=cfg.norm == "rmsnorm_p1")
@@ -192,6 +202,22 @@ def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
         # the factor is rounded to x's dtype first, as the JAX package does
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
     return x
+
+
+def lm_head_loss(cfg: ModelConfig, head: torch.Tensor, x: torch.Tensor,
+                 labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Summed (not averaged) softmax cross-entropy, single process: head
+    [V, D]; x [B, S, D]; labels/mask [B, S].  The logits are a product in
+    x's dtype, then fp32 and the final softcap; per token the loss is
+    ``m + log(sum(exp(logits - m))) - logits[label]``.  The stabiliser m is
+    detached: its gradient cancels exactly, so the value and the gradient are
+    the JAX package's."""
+    logits = lm_logits(cfg, head, x)
+    m = logits.detach().amax(-1)
+    se = torch.exp(logits - m[..., None]).sum(-1)
+    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = (m + torch.log(se) - picked) * mask.float()
+    return nll.sum()
 
 
 def lm_logits(cfg: ModelConfig, head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""Transformer parameters and inputs (counterpart of
-``repro/models/transformer.py``; the serving steps in ``serving/steps.py``
-run the layer stack).
+"""Transformer parameters, inputs, the training forward and the loss
+(counterpart of ``repro/models/transformer.py``; the serving steps in
+``serving/steps.py`` run their own cached layer loop).
 
 Parameters are a plain dict whose names follow the JAX tree, with the layer
 stack as a list: ``layers.{i}.attn.wq`` and so on.  Matrices are stored in
@@ -10,11 +10,12 @@ the values are the same); norm scales stay fp32.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.common import (ModelConfig, dense_init, embed_tokens,
-                                       init_norm)
+from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
+                                       embed_tokens, init_norm, lm_head_loss)
 
 
 def init_layer(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
@@ -62,6 +63,48 @@ def embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
 def layer_tables(cfg: ModelConfig):
     """(windows, shared-attention flags, KV slots), one Python int per layer."""
     return cfg.layer_windows(), cfg.attn_layer_flags(), cfg.attn_slot_index()
+
+
+# ---------------------------------------------------------------------------
+# Training forward and loss (dense attention stacks)
+# ---------------------------------------------------------------------------
+def apply_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
+                positions: torch.Tensor, window: int) -> torch.Tensor:
+    """One layer, training mode: norm -> attention -> norm -> MLP, each with
+    its residual.  (The JAX layer also returns an MoE aux loss, which is 0
+    for the dense stacks the port runs.)"""
+    h = apply_norm(cfg, lp["ln1"], x)
+    x = x + attn_mod.attention_train(cfg, lp["attn"], h, positions=positions,
+                                     window=window)
+    h = apply_norm(cfg, lp["ln2"], x)
+    return x + mlp_mod.apply_mlp(cfg, lp["mlp"], h)
+
+
+def forward(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True):
+    """Embed, the layer stack (each layer recomputed in the backward when
+    ``remat``), the final norm -> x [B, S, D]."""
+    x, positions = embed_inputs(cfg, params, batch)
+    for lp, w in zip(params["layers"], cfg.layer_windows()):
+        if remat:
+            x = checkpoint(apply_layer, cfg, lp, x, positions=positions, window=w,
+                           use_reentrant=False)
+        else:
+            x = apply_layer(cfg, lp, x, positions=positions, window=w)
+    return apply_norm(cfg, params["final_norm"], x)
+
+
+def head_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
+              batch: dict) -> torch.Tensor:
+    return lm_head_loss(cfg, head_weight(cfg, params), x, batch["labels"],
+                        batch["mask"])
+
+
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True):
+    """Summed token loss (and, as the JAX package returns, (nll, n_tok)).
+    The caller divides by the global token count."""
+    x = forward(cfg, params, batch, remat=remat)
+    nll = head_loss(cfg, params, x, batch)
+    return nll, (nll, batch["mask"].float().sum())
 
 
 def to_device(params: dict, device) -> dict:

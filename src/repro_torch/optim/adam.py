@@ -1,0 +1,93 @@
+"""AdamW on the training-state storage (counterpart of
+``repro/optim/adam.py``).
+
+The update is elementwise, so it runs on either layout: full fp32 leaves or
+the flat fp32 chunks of ``core/partition.py``.  Everything stays on the
+storage's device: the step count, the learning rate, the bias corrections
+and the clip scale are device scalars, so a step never waits on the host.
+Unlike the JAX package's functional update, this one writes p, m and v in
+place (no second copy of the state).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Callable
+
+import torch
+
+from repro_torch import tree
+from repro_torch.kernels import ops as kops
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0        # 0 disables clipping
+    warmup_steps: int = 100
+    decay_steps: int = 10_000
+    min_lr_ratio: float = 0.1
+    moment_dtype: str = "float32"   # "bfloat16" halves optimizer-state memory
+
+
+def schedule(c: AdamConfig, step: torch.Tensor) -> torch.Tensor:
+    """Linear warmup + cosine decay, in fp32."""
+    step = step.float()
+    warm = torch.clamp(step / max(c.warmup_steps, 1), max=1.0)
+    t = torch.clamp((step - c.warmup_steps) / max(c.decay_steps, 1), 0.0, 1.0)
+    cos = c.min_lr_ratio + (1 - c.min_lr_ratio) * 0.5 * (1 + torch.cos(math.pi * t))
+    return c.lr * warm * cos
+
+
+def adam_init(storage: dict, *, moment_dtype: str = "float32") -> dict:
+    dt = getattr(torch, moment_dtype)
+    zeros = lambda t: tree.tree_map(lambda l: torch.zeros(l.shape, dtype=dt,  # noqa: E731
+                                                          device=l.device), t)
+    device = tree.leaves(storage)[0].device
+    return {"mu": zeros(storage), "nu": zeros(storage),
+            "step": torch.zeros((), dtype=torch.int32, device=device)}
+
+
+def adam_step(c: AdamConfig, storage: dict, opt: dict, grads: dict, *,
+              sq_reduce: Callable[[dict], torch.Tensor] | None = None,
+              fused: bool = False) -> tuple[dict, dict, dict]:
+    """One AdamW update, in place.  All trees share the storage layout.
+
+    ``fused=True`` sends each leaf to the one-pass kernel (K6 on the card,
+    its plain version on the CPU): the clip scale goes into the kernel's
+    scalars ``(lr, 1 - b1^t, 1 - b2^t, gscale)``, a device fp32 [4], instead
+    of being applied to the gradient tree.  Returns (storage, opt, {"lr",
+    "grad_norm"})."""
+    step = opt["step"] + 1
+    lr = schedule(c, step)
+    if c.grad_clip > 0 and sq_reduce is not None:
+        gnorm = torch.sqrt(sq_reduce(grads) + 1e-16)
+        gscale = torch.clamp(c.grad_clip / gnorm, max=1.0)
+    else:
+        gnorm = torch.zeros((), device=lr.device)
+        gscale = torch.ones((), device=lr.device)
+    t = step.float()
+    b1c = 1 - c.b1 ** t
+    b2c = 1 - c.b2 ** t
+    flat = zip(tree.leaves(storage), tree.leaves(opt["mu"]), tree.leaves(opt["nu"]),
+               tree.leaves(grads))
+    if fused:
+        scalars = torch.stack([lr, b1c, b2c, gscale]).float()
+        for p, m, v, g in flat:
+            kops.fused_adamw(p, m, v, g, scalars, b1=c.b1, b2=c.b2, eps=c.eps,
+                             wd=c.weight_decay)
+    else:
+        for p, m, v, g in flat:
+            g = g * gscale
+            m32 = c.b1 * m.float() + (1 - c.b1) * g
+            v32 = c.b2 * v.float() + (1 - c.b2) * g.square()
+            mh = m32 / b1c
+            vh = v32 / b2c
+            p.copy_(p - lr * (mh / (torch.sqrt(vh) + c.eps) + c.weight_decay * p))
+            m.copy_(m32)
+            v.copy_(v32)
+    return storage, dict(opt, step=step), {"lr": lr, "grad_norm": gnorm}

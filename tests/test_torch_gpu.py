@@ -1,6 +1,7 @@
 """On the card only (marker ``gpu``): each CUDA kernel against its plain
-version, and the serving engine on the card against the same engine on the
-CPU.  Imports neither JAX nor ``repro``, so it runs where JAX is absent:
+version, gradients through the kernels' autograd Functions, and the serving
+engine and the train step on the card against the same on the CPU.  Imports
+neither JAX nor ``repro``, so it runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
@@ -8,13 +9,20 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch import configs
+from repro_torch import configs, tree
+from repro_torch.core import stepfn
+from repro_torch.core.accumulation import AccumConfig
+from repro_torch.data.synthetic import DataConfig, make_batch
+from repro_torch.kernels import adamw as aw
 from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
-from repro_torch.kernels.ref import (flash_attention_fwd_ref, paged_attention_ref,
-                                     rmsnorm_ref)
+from repro_torch.kernels.ref import (adamw_ref, flash_attention_bwd_dkv_ref,
+                                     flash_attention_bwd_dq_ref, flash_attention_fwd_ref,
+                                     paged_attention_ref, rmsnorm_bwd_ref, rmsnorm_ref)
 from repro_torch.models import transformer as T
+from repro_torch.optim.adam import AdamConfig, adam_init
 from repro_torch.serving.cache import PagedCacheConfig
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import SchedulerConfig, poisson_trace
@@ -147,3 +155,182 @@ def test_kernels_match_plain_on_random_shapes(cuda, seed):
     got = pa.paged_attention_cuda(qd, kp, vp, bt, ctx, window=window, softcap=cap)
     want = paged_attention_ref(qd, kp, vp, bt, ctx, window=window, softcap=cap)
     torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype), atol=_tol(dtype))
+
+
+# ---------------------------------------------------------------------------
+# The training slice: K2, K4/K5, K6, and gradients through the Functions
+# ---------------------------------------------------------------------------
+def _close(got, want, dtype):
+    torch.testing.assert_close(got.float(), want.float(), rtol=_tol(dtype),
+                               atol=_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,D,plus_one", [(37, 4096, False), (300, 2048, True),
+                                             (1, 3584, False), (4096, 256, True)])
+def test_rmsnorm_bwd_kernel_matches_plain(cuda, dtype, rows, D, plus_one):
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn(rows, D, generator=g, device=cuda).to(dtype)
+    dy = torch.randn(rows, D, generator=g, device=cuda).to(dtype)
+    s = torch.randn(D, generator=g, device=cuda)
+    n = rn.bwd_launches
+    dx, ds = rn.rmsnorm_bwd_cuda(x, s, dy, plus_one=plus_one)
+    dx_p, ds_p = rmsnorm_bwd_ref(x, s, dy, plus_one=plus_one)
+    torch.cuda.synchronize()
+    assert rn.bwd_launches == n + 1 and ds.dtype == torch.float32
+    _close(dx, dx_p, dtype)
+    torch.testing.assert_close(ds, ds_p, rtol=1e-4, atol=1e-3)   # sums of `rows` terms
+
+
+def _flash_bwd_case(cuda, B, S, Hq, Hkv, D, dtype, kw, seed):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, S, Hq, D, generator=g, device=cuda).to(dtype)
+    k = torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype)
+    v = torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype)
+    do = torch.randn(B, S, Hq, D, generator=g, device=cuda).to(dtype)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
+    dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+    dq_p, delta_p = flash_attention_bwd_dq_ref(q, k, v, out, lse, do, **kw)
+    dk_p, dv_p = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta_p, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(delta, delta_p, rtol=1e-4, atol=1e-4)
+    for got, want in ((dq, dq_p), (dk, dk_p), (dv, dv_p)):
+        assert got.dtype == dtype and got.shape == want.shape
+        _close(got, want, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window,cap,causal,kv_len", [
+    ((2, 200, 8, 2, 128), 0, 0.0, True, 0),
+    ((1, 77, 4, 1, 64), 16, 0.0, True, 70),
+    ((1, 96, 4, 4, 256), 24, 50.0, True, 0),
+    ((2, 50, 4, 2, 64), 12, 0.0, False, 41),
+    ((1, 300, 32, 4, 128), 0, 0.0, True, 0),
+])
+def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, window, cap, causal, kv_len):
+    n = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    _flash_bwd_case(cuda, *shape, dtype, dict(causal=causal, window=window, softcap=cap,
+                                              kv_len=kv_len), seed=shape[1])
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (n[0] + 1, n[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("moment_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(3, 1, 1, 4099), (1, 1, 4096 * 11), (5,)])
+def test_adamw_kernel_matches_plain(cuda, moment_dtype, shape):
+    g = torch.Generator(device=cuda).manual_seed(len(shape))
+    p = torch.randn(shape, generator=g, device=cuda)
+    grad = torch.randn(shape, generator=g, device=cuda) * 0.3
+    m = (torch.randn(shape, generator=g, device=cuda) * 0.1).to(moment_dtype)
+    v = (torch.rand(shape, generator=g, device=cuda) * 0.01).to(moment_dtype)
+    sc = torch.tensor([3e-4, 1 - 0.9 ** 3, 1 - 0.95 ** 3, 0.7], device=cuda)
+    hyper = dict(b1=0.9, b2=0.95, eps=1e-8, wd=0.1)
+    want = adamw_ref(p, m, v, grad, sc, **hyper)
+    n = aw.launches
+    aw.adamw_cuda(p, m, v, grad, sc, **hyper)            # in place
+    torch.cuda.synchronize()
+    assert aw.launches == n + 1
+    for got, w in zip((p, m, v), want):
+        assert got.dtype == w.dtype
+        # fp32: FMA contraction only; bf16 moments: one rounding to bf16
+        torch.testing.assert_close(got.float(), w.float(), rtol=1e-5 if got.dtype ==
+                                   torch.float32 else 8e-3, atol=1e-6)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("seed", range(8))
+def test_backward_kernels_match_plain_on_random_shapes(cuda, seed):
+    """A seeded sweep over the shapes, masks and dtypes K2 and K4/K5 take."""
+    import random
+    rnd = random.Random(100 + seed)
+    dtype = rnd.choice([torch.float32, torch.bfloat16])
+    D = rnd.choice([64, 128, 256])
+    hkv = rnd.choice([1, 2, 4])
+    hq = hkv * rnd.choice([1, 2, 3, 8])
+    B, S = rnd.randint(1, 3), rnd.randint(1, 180)
+    kw = dict(causal=rnd.random() < 0.8, window=rnd.choice([0, 0, 1, 7, 33]),
+              softcap=rnd.choice([0.0, 0.0, 30.0]), kv_len=rnd.randint(1, S))
+    _flash_bwd_case(cuda, B, S, hq, hkv, D, dtype, kw, seed)
+    rows, Dn = rnd.randint(1, 700), rnd.choice([256, 2048, 4096])
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn(rows, Dn, generator=g, device=cuda).to(dtype)
+    dy = torch.randn(rows, Dn, generator=g, device=cuda).to(dtype)
+    s = torch.randn(Dn, generator=g, device=cuda)
+    dx, ds = rn.rmsnorm_bwd_cuda(x, s, dy)
+    dx_p, ds_p = rmsnorm_bwd_ref(x, s, dy)
+    _close(dx, dx_p, dtype)
+    torch.testing.assert_close(ds, ds_p, rtol=1e-4, atol=1e-3)
+
+
+@pytest.mark.gpu
+def test_grads_through_the_kernels_match_cpu(cuda):
+    """A loss through ops.rmsnorm and ops.flash_attention keeps every
+    gradient on the card (the Functions' backward launches K2, K4 and K5)
+    and equals the same loss on the CPU (plain versions), fp32."""
+    g = torch.Generator().manual_seed(0)
+    x0 = torch.randn(2, 96, 256, generator=g)
+    leaves = {"x": x0, "scale": torch.randn(256, generator=g) * 0.3 + 1,
+              "wq": torch.randn(256, 4 * 64, generator=g) / 16,
+              "wkv": torch.randn(256, 2 * 64, generator=g) / 16}
+    grads = {}
+    for dev in ("cpu", cuda):
+        t = {k: v.to(dev).requires_grad_() for k, v in leaves.items()}
+        h = ops.rmsnorm(t["x"], t["scale"])
+        q = (h @ t["wq"]).view(2, 96, 4, 64)
+        kv = (h @ t["wkv"]).view(2, 96, 2, 64)
+        y = ops.flash_attention(q, kv, kv * 0.5, window=40)
+        loss = (y * torch.linspace(-1, 1, 64, device=dev)).square().sum()
+        n = (rn.bwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches)
+        grads[str(dev)] = dict(zip(t, torch.autograd.grad(loss, list(t.values()))))
+        if dev != "cpu":
+            assert (rn.bwd_launches, fa.bwd_dq_launches, fa.bwd_dkv_launches) == \
+                (n[0] + 1, n[1] + 1, n[2] + 1)
+    for k in leaves:
+        got, want = grads[str(cuda)][k], grads["cpu"][k]
+        assert got.is_cuda and float(got.abs().max()) > 0
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-5, msg=k)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("method,part", [("layered", True), ("standard", False)])
+def test_train_step_on_card_matches_cpu(cuda, method, part):
+    """fp32 yi-6b smoke config: three steps of build_train_step on the card
+    (K1-K6) and on the CPU (plain versions) from the same weights.  Adam's
+    eps is 1e-3 here: with the default 1e-8 the update lr * g / (|g| + eps)
+    turns the rounding of a near-zero gradient element (card vs CPU) into a
+    difference of up to lr in its weight; a larger eps keeps the update a
+    smooth function of g, so the weights can be held to fp32 noise."""
+    cfg = configs.get_config("yi-6b", smoke=True)
+    acc = AccumConfig(method=method, partitioned=part, n_microbatches=2)
+    step = stepfn.build_train_step(cfg, acc, AdamConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
+                                                        decay_steps=3))
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=48, global_batch=4,
+                      n_microbatches=2)
+    cpu = stepfn.init_storage(cfg, 0, partitioned=part, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        storage = tree.tree_map(lambda t: t.to(dev, copy=True), cpu)
+        opt = adam_init(storage)
+        losses = []
+        for i in range(3):
+            storage, opt, m = step(storage, opt, make_batch(data, i))
+            losses.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[str(dev)] = (losses, storage)
+    np.testing.assert_allclose(runs[str(cuda)][0], runs["cpu"][0], rtol=1e-4)
+    for a, b in zip(tree.leaves(runs[str(cuda)][1]), tree.leaves(runs["cpu"][1])):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-5)
+
+
+@pytest.mark.gpu
+def test_train_cli_on_card(cuda, capsys):
+    """The training entry point on the card: finite losses and the device's
+    peak memory in every step's record."""
+    from repro_torch.launch import train
+    out = train.main(["--arch", "yi-6b", "--smoke", "--steps", "2", "--seq-len", "32",
+                      "--global-batch", "4"])
+    assert out["device"] == "cuda" and out["steps"] == 2
+    assert all(np.isfinite(r["loss"]) and r["peak_mem_gb"] > 0 for r in out["records"])
+    assert '"first_loss"' in capsys.readouterr().out.splitlines()[-1]

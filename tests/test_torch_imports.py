@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from repro_torch.device import resolve_device
-from repro_torch.launch import serve
+from repro_torch.launch import serve, train
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
@@ -59,6 +59,12 @@ def test_serve_without_device_refuses_the_cpu(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_train_without_device_refuses_the_cpu(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--arch", "yi-6b", "--smoke", "--steps", "1"])
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
