@@ -50,6 +50,11 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense bf16 tensor-core rate
               "float32": 67e12}            # fp32 off the tensor cores
 FP32_TOL = 1e-4                            # kernel vs plain: summation order only
+# bf16 K4/K5 vs plain, times the output scale: the JAX package's own bf16
+# backward tolerance (tests/test_kernels.py::test_flash_attention_grads_bf16).
+# The tensor-core products take p and ds rounded to bf16, where the plain
+# version keeps them in fp32.
+BF16_BWD_TOL = 2e-2
 
 
 def say(*parts) -> None:
@@ -76,14 +81,14 @@ def bf16_ulp(scale: float) -> float:
     return 2.0 ** (math.floor(math.log2(max(scale, 2.0 ** -100))) - 7)
 
 
-def tolerance(torch, ref, rel: bool = False) -> float:
-    """bf16: one ulp of the output's scale.  fp32: FP32_TOL, times the
-    output's scale when ``rel`` (the backward kernels' outputs are sums of
-    up to thousands of terms, so their summation-order error scales with
-    them)."""
+def tolerance(torch, ref, rel: bool = False, bf16_rel: float = 0.0) -> float:
+    """bf16: one ulp of the output's scale, or ``bf16_rel`` times the scale
+    (at least 1) where given.  fp32: FP32_TOL, times the output's scale when
+    ``rel`` (the backward kernels' outputs are sums of up to thousands of
+    terms, so their summation-order error scales with them)."""
     scale = ref.float().abs().max().item()
     if ref.dtype == torch.bfloat16:
-        return bf16_ulp(scale)
+        return bf16_rel * max(1.0, scale) if bf16_rel else bf16_ulp(scale)
     return FP32_TOL * max(1.0, scale) if rel else FP32_TOL
 
 
@@ -97,7 +102,7 @@ def bound(nbytes: float, flops: float, dtype: str):
 # Phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 def check_case(torch, name, got, want, failures, parts=("", " [lse]"),
-               rel: bool = False) -> float:
+               rel: bool = False, bf16_rel: float = 0.0) -> float:
     torch.cuda.synchronize()
     outs = got if isinstance(got, tuple) else (got,)
     refs = want if isinstance(want, tuple) else (want,)
@@ -107,7 +112,7 @@ def check_case(torch, name, got, want, failures, parts=("", " [lse]"),
             failures.append(f"{name}: {tuple(g.shape)} {g.dtype} vs {tuple(w.shape)} {w.dtype}")
             return float("inf")
         err = (g.float() - w.float()).abs().max().item()
-        tol = tolerance(torch, w, rel)
+        tol = tolerance(torch, w, rel, bf16_rel)
         errs.append(err)
         ok = err <= tol and bool(torch.isfinite(g.float()).all())
         say(f"  {name}{part}: max_abs_err={err:.3e} tol={tol:.3e} {'ok' if ok else 'FAIL'}")
@@ -258,7 +263,9 @@ def phase_kernels(torch, F):
 
     # -- K4/K5 flash backward: training micro-batch 2 x 2048, 32 q heads, 4 KV heads
     say("K4 flash_attention_bwd_dq (dq, delta) and K5 flash_attention_bwd_dkv (dk, dv), "
-        "fed the K3 forward's out and lse; fp32 tol 1e-4 of the output scale, bf16 one ulp")
+        "fed the K3 forward's out and lse; fp32 outputs (delta included) tol 1e-4 of the "
+        f"output scale; bf16 at hd 64/128 {BF16_BWD_TOL:g} of the output scale (at least 1), "
+        "its tensor-core products taking p and ds rounded to bf16; bf16 at hd 256 one ulp")
     main = None
     for (B, S, Hq, Hkv, D), dtype, kw in [
             ((2, 2048, 32, 4, 128), torch.bfloat16, dict(causal=True)),
@@ -274,17 +281,19 @@ def phase_kernels(torch, F):
         do = randn(B, S, Hq, D, dtype=dtype)
         out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
         name = f"q={[B, S, Hq, D]} kv_heads={Hkv} {str(dtype)[6:]} {kw}"
+        # the tensor-core instances (bf16, hd 64 and 128); hd 256 keeps one ulp
+        tol = BF16_BWD_TOL if dtype == torch.bfloat16 and D in (64, 128) else 0.0
         dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
         dq_p, delta_p = fa.plain_bwd_dq(q, k, v, out, lse, do, **kw)
         err4 = check_case(torch, "K4 " + name, (dq, delta), (dq_p, delta_p), failures,
-                          parts=(" [dq]", " [delta]"), rel=True)
+                          parts=(" [dq]", " [delta]"), rel=True, bf16_rel=tol)
         got = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
-        err5 = check_case(torch, "K5 " + name, got,
-                          fa.plain_bwd_dkv(q, k, v, do, lse, delta_p, **kw), failures,
-                          parts=(" [dk]", " [dv]"), rel=True)
-        main = main or (q, k, v, do, out, lse, delta, err4, err5)
-        del out, lse, dq, delta, dq_p, delta_p, got
-    q, k, v, do, out, lse, delta, err4, err5 = main
+        want = fa.plain_bwd_dkv(q, k, v, do, lse, delta_p, **kw)
+        err5 = check_case(torch, "K5 " + name, got, want, failures,
+                          parts=(" [dk]", " [dv]"), rel=True, bf16_rel=tol)
+        main = main or (q, k, v, do, out, lse, delta, err4, err5, (dq_p, *want))
+        del out, lse, dq, delta, dq_p, delta_p, got, want
+    q, k, v, do, out, lse, delta, err4, err5, plain_grads = main
     B, S, Hq, D = q.shape
     es = q.element_size()
     pairs = B * Hq * S * (S + 1) // 2                       # causal, live (q, k) pairs
@@ -298,22 +307,35 @@ def phase_kernels(torch, F):
         torch.autograd.grad(sdpa(), [qt, kt, vt], dot)
 
     sdpa_bwd_ms = cuda_ms(torch, sdpa_fwd_bwd, 10) - cuda_ms(torch, sdpa, 10)
+    # the library rounds as the kernels do: SDPA's bf16 gradients against the
+    # same fp32-internal plain version
+    sdpa_grads = [t.transpose(1, 2) for t in torch.autograd.grad(sdpa(), [qt, kt, vt], dot)]
+    sdpa_errs = [(a.float() - w.float()).abs().max().item()
+                 for a, w in zip(sdpa_grads, plain_grads)]
+    say(f"  training shape q [{B}, {S}, {Hq}, {D}] bf16 causal, max abs err against the plain "
+        f"version (dq, dk, dv): SDPA's backward {[f'{e:.3e}' for e in sdpa_errs]}, K4/K5 "
+        f"(dq, delta) {err4:.3e}, (dk, dv) {err5:.3e}; output scales "
+        f"{[round(w.float().abs().max().item(), 3) for w in plain_grads]}")
+    del sdpa_grads, plain_grads
     shape = (f"q [{B}, {S}, {Hq}, {D}] k/v [{B}, {S}, {k.shape[2]}, {D}] bf16 causal; "
              f"library: SDPA's backward, dq, dk and dv together")
     rows["flash_attention_bwd_dq"] = dict(
         shape=shape, max_abs_err=err4,
-        ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do), 5),
+        ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do), 20),
         plain_ms=cuda_ms(torch, lambda: fa.plain_bwd_dq(q, k, v, out, lse, do), 2),
         library_ms=sdpa_bwd_ms,
         bound=bound(es * (4 * q.numel() + 2 * k.numel()) + 8 * B * Hq * S,
                     6 * D * pairs, "bfloat16"))
     rows["flash_attention_bwd_dkv"] = dict(
         shape=shape, max_abs_err=err5,
-        ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta), 5),
+        ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta), 20),
         plain_ms=cuda_ms(torch, lambda: fa.plain_bwd_dkv(q, k, v, do, lse, delta), 2),
         library_ms=sdpa_bwd_ms,
         bound=bound(es * (2 * q.numel() + 4 * k.numel()) + 8 * B * Hq * S,
                     8 * D * pairs, "bfloat16"))
+    bwd_ms = rows["flash_attention_bwd_dq"]["ms"] + rows["flash_attention_bwd_dkv"]["ms"]
+    say(f"  time K4 + K5 at the training shape: {bwd_ms:.4f} ms, {bwd_ms / sdpa_bwd_ms:.2f}x "
+        f"SDPA's backward ({sdpa_bwd_ms:.4f} ms)")
     k3_train_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 5)
     sdpa_fwd_ms = cuda_ms(torch, sdpa, 10)
     k3_bound = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * B * Hq * S,

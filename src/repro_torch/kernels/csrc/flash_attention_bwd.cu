@@ -1,7 +1,7 @@
 // K4 and K5: the flash-attention backward, recomputing the probabilities
 // from the forward's per-row log-sum-exp (no S x S intermediate):
 //   p  = exp(s - lse) on live (q, k) pairs, 0 elsewhere and on rows whose
-//        forward saw no key (lse = NEG_INF);  s = scale * q.k, softcapped
+//        forward saw no key (lse <= NEG_INF / 2);  s = scale * q.k, softcapped
 //   ds = p * (dO.v - delta) * (1 - t^2 under softcap, t = tanh(s_raw / cap))
 //   K4: dq = scale * sum_k ds * k,  plus delta = rowsum(dO * O), which it
 //       writes for K5 (the TPU package computes delta in plain JAX first)
@@ -11,11 +11,52 @@
 // Replaces: src/repro/kernels/flash_attention.py:_attn_bwd_dq_kernel (K4)
 // and :_attn_bwd_dkv_kernel (K5), entry `flash_attention_bwd`.
 //
-// Bound on the H100: operations at training lengths (about 7 products of
-// S^2/2 * D per head against O(S * D) bytes).  Like K3 this first version
-// runs the products on the fp32 CUDA cores, not the tensor cores, so it sits
-// far from that bound; its design keeps the fp32 units fed from shared
-// memory and needs no atomics, so the sums are deterministic:
+// Bound on the H100: operations at training lengths: K4 three and K5 four
+// products of (live pairs) x D multiply-adds per head, against O(S * D)
+// bytes.  Two instances:
+//
+// bf16 at head dim 64 and 128 (the training path: Yi-6B, hd 128) runs every
+// product on the tensor cores, bf16 operands with fp32 accumulators, tiles
+// of 64 rows kept bf16 in shared memory in wgmma's 128-byte-swizzled layout
+// (wgmma.cuh), one consumer warpgroup (128 threads) a block in K4 and two in
+// K5:
+//   * K4, flash_bwd_dq_kernel_tc: a block owns 64 query rows of one q head;
+//     its Q and dO tiles are loaded once.  K/V tiles of 64 keys stream
+//     through a two-stage cp.async ring (the next tile's copy is in flight
+//     while the current one is multiplied).  S = Q K^T and dP = dO V^T are
+//     wgmma m64n64k16 with both operands from shared memory; ds is formed in
+//     the accumulator registers (p from lse, the mask, softcap's (1 - t^2),
+//     delta), rounded to bf16 in pairs and fed back as the register A
+//     operand of dQ += dS K: wgmma m64n{D}k16, the K tile read MN-major
+//     (the transpose bit), so it is never transposed in memory.
+//   * K5, flash_bwd_dkv_kernel_tc: a block owns 64 keys of one KV head, K
+//     and V resident in shared memory, and walks the rep query heads and the
+//     q tiles inside the causal/window bounds.  Keys are the M dimension:
+//     S^T = K Q^T and dP^T = V dO^T (m64n64k16, shared-memory operands)
+//     leave P^T and dS^T in the accumulator already in the register-A layout
+//     of dV += P^T dO and dK += dS^T Q (m64n{D}k16, Q/dO tiles read
+//     MN-major); lse and delta are indexed by column.  Two consumer
+//     warpgroups split the walk (even and odd steps), each with its own
+//     two-stage cp.async ring of Q/dO tiles and lse/delta rows and its dK and
+//     dV accumulators in registers throughout; at the end each adds the
+//     other's partial of one output through shared memory.  So the GQA sum
+//     stays in the block, in a fixed order, with no atomics (deterministic).
+//   * Causal balance: blocks are numbered so that the heaviest launch first
+//     (K4: the last q tiles, which see the most keys; K5: the first key
+//     tiles, which see the most queries).  At the training shape K5 has
+//     only 256 key tiles for 132 SMs, and under causal the first walks 32
+//     times as many q tiles as the last; with one warpgroup a block all 256
+//     were resident at once and the heaviest set the time.  Two warpgroups
+//     a block (one block an SM: 163 KB of shared memory at hd 128) halve the
+//     longest walk, and the heaviest-first order fills the SMs that the
+//     light blocks free, with no second pass over partial sums.
+//   * p and ds enter their products rounded to bf16 (the plain version keeps
+//     them fp32), so the outputs agree to bf16 rounding of the sums' terms.
+//
+// fp32, and bf16 at head dim 256, keep the first version on the fp32 CUDA
+// cores, flash_bwd_dq_kernel / flash_bwd_dkv_kernel.  At hd 256 K5's dK + dV
+// accumulators (256 fp32 registers a thread at 64 keys) do not fit one
+// warpgroup, and K4's dQ (128) beside S and dP spilled:
 //   * K4: grid (q-block of 32 rows, q head, batch), the forward's k-tile
 //     loop bounds; Q and dO rows are staged once, K/V stream through shared
 //     memory in 32-key tiles.  A warp owns 8 query rows: a lane owns one key
@@ -27,8 +68,12 @@
 //     (4 at head dim 256); a lane owns one q row of the tile for s and dO.v,
 //     then D/32 columns of the warp's dk and dv, which stay in registers
 //     across the whole walk.
-//   * q/k/v/out/dO are read in the JAX layout [B, S, H, D] through strides.
+//   * fp32 stays off the tensor cores: TF32 would break the full-width fp32
+//     card-vs-CPU train parity.
+// Both instances read q/k/v/out/dO in the JAX layout [B, S, H, D] through
+// strides.
 #include "common.cuh"
+#include "wgmma.cuh"
 
 using namespace rt;
 
@@ -369,6 +414,371 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (head dim 64 and 128)
+// ---------------------------------------------------------------------------
+using bf16 = __nv_bfloat16;
+constexpr int TC_THREADS = 128;        // one warpgroup
+constexpr int TT = tc::TILE_ROWS;      // rows of every tile: q rows or keys
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D> struct DqTc {
+  static constexpr uint32_t TILE = TT * D * sizeof(bf16);
+  // Q, dO and two stages of (K, V); delta of 64 rows; 1 KB to align the
+  // tiles for the swizzle
+  static constexpr size_t bytes = 6 * TILE + TT * sizeof(float) + 1024;
+};
+
+template <int D> struct DkvTc {
+  static constexpr uint32_t TILE = TT * D * sizeof(bf16);
+  // K, V, and for each of two warpgroups two stages of (Q, dO) tiles and of
+  // (lse, delta) rows; 1 KB to align
+  static constexpr size_t bytes = 10 * TILE + 2 * 2 * 2 * TT * sizeof(float) + 1024;
+};
+
+// p and ds of one accumulator element: s_raw = q.k unscaled, dp = dO.v
+__device__ __forceinline__ void p_ds(float s_raw, float dp, float lse2, float delta,
+                                     bool live, float scale, float softcap, float& p,
+                                     float& ds) {
+  float sr = s_raw * scale, t = 0.f;
+  if (softcap > 0.f) {
+    t = tanhf(sr / softcap);
+    sr = softcap * t;
+  }
+  p = live ? exp2f(fmaf(sr, LOG2E, -lse2)) : 0.f;
+  ds = p * (dp - delta);
+  if (softcap > 0.f) ds *= 1.f - t * t;
+}
+
+// the accumulator of an m64n64 product as four K steps of register A
+// operands, bf16 (accumulator n8-block j is K step j/2, half j%2)
+__device__ __forceinline__ void to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j >> 1][2 * (j & 1)] = tc::pack_bf16(d[4 * j], d[4 * j + 1]);
+    a[j >> 1][2 * (j & 1) + 1] = tc::pack_bf16(d[4 * j + 2], d[4 * j + 3]);
+  }
+}
+
+// K4.  Grid: one block per (q tile, q head, batch), numbered so that the
+// q tiles with the most keys come first under causal.
+template <int D>
+__global__ void __launch_bounds__(TC_THREADS)
+flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v, const bf16* __restrict__ o,
+                       const bf16* __restrict__ dO, const float* __restrict__ lse,
+                       bf16* __restrict__ dq, float* __restrict__ delta_out, int B, int S,
+                       int Hq, int Hkv, int64_t qsB, int64_t qsS, int64_t qsH, int64_t ksB,
+                       int64_t ksS, int64_t ksH, int64_t vsB, int64_t vsS, int64_t vsH,
+                       int64_t osB, int64_t osS, int64_t osH, int64_t dsB, int64_t dsS,
+                       int64_t dsH, int kv_len, int causal, int window, float softcap,
+                       float scale) {
+  constexpr uint32_t TILE = DqTc<D>::TILE;
+  extern __shared__ __align__(1024) uint8_t smem_tc[];
+  const uint32_t s0 = tc::smem_addr(smem_tc);
+  const uint32_t sQ = (s0 + 1023u) & ~1023u, sO = sQ + TILE, sKV = sQ + 2 * TILE;
+  float* delta_s = reinterpret_cast<float*>(smem_tc + (sQ - s0) + 6 * TILE);
+
+  const int nq = (S + TT - 1) / TT;
+  const int id = blockIdx.x, per_tile = Hq * B;
+  const int q0 = (nq - 1 - id / per_tile) * TT;
+  const int h = id % per_tile % Hq, b = id % per_tile / Hq;
+  const int hk = h / (Hq / Hkv);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bf16* kb = k + b * ksB + hk * ksH;
+  const bf16* vb = v + b * vsB + hk * vsH;
+  const bf16* dob = dO + b * dsB + h * dsH;
+
+  int hi = (kv_len + TT - 1) / TT;
+  if (causal) hi = min(hi, (min(q0 + TT, S) - 1) / TT + 1);
+  const int lo = window > 0 ? max(q0 - window + 1, 0) / TT : 0;
+  const int n = hi - lo;
+
+  tc::load_tile<D, TC_THREADS>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
+  tc::load_tile<D, TC_THREADS>(sO, dob, dsS, q0, S, tid);
+  if (n > 0) {
+    tc::load_tile<D, TC_THREADS>(sKV, kb, ksS, lo * TT, S, tid);
+    tc::load_tile<D, TC_THREADS>(sKV + TILE, vb, vsS, lo * TT, S, tid);
+  }
+  tc::cp_async_commit();
+
+  // delta = rowsum(dO * O) of the tile's rows, from global memory while the
+  // tiles land: D/8 lanes a row, warp w the rows 16 w .. 16 w + 15
+  {
+    constexpr int CPR = D / 8, RPP = 32 / CPR;
+    const int j = lane % CPR;
+#pragma unroll
+    for (int r = warp * 16 + lane / CPR; r < warp * 16 + 16; r += RPP) {
+      const int qp = q0 + r;
+      float part = 0.f;
+      if (qp < S) {
+        float x[8], y[8];
+        Vec16<bf16>::load(dob + (int64_t)qp * dsS + j * 8, x);
+        Vec16<bf16>::load(o + b * osB + (int64_t)qp * osS + h * osH + j * 8, y);
+#pragma unroll
+        for (int e = 0; e < 8; ++e) part = fmaf(x[e], y[e], part);
+      }
+#pragma unroll
+      for (int off = CPR / 2; off > 0; off >>= 1)
+        part += __shfl_xor_sync(0xffffffffu, part, off);
+      if (j == 0) {
+        delta_s[r] = part;
+        if (qp < S) delta_out[((int64_t)b * Hq + h) * S + qp] = part;
+      }
+    }
+  }
+  __syncthreads();
+
+  // this thread's accumulator rows r0 and r0 + 8: lse (base 2), delta, and
+  // whether the row is a real one that saw a key in the forward
+  const int r0 = warp * 16 + (lane >> 2), c2 = 2 * (lane & 3);
+  float lse2[2], dlt[2];
+  bool row_live[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qp = q0 + r0 + 8 * e;
+    const float l = qp < S ? lse[((int64_t)b * Hq + h) * S + qp] : NEG_INF;
+    row_live[e] = l > 0.5f * NEG_INF;
+    lse2[e] = row_live[e] ? l * LOG2E : 0.f;
+    dlt[e] = delta_s[r0 + 8 * e];
+  }
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int k0 = (lo + i) * TT;
+    const uint32_t sK = sKV + (i & 1) * 2 * TILE, sV = sK + TILE;
+    if (i + 1 < n) {
+      const uint32_t nK = sKV + ((i + 1) & 1) * 2 * TILE;
+      tc::load_tile<D, TC_THREADS>(nK, kb, ksS, k0 + TT, S, tid);
+      tc::load_tile<D, TC_THREADS>(nK + TILE, vb, vsS, k0 + TT, S, tid);
+    }
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();                 // this tile (and Q, dO) has landed
+    tc::fence_proxy_async();
+    __syncthreads();
+
+    float s[32], dp[32];
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(s, tc::desc_k(sQ, ks), tc::desc_k(sK, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(dp, tc::desc_k(sO, ks), tc::desc_k(sV, ks), ks);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * j + e, re = e >> 1;
+        const int qp = q0 + r0 + 8 * re, kp = k0 + 8 * j + c2 + (e & 1);
+        float p;
+        p_ds(s[x], dp[x], lse2[re], dlt[re],
+             row_live[re] && live_pair(qp, kp, kv_len, causal, window), scale, softcap, p,
+             s[x]);
+      }
+    uint32_t a[4][4];
+    to_a(s, a);
+
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) tc::RS<D>::mma(acc, a[kk], tc::desc_mn(sK, kk), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(acc);
+    __syncthreads();                        // the stage is free for tile i + 2
+  }
+  tc::cp_async_wait<0>();
+
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int qp = q0 + r0 + 8 * e;
+    if (qp >= S) continue;
+    bf16* out = dq + (((int64_t)b * S + qp) * Hq + h) * D + c2;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) =
+          tc::pack_bf16(acc[4 * j + 2 * e] * scale, acc[4 * j + 2 * e + 1] * scale);
+  }
+}
+
+// K5's epilogue: one warpgroup's accumulators into shared memory (thread t
+// of one warpgroup holds the same elements as thread t of the other) ...
+template <int N>
+__device__ __forceinline__ void stash(const float (&acc)[N], float* dst, int t) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) dst[i * TC_THREADS + t] = acc[i];
+}
+
+// ... and the other's added to them, scaled and stored as bf16: rows r0
+// (at out) and r0 + 8 (row_step further), while `rows` > 0 and > 8
+template <int D>
+__device__ __forceinline__ void add_store(float (&acc)[D / 2], const float* src, int t,
+                                          bf16* out, int64_t row_step, int rows,
+                                          float scale) {
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] += src[i * TC_THREADS + t];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (rows <= 8 * e) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int x = 4 * j + 2 * e;
+      *reinterpret_cast<uint32_t*>(out + e * row_step + 8 * j) =
+          tc::pack_bf16(acc[x] * scale, acc[x + 1] * scale);
+    }
+  }
+}
+
+// K5.  Grid: one block per (key tile, KV head, batch), numbered so that
+// the key tiles with the most queries come first under causal.  Two
+// consumer warpgroups share the block's K and V and split its walk over
+// (rep head, q tile) steps, even steps to the first and odd to the second,
+// each with its own ring; at the end each adds the other's partial of one
+// output (dk or dv) through shared memory, in a fixed order.
+template <int D>
+__global__ void __launch_bounds__(2 * TC_THREADS)
+flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int Hq,
+                        int Hkv, int64_t qsB, int64_t qsS, int64_t qsH, int64_t ksB,
+                        int64_t ksS, int64_t ksH, int64_t vsB, int64_t vsS, int64_t vsH,
+                        int64_t dsB, int64_t dsS, int64_t dsH, int kv_len, int causal,
+                        int window, float softcap, float scale) {
+  constexpr uint32_t TILE = DkvTc<D>::TILE;
+  constexpr int NACC = D / 2;
+  extern __shared__ __align__(1024) uint8_t smem_tc[];
+  const uint32_t s0 = tc::smem_addr(smem_tc);
+  const uint32_t sK = (s0 + 1023u) & ~1023u, sV = sK + TILE;
+
+  const int id = blockIdx.x, per_tile = Hkv * B;
+  const int k0 = id / per_tile * TT;
+  const int hk = id % per_tile % Hkv, b = id % per_tile / Hkv;
+  const int rep = Hq / Hkv;
+  const int wg = threadIdx.x / TC_THREADS, tid = threadIdx.x % TC_THREADS;
+  const int warp = tid >> 5, lane = tid & 31;
+  // this warpgroup's ring: two stages of (Q, dO) tiles, then its lse/delta rows
+  const uint32_t sQO = sK + (2 + 4 * wg) * TILE;
+  const uint32_t sRows = sK + 10 * TILE + wg * 4 * TT * sizeof(float);
+  const float* rows_s = reinterpret_cast<const float*>(smem_tc + (sRows - s0));
+
+  // q tiles that can see a key of this block, for each rep head
+  const int nq = (S + TT - 1) / TT;
+  const int k_last = min(k0 + TT, S) - 1;
+  const int qlo = causal ? k0 / TT : 0;
+  const int qhi = window > 0 ? min(nq, (k_last + window - 1) / TT + 1) : nq;
+  const int nqt = max(qhi - qlo, 0);
+  const int n = k0 < kv_len ? rep * nqt : 0;
+  const int nw = (n - wg + 1) / 2;          // this warpgroup's steps wg, wg + 2, ..
+
+  // step i: rep head i / nqt, q tile qlo + i % nqt, into ring stage `st`
+  auto issue = [&](int i, int st) {
+    const int h = hk * rep + i / nqt, q0 = (qlo + i % nqt) * TT;
+    const uint32_t sQ = sQO + st * 2 * TILE;
+    tc::load_tile<D, TC_THREADS>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
+    tc::load_tile<D, TC_THREADS>(sQ + TILE, dO + b * dsB + h * dsH, dsS, q0, S, tid);
+    const int r = tid & (TT - 1);
+    const bool in = q0 + r < S;
+    const float* src = (tid < TT ? lse : delta) + ((int64_t)b * Hq + h) * S + (in ? q0 + r : 0);
+    tc::cp_async4(sRows + (st * 2 * TT + tid) * sizeof(float), src, in ? 4 : 0);
+  };
+
+  tc::load_tile<D, 2 * TC_THREADS>(sK, k + b * ksB + hk * ksH, ksS, k0, S, threadIdx.x);
+  tc::load_tile<D, 2 * TC_THREADS>(sV, v + b * vsB + hk * vsH, vsS, k0, S, threadIdx.x);
+  tc::cp_async_commit();
+  if (nw > 0) issue(wg, 0);
+  tc::cp_async_commit();
+  tc::cp_async_wait<1>();                   // K and V have landed, for both warpgroups
+  tc::fence_proxy_async();
+  __syncthreads();
+
+  // this thread's accumulator rows: keys k0 + r0 and k0 + r0 + 8
+  const int r0 = warp * 16 + (lane >> 2), c2 = 2 * (lane & 3);
+  float dk_acc[NACC], dv_acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int j = 0; j < nw; ++j) {
+    const int st = j & 1, i = wg + 2 * j;
+    if (j + 1 < nw) issue(i + 2, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();                 // this step's tiles have landed
+    tc::fence_proxy_async();
+    tc::warpgroup_sync(1 + wg);
+
+    const int q0 = (qlo + i % nqt) * TT;
+    const uint32_t sQ = sQO + st * 2 * TILE, sO = sQ + TILE;
+    const float* Ls = rows_s + st * 2 * TT;
+    const float* Es = Ls + TT;
+
+    float s[32], dp[32];                    // S^T and dP^T: keys x q rows
+    tc::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(s, tc::desc_k(sK, ks), tc::desc_k(sQ, ks), ks);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(dp, tc::desc_k(sV, ks), tc::desc_k(sO, ks), ks);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
+
+#pragma unroll
+    for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * jj + e, col = 8 * jj + c2 + (e & 1);
+        const int kp = k0 + r0 + 8 * (e >> 1), qp = q0 + col;
+        const float l = Ls[col];
+        const bool live = qp < S && l > 0.5f * NEG_INF &&
+                          live_pair(qp, kp, kv_len, causal, window);
+        p_ds(s[x], dp[x], live ? l * LOG2E : 0.f, Es[col], live, scale, softcap, s[x],
+             dp[x]);
+      }
+    uint32_t ap[4][4], ad[4][4];
+    to_a(s, ap);
+    to_a(dp, ad);
+
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) tc::RS<D>::mma(dv_acc, ap[kk], tc::desc_mn(sO, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) tc::RS<D>::mma(dk_acc, ad[kk], tc::desc_mn(sQ, kk), 1);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(dv_acc);
+    tc::fence_regs(dk_acc);
+    tc::warpgroup_sync(1 + wg);             // the stage is free for step j + 2
+  }
+  tc::cp_async_wait<0>();
+
+  // the warpgroups' partials: the first keeps dk and hands over its dv, the
+  // second keeps dv and hands over its dk, each through its own ring
+  // (thread t of one holds the same elements as thread t of the other)
+  float* mine = reinterpret_cast<float*>(smem_tc + (sQO - s0));
+  const float* other = reinterpret_cast<const float*>(smem_tc + (sK + (6 - 4 * wg) * TILE - s0));
+  if (wg)
+    stash(dk_acc, mine, tid);
+  else
+    stash(dv_acc, mine, tid);
+  __syncthreads();
+  const int64_t row0 = (((int64_t)b * S + k0 + r0) * Hkv + hk) * D + c2;
+  const int rows = S - k0 - r0;             // rows r0 and r0 + 8 are keys if > 0, > 8
+  if (wg == 0)
+    add_store<D>(dk_acc, other, tid, dk + row0, (int64_t)8 * Hkv * D, rows, scale);
+  else
+    add_store<D>(dv_acc, other, tid, dv + row0, (int64_t)8 * Hkv * D, rows, 1.f);
+}
+
 struct Strides {
   const long long *q, *k, *v, *o, *dO;
 };
@@ -415,6 +825,48 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D>
+int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, const void* dO,
+                 const void* lse, void* dq, void* delta, int B, int S, int Hq, int Hkv,
+                 Strides st_, int kv_len, int causal, int window, float softcap,
+                 cudaStream_t st) {
+  auto kern = flash_bwd_dq_kernel_tc<D>;
+  const size_t smem = DqTc<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (S + TT - 1) / TT * Hq * B;
+  kern<<<blocks, TC_THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(o), static_cast<const bf16*>(dO),
+      static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta), B,
+      S, Hq, Hkv, st_.q[0], st_.q[1], st_.q[2], st_.k[0], st_.k[1], st_.k[2], st_.v[0],
+      st_.v[1], st_.v[2], st_.o[0], st_.o[1], st_.o[2], st_.dO[0], st_.dO[1], st_.dO[2],
+      kv_len, causal, window, softcap, 1.f / sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dO,
+                  const void* lse, const void* delta, void* dk, void* dv, int B, int S,
+                  int Hq, int Hkv, Strides st_, int kv_len, int causal, int window,
+                  float softcap, cudaStream_t st) {
+  auto kern = flash_bwd_dkv_kernel_tc<D>;
+  const size_t smem = DkvTc<D>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int blocks = (S + TT - 1) / TT * Hkv * B;
+  kern<<<blocks, 2 * TC_THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dO), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S,
+      Hq, Hkv, st_.q[0], st_.q[1], st_.q[2], st_.k[0], st_.k[1], st_.k[2], st_.v[0],
+      st_.v[1], st_.v[2], st_.dO[0], st_.dO[1], st_.dO[2], kv_len, causal, window, softcap,
+      1.f / sqrtf(static_cast<float>(D)));
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_args(int B, int S, int Hq, int Hkv, int kv_len) {
   return B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || kv_len <= 0 || kv_len > S;
 }
@@ -436,16 +888,20 @@ extern "C" int rt_flash_attention_bwd_dq(
 #define RT_DQ(T_, D_) \
   launch_dq<T_, D_>(q, k, v, o, dO, lse, dq, delta, B, S, Hq, Hkv, s, kv_len, causal, \
                     window, softcap, st)
+#define RT_DQ_TC(D_) \
+  launch_dq_tc<D_>(q, k, v, o, dO, lse, dq, delta, B, S, Hq, Hkv, s, kv_len, causal, \
+                   window, softcap, st)
   if (dtype == kFloat32) {
     if (D == 64) return RT_DQ(float, 64);
     if (D == 128) return RT_DQ(float, 128);
     if (D == 256) return RT_DQ(float, 256);
   } else if (dtype == kBFloat16) {
-    if (D == 64) return RT_DQ(__nv_bfloat16, 64);
-    if (D == 128) return RT_DQ(__nv_bfloat16, 128);
+    if (D == 64) return RT_DQ_TC(64);
+    if (D == 128) return RT_DQ_TC(128);
     if (D == 256) return RT_DQ(__nv_bfloat16, 256);
   }
 #undef RT_DQ
+#undef RT_DQ_TC
   return kBadArgs;
 }
 
@@ -463,15 +919,19 @@ extern "C" int rt_flash_attention_bwd_dkv(
 #define RT_DKV(T_, D_) \
   launch_dkv<T_, D_>(q, k, v, dO, lse, delta, dk, dv, B, S, Hq, Hkv, s, kv_len, causal, \
                      window, softcap, st)
+#define RT_DKV_TC(D_) \
+  launch_dkv_tc<D_>(q, k, v, dO, lse, delta, dk, dv, B, S, Hq, Hkv, s, kv_len, causal, \
+                    window, softcap, st)
   if (dtype == kFloat32) {
     if (D == 64) return RT_DKV(float, 64);
     if (D == 128) return RT_DKV(float, 128);
     if (D == 256) return RT_DKV(float, 256);
   } else if (dtype == kBFloat16) {
-    if (D == 64) return RT_DKV(__nv_bfloat16, 64);
-    if (D == 128) return RT_DKV(__nv_bfloat16, 128);
+    if (D == 64) return RT_DKV_TC(64);
+    if (D == 128) return RT_DKV_TC(128);
     if (D == 256) return RT_DKV(__nv_bfloat16, 256);
   }
 #undef RT_DKV
+#undef RT_DKV_TC
   return kBadArgs;
 }

@@ -1,0 +1,202 @@
+// Hopper tensor-core building blocks for the port's bf16 kernels: cp.async
+// tile loads into the 128-byte-swizzled shared-memory layout that wgmma
+// reads, wgmma matrix descriptors, the m64nNk16 products (fp32
+// accumulators) and their fences.
+//
+// The tile layout.  A tile of 64 rows by D bf16 columns (D a multiple of 64)
+// is stored as D/64 column chunks of 64 rows x 128 bytes (8 KB each), one
+// after the other.  Inside a chunk, row r's 16-byte group j sits at
+// r * 128 + ((j ^ (r & 7)) << 4): the 128-byte swizzle, with every chunk
+// 1024-byte aligned.  The same bytes serve both ways wgmma reads them:
+//   * K-major (the tile's columns are the product's K): 8-row groups 1024 B
+//     apart (SBO); a K step of 16 columns moves the start address by 32 B
+//     inside the chunk, and to the next chunk every 4 steps;
+//   * MN-major (the tile's rows are K, its columns N; wgmma's transpose
+//     bit): 64-column chunks 8 KB apart (LBO), 8-row K groups 1024 B apart
+//     (SBO); a K step of 16 rows moves the start address by 2048 B.
+//
+// Register fragments (PTX ISA, wgmma m64nNk16): thread t of the warpgroup,
+// warp w = t / 32, g = (t % 32) / 4, c = t % 4.  Accumulator element
+// d[4 j + e] is row 16 w + g + 8 (e / 2), column 8 j + 2 c + (e % 2).  A
+// 16-bit A operand in registers, a[0..3] of one K step of 16, holds rows
+// 16 w + g (a[0], a[2]) and 16 w + g + 8 (a[1], a[3]) at columns 2 c, 2 c + 1
+// (a[0], a[1]) and 2 c + 8, 2 c + 9 (a[2], a[3]); so the accumulator of one
+// product, rounded to bf16 in pairs, is the A operand of the next.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+namespace tc {
+
+constexpr int TILE_ROWS = 64;
+constexpr uint32_t CHUNK_BYTES = TILE_ROWS * 128;   // one 64-column chunk
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 fills the 16 bytes with zeros
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+// 4 bytes global -> shared; src_bytes 0 writes zero
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N> __device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// generic-proxy writes (cp.async, st.shared) made visible to wgmma's reads
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + 64) of one head of a [.., S, .., D] bf16 tensor (row
+// stride `row_stride` elements, the head dim dense) into the swizzled tile at
+// shared address `dst`, by NT threads of which this is thread t; rows at or
+// past S are zero.  Each thread issues 16-byte copies; a row is read by D/8
+// neighbouring threads.
+template <int D, int NT>
+__device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
+                                          int64_t row_stride, int r0, int S, int t) {
+  constexpr int CPR = D / 8;                       // 16-byte groups per row
+  static_assert((TILE_ROWS * CPR) % NT == 0, "whole copies per thread");
+#pragma unroll
+  for (int it = 0; it < TILE_ROWS * CPR / NT; ++it) {
+    const int i = it * NT + t;
+    const int r = i / CPR, j = i % CPR;
+    const bool in = r0 + r < S;
+    const __nv_bfloat16* g = src + (in ? (int64_t)(r0 + r) * row_stride : 0) + j * 8;
+    cp_async16(dst + (j >> 3) * CHUNK_BYTES + r * 128 + (((j & 7) ^ (r & 7)) << 4), g,
+               in ? 16 : 0);
+  }
+}
+
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo & 0x3FFFF) >> 4) << 16) |
+         (static_cast<uint64_t>((sbo & 0x3FFFF) >> 4) << 32) |
+         (1ull << 62);                             // 128-byte swizzle
+}
+
+// the tile at `tile` as a K-major operand, K step `ks` (columns 16 ks ..)
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int ks) {
+  return make_desc(tile + (ks >> 2) * CHUNK_BYTES + (ks & 3) * 32, 16, 1024);
+}
+
+// the tile at `tile` as an MN-major operand, K step `ks` (rows 16 ks ..)
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks) {
+  return make_desc(tile + ks * 2048, CHUNK_BYTES, 1024);
+}
+
+// a barrier among the 128 threads of one warpgroup (ids 1.., 0 is __syncthreads)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving reads or writes of an accumulator across
+// the asynchronous products that own it
+template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// D[64 x N] (+)= A * B, fp32 accumulators, bf16 operands.  ss: A and B from
+// shared memory, both K-major.  rs: A from registers, B MN-major.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4], uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// D/2 accumulators a thread; N = the head dim
+template <int N> struct RS;
+template <> struct RS<64> {
+  __device__ __forceinline__ static void mma(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    wgmma_rs_n64(d, a, b, acc);
+  }
+};
+template <> struct RS<128> {
+  __device__ __forceinline__ static void mma(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t b, int acc) {
+    wgmma_rs_n128(d, a, b, acc);
+  }
+};
+
+}  // namespace tc
+}  // namespace rt

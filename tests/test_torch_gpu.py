@@ -209,12 +209,62 @@ def _flash_bwd_case(cuda, B, S, Hq, Hkv, D, dtype, kw, seed):
     ((1, 96, 4, 4, 256), 24, 50.0, True, 0),
     ((2, 50, 4, 2, 64), 12, 0.0, False, 41),
     ((1, 300, 32, 4, 128), 0, 0.0, True, 0),
+    ((2, 2048, 32, 4, 128), 0, 0.0, True, 0),     # the training path's micro-batch
 ])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, window, cap, causal, kv_len):
     n = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
     _flash_bwd_case(cuda, *shape, dtype, dict(causal=causal, window=window, softcap=cap,
                                               kv_len=kv_len), seed=shape[1])
     assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (n[0] + 1, n[1] + 1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,window,cap", [
+    ((2, 2048, 32, 4, 128), 0, 0.0),
+    ((2, 300, 16, 1, 128), 40, 30.0),
+    ((1, 200, 12, 4, 64), 0, 0.0),
+])
+def test_flash_bwd_kernels_are_deterministic(cuda, shape, window, cap):
+    """bf16 K4 and K5 (the tensor-core instances): two launches on the same
+    inputs give bit-identical dq, delta, dk and dv.  K5 sums the GQA heads
+    and its two warpgroups' partials inside the block, in a fixed order."""
+    B, S, Hq, Hkv, D = shape
+    g = torch.Generator(device=cuda).manual_seed(S)
+    q, do = (torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    kw = dict(window=window, softcap=cap)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    runs = []
+    for _ in range(2):
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
+        runs.append((dq, delta, *fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)))
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dq", "delta", "dk", "dv"), *runs):
+        assert torch.equal(a, b), name
+
+
+@pytest.mark.gpu
+def test_bf16_grads_through_flash_match_plain_at_training_shape(cuda):
+    """ops.flash_attention in bf16 at the training path's micro-batch: the
+    gradients autograd gets from K3 then K4 + K5 equal the plain forward and
+    backward's, at the JAX package's bf16 backward tolerance."""
+    B, S, Hq, Hkv, D = 2, 2048, 32, 4, 128
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16().requires_grad_()
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).bfloat16().requires_grad_()
+            for _ in range(2))
+    do = torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16()
+    n = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
+    grads = torch.autograd.grad(ops.flash_attention(q, k, v), [q, k, v], do)
+    assert (fa.bwd_dq_launches, fa.bwd_dkv_launches) == (n[0] + 1, n[1] + 1)
+    with torch.no_grad():
+        out, lse = flash_attention_fwd_ref(q, k, v)
+        dq, delta = flash_attention_bwd_dq_ref(q, k, v, out, lse, do)
+        want = (dq, *flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta))
+    torch.cuda.synchronize()
+    for got, w in zip(grads, want):
+        assert got.dtype == torch.bfloat16 and got.shape == w.shape
+        _close(got, w, torch.bfloat16)
 
 
 @pytest.mark.gpu
