@@ -37,6 +37,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,10 +51,12 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense bf16 tensor-core rate
               "float32": 67e12}            # fp32 off the tensor cores
 FP32_TOL = 1e-4                            # kernel vs plain: summation order only
-# bf16 K4/K5 vs plain, times the output scale: the JAX package's own bf16
-# backward tolerance (tests/test_kernels.py::test_flash_attention_grads_bf16).
-# The tensor-core products take p and ds rounded to bf16, where the plain
-# version keeps them in fp32.
+# bf16 K3 and K4/K5 on the tensor cores (hd 64 and 128) vs plain, times the
+# output scale: the JAX package's own bf16 tolerances, forward
+# (tests/test_kernels.py::test_flash_attention_dtypes) and backward
+# (::test_flash_attention_grads_bf16).  The tensor-core products take p (and
+# ds) rounded to bf16, as SDPA's do, where the plain version keeps them fp32.
+BF16_FWD_TOL = 2e-2
 BF16_BWD_TOL = 2e-2
 
 
@@ -74,6 +77,34 @@ def cuda_ms(torch, fn, iters: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def smi_clocks() -> str:
+    """The card's SM clock (and its maximum), power draw, temperature and
+    active throttle reasons, read beside a measurement; never fails the run."""
+    try:
+        return subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,temperature.gpu,"
+             "clocks_throttle_reasons.active", "--format=csv,noheader"],
+            capture_output=True, text=True, check=True, timeout=30).stdout.strip()
+    except (OSError, subprocess.SubprocessError) as e:
+        return f"not read ({type(e).__name__})"
+
+
+def graph_ms(torch, fn, n: int = 50) -> float:
+    """Device time of one call of ``fn``: a CUDA graph of ``n`` calls,
+    replayed and timed with CUDA events, so the host's cost of launching
+    (the wrapper's Python) is out of the measurement."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                                          # allocations before capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    return cuda_ms(torch, graph.replay, 10) / n
 
 
 def bf16_ulp(scale: float) -> float:
@@ -129,10 +160,13 @@ def phase_kernels(torch, F):
 
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(SEED)
+    # later cases draw from a stream of their own, so adding one leaves the
+    # earlier cases' inputs (K6's fp32 leaf among them) as they were
+    g_new = torch.Generator(device=dev).manual_seed(SEED + 1)
     failures, rows = [], {}
 
-    def randn(*shape, dtype=torch.float32):
-        return torch.randn(*shape, generator=g, device=dev).to(dtype)
+    def randn(*shape, dtype=torch.float32, gen=g):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     # -- K1 RMSNorm: prefill rows B*S = 8*512, decode rows 8, d_model 4096
     say("K1 rmsnorm (eps 1e-6; fp32 tol 1e-4, bf16 tol one ulp of the output scale)")
@@ -158,23 +192,41 @@ def phase_kernels(torch, F):
         bound=bound(2 * x.numel() * es + 4 * x.shape[1], 4 * x.numel(), "bfloat16"))
 
     # -- K3 flash forward: prefill bucket B=8, S=512, 32 q heads, 4 KV heads, hd 128
-    say("K3 flash_attention_fwd (out and lse; fp32 tol 1e-4, bf16 out tol one ulp)")
-    main = None
-    for (B, S, Hq, Hkv, D), dtype, kw in [
-            ((8, 512, 32, 4, 128), torch.bfloat16, dict(causal=True)),
-            ((8, 512, 32, 4, 128), torch.float32, dict(causal=True)),
-            ((2, 512, 32, 4, 128), torch.bfloat16, dict(causal=True, window=128, softcap=50.0)),
-            ((2, 300, 16, 1, 128), torch.bfloat16, dict(causal=True)),            # MQA
-            ((3, 77, 8, 2, 128), torch.float32, dict(causal=True, kv_len=70)),   # odd S, pad keys
-            ((2, 300, 8, 2, 64), torch.bfloat16, dict(causal=True, window=40)),
-            ((2, 256, 8, 4, 256), torch.bfloat16, dict(causal=True, window=64, softcap=50.0)),
-            ((2, 50, 4, 2, 64), torch.float32, dict(causal=False, kv_len=41))]:
-        q, k, v = randn(B, S, Hq, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype), \
-            randn(B, S, Hkv, D, dtype=dtype)
-        err = check_case(torch, f"q={[B, S, Hq, D]} kv_heads={Hkv} {str(dtype)[6:]} {kw}",
-                         fa.flash_attention_fwd_cuda(q, k, v, **kw), fa.plain(q, k, v, **kw),
-                         failures)
-        main = main or (q, k, v, err)
+    say(f"K3 flash_attention_fwd (out and lse; lse tol 1e-4; out: fp32 tol 1e-4, bf16 at hd "
+        f"64/128 (tensor cores) {BF16_FWD_TOL:g} of the output scale (at least 1), p entering "
+        "P*V rounded to bf16; bf16 at hd 256 one ulp)")
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    main, n_tc = None, 0
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for (B, S, Hq, Hkv, D), dtype, kw, gen in [
+                ((8, 512, 32, 4, 128), torch.bfloat16, dict(causal=True), g),
+                ((8, 512, 32, 4, 128), torch.float32, dict(causal=True), g),
+                ((2, 512, 32, 4, 128), torch.bfloat16, dict(causal=True, window=128, softcap=50.0), g),
+                ((2, 300, 16, 1, 128), torch.bfloat16, dict(causal=True), g),            # MQA
+                ((3, 77, 8, 2, 128), torch.float32, dict(causal=True, kv_len=70), g),   # odd S, pad keys
+                ((3, 77, 6, 2, 128), torch.bfloat16, dict(causal=True, kv_len=70), g_new),  # rep 3
+                ((2, 300, 8, 2, 64), torch.bfloat16, dict(causal=True, window=40), g),
+                ((2, 50, 4, 2, 64), torch.bfloat16, dict(causal=False, kv_len=41), g_new),
+                ((2, 256, 8, 4, 256), torch.bfloat16, dict(causal=True, window=64, softcap=50.0), g),
+                ((2, 50, 4, 2, 64), torch.float32, dict(causal=False, kv_len=41), g)]:
+            q, k, v = randn(B, S, Hq, D, dtype=dtype, gen=gen), \
+                randn(B, S, Hkv, D, dtype=dtype, gen=gen), randn(B, S, Hkv, D, dtype=dtype, gen=gen)
+            tc = dtype == torch.bfloat16 and D in (64, 128)
+            n_tc += tc
+            err = check_case(torch, f"q={[B, S, Hq, D]} kv_heads={Hkv} {str(dtype)[6:]} {kw}",
+                             fa.flash_attention_fwd_cuda(q, k, v, **kw), fa.plain(q, k, v, **kw),
+                             failures, bf16_rel=BF16_FWD_TOL if tc else 0.0)
+            main = main or (q, k, v, err)
+        torch.cuda.synchronize()
+    launched = {}
+    for e in prof.key_averages():
+        hit = re.search(r"flash_fwd_kernel\w*<[^>]*>", e.key)
+        if e.device_type == DeviceType.CUDA and hit:
+            launched[hit.group(0)] = launched.get(hit.group(0), 0) + e.count
+    say(f"  launched as: {launched}")
+    if sum(c for name, c in launched.items() if "flash_fwd_kernel_tc" in name) != n_tc:
+        failures.append(f"K3: {n_tc} bf16 hd 64/128 cases did not all run flash_fwd_kernel_tc")
     q, k, v, err = main
     B, S, Hq, D = q.shape
     es = q.element_size()
@@ -183,30 +235,66 @@ def phase_kernels(torch, F):
     rows["flash_attention_fwd"] = dict(
         shape=f"q [{B}, {S}, {Hq}, {D}] k/v [{B}, {S}, {k.shape[2]}, {D}] bf16 causal",
         max_abs_err=err,
-        ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 10),
+        ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 20),
         plain_ms=cuda_ms(torch, lambda: fa.plain(q, k, v), 3),
         library_ms=cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 10),
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20),
         bound=bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * B * Hq * S,
                     4 * B * Hq * D * pairs, "bfloat16"))
 
+    # the training path's micro-batch: correctness against the plain version,
+    # with SDPA's own error against the same plain output beside the kernel's
+    B, S, Hq, Hkv, D = 2, 2048, 32, 4, 128
+    q, k, v = (randn(*shape, dtype=torch.bfloat16, gen=g_new)
+               for shape in ((B, S, Hq, D), (B, S, Hkv, D), (B, S, Hkv, D)))
+    want = fa.plain(q, k, v)
+    err = check_case(torch, f"training shape q={[B, S, Hq, D]} kv_heads={Hkv} bfloat16 causal",
+                     fa.flash_attention_fwd_cuda(q, k, v), want, failures,
+                     bf16_rel=BF16_FWD_TOL)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    sdpa_err = (sdpa().transpose(1, 2).float() - want[0].float()).abs().max().item()
+    say(f"  training shape: max abs err of out against the plain version: kernel {err:.3e}, "
+        f"SDPA {sdpa_err:.3e} (output scale {want[0].float().abs().max().item():.3f})")
+    del want
+    pairs = B * Hq * S * (S + 1) // 2
+    k3_train_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 20)
+    sdpa_fwd_ms = cuda_ms(torch, sdpa, 20)
+    k3_bound = bound(2 * (2 * q.numel() + 2 * k.numel()) + 4 * B * Hq * S,
+                     4 * D * pairs, "bfloat16")
+    say(f"  time flash_attention_fwd at the training shape q [{B}, {S}, {Hq}, {D}] bf16 "
+        f"causal: kernel_ms={k3_train_ms:.4f} library_ms={sdpa_fwd_ms:.4f} bound_ms="
+        f"{k3_bound[0]:.4f} ({k3_bound[1]}); {4 * D * pairs / k3_train_ms / 1e9:.1f} TFLOP/s, "
+        f"{k3_train_ms / sdpa_fwd_ms:.2f}x SDPA")
+    del q, k, v, qt, kt, vt
+
     # -- K7 paged decode: 8 slots, 32 q / 4 KV heads, hd 128, 16-token blocks, 2048+1 pool
-    say("K7 paged_attention_decode (fp32 tol 1e-4, bf16 tol one ulp)")
+    say(f"K7 paged_attention_decode ({pa.KEYS_PER_SPLIT}-key splits merged in one launch; "
+        "fp32 tol 1e-4, bf16 tol one ulp; ctx == 0 rows exactly zero; two calls bitwise equal)")
     main = None
-    for R, Hq, Hkv, D, bs, dtype, kw, ctx in [
-            (8, 32, 4, 128, 16, torch.bfloat16, {}, [577, 65, 301, 512, 130, 449, 96, 260]),
-            (8, 32, 4, 128, 16, torch.float32, {}, [577, 65, 301, 512, 130, 449, 96, 260]),
-            (6, 32, 4, 128, 16, torch.bfloat16, {}, [0, 1, 17, 0, 333, 5]),        # idle rows
-            (5, 32, 4, 128, 8, torch.bfloat16, {}, [9, 23, 57, 101, 287]),         # odd, bs 8
-            (4, 16, 8, 256, 16, torch.bfloat16, dict(window=100, softcap=50.0), [31, 150, 400, 513]),
-            (4, 8, 1, 256, 16, torch.float32, {}, [40, 257, 3, 199]),              # MQA, hd 256
-            (3, 48, 1, 128, 16, torch.bfloat16, {}, [70, 300, 16]),                # rep 48
-            (4, 8, 2, 64, 16, torch.float32, dict(window=20), [1, 44, 90, 210])]:
+    for R, Hq, Hkv, D, bs, dtype, kw, ctx, gen in [
+            (8, 32, 4, 128, 16, torch.bfloat16, {}, [577, 65, 301, 512, 130, 449, 96, 260], g),
+            (8, 32, 4, 128, 16, torch.float32, {}, [577, 65, 301, 512, 130, 449, 96, 260], g),
+            (6, 32, 4, 128, 16, torch.bfloat16, {}, [0, 1, 17, 0, 333, 5], g),        # idle rows
+            (5, 32, 4, 128, 8, torch.bfloat16, {}, [9, 23, 57, 101, 287], g),         # odd, bs 8
+            (4, 16, 8, 256, 16, torch.bfloat16, dict(window=100, softcap=50.0), [31, 150, 400, 513], g),
+            (4, 8, 1, 256, 16, torch.float32, {}, [40, 257, 3, 199], g),              # MQA, hd 256
+            (3, 48, 1, 128, 16, torch.bfloat16, {}, [70, 300, 16], g),                # rep 48
+            (4, 8, 2, 64, 16, torch.float32, dict(window=20), [1, 44, 90, 210], g),
+            # long contexts (up to 128 splits), a context shorter than one
+            # split, idle rows; with and without window and softcap
+            (4, 32, 4, 128, 16, torch.bfloat16, {}, [8191, 4096, 0, 40], g_new),
+            (3, 32, 4, 128, 16, torch.float32, {}, [4096, 63, 0], g_new),
+            (5, 32, 4, 128, 16, torch.bfloat16, dict(window=1000, softcap=50.0),
+             [8191, 2000, 64, 65, 0], g_new)]:
         maxb = -(-max(ctx) // bs) + 1
-        N = 2049
-        qd = randn(R, Hq, D, dtype=dtype)
-        kp, vp = randn(N, Hkv, bs, D, dtype=dtype), randn(N, Hkv, bs, D, dtype=dtype)
-        perm = torch.randperm(N - 1, generator=g, device=dev)[:R * maxb]
+        N = max(2049, R * maxb + 1)
+        qd = randn(R, Hq, D, dtype=dtype, gen=gen)
+        kp, vp = randn(N, Hkv, bs, D, dtype=dtype, gen=gen), randn(N, Hkv, bs, D, dtype=dtype, gen=gen)
+        perm = torch.randperm(N - 1, generator=gen, device=dev)[:R * maxb]
         bt = perm.view(R, maxb).to(torch.int32).contiguous()
         cl = torch.tensor(ctx, dtype=torch.int32, device=dev)
         got = pa.paged_attention_cuda(qd, kp, vp, bt, cl, **kw)
@@ -215,21 +303,29 @@ def phase_kernels(torch, F):
                          pa.plain(qd, kp, vp, bt, cl, **kw), failures)
         if any(c == 0 for c in ctx) and not bool((got[cl == 0] == 0).all()):
             failures.append("paged: ctx == 0 rows are not zero")
+        if not torch.equal(got, pa.paged_attention_cuda(qd, kp, vp, bt, cl, **kw)):
+            failures.append(f"paged: two calls differ, ctx={ctx}")
         main = main or (qd, kp, vp, bt, cl, err)
     qd, kp, vp, bt, cl, err = main
     R, Hq, D = qd.shape
     Hkv = kp.shape[1]
     es = qd.element_size()
     live = int(cl.sum())
+    # the kernel takes less device time than its wrapper takes on the host, so
+    # back-to-back calls time the host: the kernel's time is a CUDA graph's
+    k7_host_ms = cuda_ms(torch, lambda: pa.paged_attention_cuda(qd, kp, vp, bt, cl), 200)
     rows["paged_attention_decode"] = dict(
         shape=f"q [{R}, {Hq}, {D}] pools [{kp.shape[0]}, {Hkv}, {kp.shape[2]}, {D}] "
               f"bf16, ctx {cl.tolist()}",
         max_abs_err=err,
-        ms=cuda_ms(torch, lambda: pa.paged_attention_cuda(qd, kp, vp, bt, cl), 200),
+        ms=graph_ms(torch, lambda: pa.paged_attention_cuda(qd, kp, vp, bt, cl)),
         plain_ms=cuda_ms(torch, lambda: pa.plain(qd, kp, vp, bt, cl), 20),
         library_ms=None,
         bound=bound(es * (2 * qd.numel() + 2 * live * Hkv * D) + 4 * (bt.numel() + R),
                     4 * Hq * D * live, "bfloat16"))
+    say(f"  K7 at the phase-2 shape: device time per launch {rows['paged_attention_decode']['ms']:.4f} "
+        f"ms (a CUDA graph of 50 launches); back-to-back launches from Python {k7_host_ms:.4f} ms "
+        f"(the wrapper's host cost)")
     # -- K2 RMSNorm backward: training rows mb*S = 2*2048, d_model 4096
     say("K2 rmsnorm_bwd (dx and dscale; fp32 tol 1e-4 of the output scale, bf16 one ulp)")
     main = None
@@ -336,13 +432,6 @@ def phase_kernels(torch, F):
     bwd_ms = rows["flash_attention_bwd_dq"]["ms"] + rows["flash_attention_bwd_dkv"]["ms"]
     say(f"  time K4 + K5 at the training shape: {bwd_ms:.4f} ms, {bwd_ms / sdpa_bwd_ms:.2f}x "
         f"SDPA's backward ({sdpa_bwd_ms:.4f} ms)")
-    k3_train_ms = cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 5)
-    sdpa_fwd_ms = cuda_ms(torch, sdpa, 10)
-    k3_bound = bound(es * (2 * q.numel() + 2 * k.numel()) + 4 * B * Hq * S,
-                     4 * D * pairs, "bfloat16")
-    say(f"  time flash_attention_fwd at the training shape q [{B}, {S}, {Hq}, {D}] bf16 "
-        f"causal: kernel_ms={k3_train_ms:.4f} library_ms={sdpa_fwd_ms:.4f} bound_ms="
-        f"{k3_bound[0]:.4f} ({k3_bound[1]})")
     del main, q, k, v, do, out, lse, delta, qt, kt, vt, dot
 
     # -- K6 AdamW: the largest storage leaf of the 8-layer Yi-6B, the stacked w_up
@@ -579,6 +668,8 @@ def phase_engine(torch, np, smi):
         f"ITL ms p50 {lat['itl_ms']['p50']:.2f} p99 {lat['itl_ms']['p99']:.2f}; "
         f"peak memory {peak_gb:.2f} GB")
     say(f"  launches {counts} expected {want}")
+    say(f"  card after the run (SM clock, max SM clock, power, temperature, throttle "
+        f"reasons): {smi_clocks()}")
     problems = []
     if sorted(out) != list(range(len(reqs))):
         problems.append("not every request finished")
@@ -719,6 +810,8 @@ def phase_train(torch, smi):
         f"{sum(r['tokens_per_s'] for r in steady) / len(steady):.0f} tok/s, MFU "
         f"{100 * sum(r['mfu'] for r in steady) / len(steady):.2f}%")
     say(f"  launches over {TRAIN_STEPS} steps {counts}; per step {per_step}")
+    say(f"  card after the run (SM clock, max SM clock, power, temperature, throttle "
+        f"reasons): {smi_clocks()}")
     problems = []
     if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
                for r in res["records"]):

@@ -85,6 +85,13 @@ template <typename T, int n> __device__ __forceinline__ void load_row(const T* p
   for (int j = 0; j < n; ++j) o[j] = to_float(p[j]);
 }
 
+// whether query position qp sees key position kp: keys below kv_len, causal,
+// and inside the window (qp - kp < window) when one is set
+__device__ __forceinline__ bool live_pair(int qp, int kp, int kv_len, int causal,
+                                          int window) {
+  return kp < kv_len && (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
+}
+
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));

@@ -84,11 +84,6 @@ constexpr int THREADS = WARPS * 32;
 constexpr int BQ = 32;                 // query rows per tile
 constexpr int BK = 32;                 // keys per tile (K4)
 
-__device__ __forceinline__ bool live_pair(int qp, int kp, int kv_len, int causal,
-                                          int window) {
-  return kp < kv_len && (!causal || qp >= kp) && (window <= 0 || qp - kp < window);
-}
-
 // stage rows [r0, r0 + n) of a [.., S, .., D] head into smem rows of `stride`
 // floats, scaled; rows past S are zero
 template <typename T, int D>
@@ -420,7 +415,6 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 using bf16 = __nv_bfloat16;
 constexpr int TC_THREADS = 128;        // one warpgroup
 constexpr int TT = tc::TILE_ROWS;      // rows of every tile: q rows or keys
-constexpr float LOG2E = 1.4426950408889634f;
 
 template <int D> struct DqTc {
   static constexpr uint32_t TILE = TT * D * sizeof(bf16);
@@ -445,19 +439,9 @@ __device__ __forceinline__ void p_ds(float s_raw, float dp, float lse2, float de
     t = tanhf(sr / softcap);
     sr = softcap * t;
   }
-  p = live ? exp2f(fmaf(sr, LOG2E, -lse2)) : 0.f;
+  p = live ? exp2f(fmaf(sr, tc::LOG2E, -lse2)) : 0.f;
   ds = p * (dp - delta);
   if (softcap > 0.f) ds *= 1.f - t * t;
-}
-
-// the accumulator of an m64n64 product as four K steps of register A
-// operands, bf16 (accumulator n8-block j is K step j/2, half j%2)
-__device__ __forceinline__ void to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    a[j >> 1][2 * (j & 1)] = tc::pack_bf16(d[4 * j], d[4 * j + 1]);
-    a[j >> 1][2 * (j & 1) + 1] = tc::pack_bf16(d[4 * j + 2], d[4 * j + 3]);
-  }
 }
 
 // K4.  Grid: one block per (q tile, q head, batch), numbered so that the
@@ -539,7 +523,7 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int qp = q0 + r0 + 8 * e;
     const float l = qp < S ? lse[((int64_t)b * Hq + h) * S + qp] : NEG_INF;
     row_live[e] = l > 0.5f * NEG_INF;
-    lse2[e] = row_live[e] ? l * LOG2E : 0.f;
+    lse2[e] = row_live[e] ? l * tc::LOG2E : 0.f;
     dlt[e] = delta_s[r0 + 8 * e];
   }
 
@@ -585,7 +569,7 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
              s[x]);
       }
     uint32_t a[4][4];
-    to_a(s, a);
+    tc::to_a(s, a);
 
     tc::wgmma_fence();
 #pragma unroll
@@ -741,12 +725,12 @@ flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
         const float l = Ls[col];
         const bool live = qp < S && l > 0.5f * NEG_INF &&
                           live_pair(qp, kp, kv_len, causal, window);
-        p_ds(s[x], dp[x], live ? l * LOG2E : 0.f, Es[col], live, scale, softcap, s[x],
+        p_ds(s[x], dp[x], live ? l * tc::LOG2E : 0.f, Es[col], live, scale, softcap, s[x],
              dp[x]);
       }
     uint32_t ap[4][4], ad[4][4];
-    to_a(s, ap);
-    to_a(dp, ad);
+    tc::to_a(s, ap);
+    tc::to_a(dp, ad);
 
     tc::wgmma_fence();
 #pragma unroll

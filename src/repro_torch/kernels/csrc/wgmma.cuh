@@ -32,6 +32,7 @@ namespace rt {
 namespace tc {
 
 constexpr int TILE_ROWS = 64;
+constexpr float LOG2E = 1.4426950408889634f;
 constexpr uint32_t CHUNK_BYTES = TILE_ROWS * 128;   // one 64-column chunk
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -128,6 +129,16 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// the accumulator of an m64n64 product as four K steps of register A
+// operands, bf16 (accumulator n8-block j is K step j/2, half j%2)
+__device__ __forceinline__ void to_a(const float (&d)[32], uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    a[j >> 1][2 * (j & 1)] = pack_bf16(d[4 * j], d[4 * j + 1]);
+    a[j >> 1][2 * (j & 1) + 1] = pack_bf16(d[4 * j + 2], d[4 * j + 3]);
+  }
 }
 
 // D[64 x N] (+)= A * B, fp32 accumulators, bf16 operands.  ss: A and B from

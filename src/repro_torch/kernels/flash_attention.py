@@ -6,9 +6,9 @@ Kernel sources: ``csrc/flash_attention.cu`` (K3, forward) and
 kernels ``repro/kernels/flash_attention.py:_attn_fwd_kernel``,
 ``:_attn_bwd_dq_kernel`` and ``:_attn_bwd_dkv_kernel``.  The kernels stream
 K/V (or Q) tiles and mask the ragged edges themselves, so they take any S (no
-padding, and no plain fallback for long sequences).  K4 and K5 in bf16 at head
-dim 64 and 128 (the training path) run on the tensor cores (wgmma); fp32, and
-bf16 at head dim 256, run on the fp32 CUDA cores.
+padding, and no plain fallback for long sequences).  All three in bf16 at head
+dim 64 and 128 (training and serving prefill) run on the tensor cores (wgmma);
+fp32, and bf16 at head dim 256, run on the fp32 CUDA cores.
 """
 from __future__ import annotations
 

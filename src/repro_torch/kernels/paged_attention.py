@@ -2,7 +2,10 @@
 version.
 
 Kernel source: ``csrc/paged_attention.cu``.  Replaces the TPU kernel
-``repro/kernels/paged_attention.py:_paged_decode_kernel``.
+``repro/kernels/paged_attention.py:_paged_decode_kernel``.  The kernel cuts
+each request's key range into splits of ``KEYS_PER_SPLIT`` keys, one block
+each, and merges the splits' partial softmax states inside the same launch
+(``ref.paged_attention_split_ref`` is the same computation in plain PyTorch).
 """
 from __future__ import annotations
 
@@ -13,7 +16,19 @@ from repro_torch.kernels.ref import paged_attention_ref as plain  # noqa: F401
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
+KEYS_PER_SPLIT = 64   # the kernel's split (KPS in the source)
 launches = 0   # kernel launches; chip_smoke.py resets and reads it
+_counters: dict[torch.device, torch.Tensor] = {}
+
+
+def _merge_counters(n: int, device: torch.device) -> torch.Tensor:
+    """n int32 merge counters on ``device``, zero: made once and grown when
+    needed; every launch leaves them zero again, so no call clears them."""
+    buf = _counters.get(device)
+    if buf is None or buf.numel() < n:
+        buf = _counters[device] = torch.zeros(max(n, 256), dtype=torch.int32,
+                                              device=device)
+    return buf
 
 
 def paged_attention_cuda(q, k_pool, v_pool, block_tables, context_lens, *,
@@ -37,12 +52,16 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, context_lens, *,
                          f"pool {tuple(k_pool.shape)} tables {tuple(block_tables.shape)}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("paged_attention_cuda: inputs must be contiguous")
+    maxb = block_tables.shape[1]
+    n_splits = -(-maxb * bs // KEYS_PER_SPLIT)
     out = torch.empty_like(q)
+    part = torch.empty(R * Hq * n_splits * (D + 2), dtype=torch.float32, device=q.device)
+    counters = _merge_counters(R * Hq, q.device)     # >= one per (request, head group)
     status = _build.library().rt_paged_attention_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
-        context_lens.data_ptr(), out.data_ptr(), R, Hq, Hkv, D, N, bs,
-        block_tables.shape[1], int(window), float(softcap), DTYPES[q.dtype],
-        torch.cuda.current_stream(q.device).cuda_stream)
+        context_lens.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
+        R, Hq, Hkv, D, N, bs, maxb, KEYS_PER_SPLIT, int(window), float(softcap),
+        DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "rt_paged_attention_decode")
     launches += 1
     return out

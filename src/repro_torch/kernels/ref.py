@@ -60,10 +60,12 @@ def _mask(S: int, Sk: int, *, causal: bool, window: int, kv_len: int, device):
 
 
 def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
-                            softcap: float = 0.0, kv_len: int = 0):
+                            softcap: float = 0.0, kv_len: int = 0, round_p: bool = False):
     """q: [B, S, Hq, D]; k, v: [B, S, Hkv, D] -> (out [B, S, Hq, D] in q's
     dtype, lse [B, Hq, S] fp32).  ``kv_len`` (0 = S) masks key rows at and
-    past it; ``window`` > 0 keeps keys with ``q - k < window``."""
+    past it; ``window`` > 0 keeps keys with ``q - k < window``.
+    ``round_p`` (off by default; for the tests) rounds p to bf16 before the
+    P*V product, as the tensor-core kernel does; the row sum keeps fp32 p."""
     B, S, Hq, D = q.shape
     rep = Hq // k.shape[2]
     kv_len = kv_len or S
@@ -77,7 +79,8 @@ def flash_attention_fwd_ref(q, k, v, *, causal: bool = True, window: int = 0,
                  device=q.device)
     p, l, m = _softmax_rows(s, mask)
     l = torch.where(l == 0, torch.ones_like(l), l)
-    out = torch.einsum("bhqk,bkhd->bqhd", p, vf) / l.transpose(1, 2)[..., None]
+    pv = p.to(torch.bfloat16).float() if round_p else p
+    out = torch.einsum("bhqk,bkhd->bqhd", pv, vf) / l.transpose(1, 2)[..., None]
     return out.to(q.dtype), m + torch.log(l)
 
 
@@ -176,4 +179,38 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, context_lens, *,
     p, l, _ = _softmax_rows(s, mask)
     out = torch.einsum("rhk,rhkd->rhd", p, v) / torch.where(
         l == 0, torch.ones_like(l), l)[..., None]
+    return out.to(q.dtype)
+
+
+def paged_attention_split_ref(q, k_pool, v_pool, block_tables, context_lens, *,
+                              keys_per_split: int, window: int = 0,
+                              softcap: float = 0.0):
+    """``paged_attention_ref``'s function computed as the K7 kernel does:
+    the key range cut at multiples of ``keys_per_split``, each split's
+    softmax state (max m, sum l, unnormalised output) taken alone, then the
+    splits merged in order with weights exp(m_s - M).  -> [R, Hq, D]."""
+    R, Hq, D = q.shape
+    _, Hkv, bs, _ = k_pool.shape
+    rep = Hq // Hkv
+    maxb = block_tables.shape[1]
+    n = -(-maxb * bs // keys_per_split)
+    pad = n * keys_per_split - maxb * bs
+    bt = block_tables.long()
+    k = k_pool[bt].float().permute(0, 2, 1, 3, 4).reshape(R, Hkv, maxb * bs, D)
+    v = v_pool[bt].float().permute(0, 2, 1, 3, 4).reshape(R, Hkv, maxb * bs, D)
+    k, v = (torch.nn.functional.pad(t, (0, 0, 0, pad)).repeat_interleave(rep, dim=1)
+            .reshape(R, Hq, n, keys_per_split, D) for t in (k, v))
+    s = torch.einsum("rhd,rhnkd->rhnk", q.float() * D ** -0.5, k)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    ctx = context_lens.long()[:, None, None, None]
+    k_pos = torch.arange(n * keys_per_split, device=q.device).view(1, 1, n, keys_per_split)
+    mask = (k_pos < ctx) & (k_pos < maxb * bs)
+    if window > 0:
+        mask = mask & (k_pos >= ctx - window)
+    p, l, m = _softmax_rows(s, mask)      # per split; no live key: m NEG_INF, l 0
+    acc = torch.einsum("rhnk,rhnkd->rhnd", p, v)
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    L = (w * l).sum(-1)
+    out = (w[..., None] * acc).sum(2) / torch.where(L == 0, torch.ones_like(L), L)[..., None]
     return out.to(q.dtype)

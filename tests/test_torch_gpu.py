@@ -20,7 +20,8 @@ from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.ref import (adamw_ref, flash_attention_bwd_dkv_ref,
                                      flash_attention_bwd_dq_ref, flash_attention_fwd_ref,
-                                     paged_attention_ref, rmsnorm_bwd_ref, rmsnorm_ref)
+                                     paged_attention_ref, paged_attention_split_ref,
+                                     rmsnorm_bwd_ref, rmsnorm_ref)
 from repro_torch.models import transformer as T
 from repro_torch.optim.adam import AdamConfig, adam_init
 from repro_torch.serving.cache import PagedCacheConfig
@@ -77,6 +78,85 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape, window, cap, causal, kv_
     torch.testing.assert_close(out.float(), out_p.float(), rtol=_tol(dtype),
                                atol=_tol(dtype))
     torch.testing.assert_close(lse, lse_p, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,window,cap,causal,kv_len", [
+    ((2, 2048, 32, 4, 128), 0, 0.0, True, 0),     # the training path's micro-batch
+    ((8, 512, 32, 4, 128), 0, 0.0, True, 0),      # a serving prefill bucket
+    ((3, 77, 6, 2, 128), 0, 0.0, True, 70),       # odd S, kv_len < S, rep 3
+    ((2, 300, 8, 2, 64), 40, 30.0, True, 0),      # window, softcap, hd 64
+    ((1, 130, 4, 1, 128), 1, 0.0, True, 0),       # a window of one key
+    ((2, 50, 4, 2, 64), 12, 0.0, False, 41),      # non-causal, padded keys
+])
+def test_flash_tensor_core_kernel_matches_plain(cuda, shape, window, cap, causal, kv_len):
+    """bf16 K3 at head dim 64 and 128 runs on the tensor cores and rounds p to
+    bf16 before P V: within the JAX package's bf16 forward tolerance (2e-2) of
+    the output scale, lse within 1e-4, and as close to the plain version with
+    p rounded the same way."""
+    B, S, Hq, Hkv, D = shape
+    g = torch.Generator(device=cuda).manual_seed(S + D)
+    q = torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    kw = dict(causal=causal, window=window, softcap=cap, kv_len=kv_len)
+    n = fa.launches
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    assert fa.launches == n + 1
+    out_p, lse_p = flash_attention_fwd_ref(q, k, v, **kw)
+    out_r, _ = flash_attention_fwd_ref(q, k, v, round_p=True, **kw)
+    torch.cuda.synchronize()
+    tol = 2e-2 * max(1.0, out_p.float().abs().max().item())
+    assert (out.float() - out_p.float()).abs().max().item() <= tol
+    assert (out.float() - out_r.float()).abs().max().item() <= tol
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("ctx,window,cap", [
+    ([8191, 4096, 0, 40, 63, 64, 65], 0, 0.0),    # up to 128 splits, idle, split edges
+    ([8191, 2000, 1, 0], 1000, 50.0),
+])
+def test_paged_kernel_long_contexts(cuda, dtype, ctx, window, cap):
+    """K7 over many 64-key splits merged in one launch: the plain version's
+    tolerance (the split only reorders the sums), idle rows exactly zero."""
+    R, hq, hkv, D, bs = len(ctx), 32, 4, 128, 16
+    maxb = -(-max(ctx) // bs) + 1
+    N = R * maxb + 1
+    g = torch.Generator(device=cuda).manual_seed(len(ctx))
+    q = torch.randn(R, hq, D, generator=g, device=cuda).to(dtype)
+    kp, vp = (torch.randn(N, hkv, bs, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    bt = torch.randperm(N - 1, generator=g, device=cuda)[:R * maxb].view(R, maxb).int()
+    cl = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    n = pa.launches
+    out = pa.paged_attention_cuda(q, kp, vp, bt, cl, window=window, softcap=cap)
+    assert pa.launches == n + 1
+    want = paged_attention_ref(q, kp, vp, bt, cl, window=window, softcap=cap)
+    split = paged_attention_split_ref(q, kp, vp, bt, cl, keys_per_split=pa.KEYS_PER_SPLIT,
+                                      window=window, softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.all(out[cl == 0] == 0)
+    for ref in (want, split):
+        torch.testing.assert_close(out.float(), ref.float(), rtol=_tol(dtype), atol=_tol(dtype))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_is_deterministic(cuda, dtype):
+    """The last split block to finish merges the partials in split order, so
+    two launches give bit-identical outputs whichever block finishes last."""
+    ctx = [577, 65, 301, 512, 130, 449, 96, 260, 4000, 0]
+    R, hq, hkv, D, bs = len(ctx), 32, 4, 128, 16
+    maxb = -(-max(ctx) // bs) + 1
+    N = R * maxb + 1
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(R, hq, D, generator=g, device=cuda).to(dtype)
+    kp, vp = (torch.randn(N, hkv, bs, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    bt = torch.randperm(N - 1, generator=g, device=cuda)[:R * maxb].view(R, maxb).int()
+    cl = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+    first = pa.paged_attention_cuda(q, kp, vp, bt, cl)
+    for _ in range(5):
+        assert torch.equal(pa.paged_attention_cuda(q, kp, vp, bt, cl), first)
 
 
 @pytest.mark.gpu

@@ -16,7 +16,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.kernels.ref import (NEG_INF, flash_attention_fwd_ref,
-                                     paged_attention_ref, rmsnorm_ref)
+                                     paged_attention_ref, paged_attention_split_ref,
+                                     rmsnorm_ref)
 
 DT = {"float32": (np.float32, jnp.float32, torch.float32),
       "bfloat16": (np.float32, jnp.bfloat16, torch.bfloat16)}
@@ -100,6 +101,35 @@ def test_flash_plain_matches_pallas(shape, window, cap, causal, kv_len, dtype):
     assert np.all(np.asarray(lse_j)[..., ~live] == NEG_INF)
 
 
+# The tensor-core K3 rounds p to bf16 before P*V (``round_p``): over the
+# cases of tests/test_kernels.py in bf16, that stays inside the JAX package's
+# bf16 forward tolerance (2e-2, test_flash_attention_dtypes) of its Pallas
+# kernel, which keeps p in fp32.
+ROUND_P_CASES = (
+    [(shape, w, cap, True, 0) for shape in SHAPES for w, cap in VARIANTS]
+    + [((1, 40, 2, 2, 16), w, 0.0, False, 0) for w in (0, 12)]   # non-causal, padded
+    + [((1, 64, 4, 2, 32), 0, 0.0, True, 0)])
+
+
+@pytest.mark.parametrize("shape,window,cap,causal,kv_len", ROUND_P_CASES)
+def test_flash_plain_round_p_within_bf16_tolerance(shape, window, cap, causal, kv_len):
+    B, S, Hq, Hkv, D = shape
+    rng = np.random.default_rng(B * S + window + 1)
+    q = rng.standard_normal((B, S, Hq, D), np.float32)
+    k = rng.standard_normal((B, S, Hkv, D), np.float32)
+    v = rng.standard_normal((B, S, Hkv, D), np.float32)
+    (qj, qt), (kj, kt), (vj, vt) = (_both(a, "bfloat16") for a in (q, k, v))
+    want = jops.flash_attention(qj, kj, vj, causal=causal, window=window, softcap=cap,
+                                block_q=16, block_k=16)
+    kw = dict(causal=causal, window=window, softcap=cap, kv_len=kv_len)
+    got, lse = flash_attention_fwd_ref(qt, kt, vt, round_p=True, **kw)
+    _, lse_plain = flash_attention_fwd_ref(qt, kt, vt, **kw)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(got), _np(want), rtol=2e-2, atol=2e-2)
+    # the option moves only the P*V operand: lse is the default path's
+    torch.testing.assert_close(lse, lse_plain, rtol=0, atol=0)
+
+
 # ---------------------------------------------------------------------------
 # K7 paged decode
 # ---------------------------------------------------------------------------
@@ -132,6 +162,42 @@ def test_paged_plain_idle_rows_zero():
     got = paged_attention_ref(*(torch.from_numpy(a) for a in (q, kp, vp, bt, lens))).numpy()
     assert np.all(got[[0, 2]] == 0) and np.any(got[[1, 3]] != 0)
     np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+# The split-and-merge the K7 kernel performs, in plain PyTorch, against the
+# Pallas kernel: splits shorter and longer than the contexts, idle rows,
+# window, softcap, MQA and block size 8, at the JAX test's tolerance.
+@pytest.mark.parametrize("keys_per_split", [4, 16, 64])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (5, 0.0), (0, 20.0), (7, 30.0)])
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)], ids=["mha", "gqa", "mqa"])
+def test_paged_split_plain_matches_pallas(keys_per_split, window, softcap, hq, hkv):
+    q, kp, vp, bt = _paged_inputs(6, hq, hkv, 16, 8, 12, 4, seed=hq * 10 + hkv + 1)
+    lens = np.array([0, 1, 5, 17, 23, 32], np.int32)
+    want = jops.paged_attention(jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+                                jnp.asarray(bt), jnp.asarray(lens), window=window,
+                                softcap=softcap)
+    got = paged_attention_split_ref(*(torch.from_numpy(a) for a in (q, kp, vp, bt, lens)),
+                                    keys_per_split=keys_per_split, window=window,
+                                    softcap=softcap)
+    assert np.all(got.numpy()[0] == 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_split_plain_matches_plain_at_serving_shape(dtype):
+    """Yi-6B's decode shape (32 q / 4 KV heads, hd 128, 16-token blocks),
+    contexts up to 700 keys over 64-key splits, against the unsplit plain
+    version: the split changes only the order of the sums."""
+    q, kp, vp, bt = _paged_inputs(8, 32, 4, 128, 16, 400, 45, seed=3)
+    lens = np.array([577, 65, 301, 512, 130, 0, 96, 700], np.int32)
+    args = [torch.from_numpy(a) for a in (q, kp, vp, bt, lens)]
+    args[:3] = [a.to(DT[dtype][2]) for a in args[:3]]
+    for kw in ({}, dict(window=100, softcap=50.0)):
+        got = paged_attention_split_ref(*args, keys_per_split=64, **kw)
+        want = paged_attention_ref(*args, **kw)
+        tol = 2e-2 if dtype == "bfloat16" else 1e-5
+        np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol)
+        assert np.all(_np(got)[5] == 0)
 
 
 # ---------------------------------------------------------------------------
