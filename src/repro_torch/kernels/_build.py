@@ -39,7 +39,7 @@ ENTRY_POINTS = {
                                  + [_I, _I, _I, _F, _I, _P],
     "rt_flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [_LL3] * 4
                                   + [_I, _I, _I, _F, _I, _P],
-    "rt_paged_attention_decode": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+    "rt_paged_attention_decode": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     "rt_adamw": [_P, _P, _P, _P, _P, _LL, _F, _F, _F, _F, _F, _F, _I, _P],
 }
 

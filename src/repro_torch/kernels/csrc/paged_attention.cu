@@ -43,7 +43,8 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
 constexpr int HG = 8;     // query heads per block, one warp each in the softmax
-constexpr int KPS = 64;   // keys per split; also the merge's chunk of splits
+constexpr int KPS = 64;   // keys per split (paged_attention.py's KEYS_PER_SPLIT); also
+                          // the merge's chunk of splits
 
 template <typename T, int D> struct Paged {
   static constexpr int V = Vec16<T>::N;
@@ -356,20 +357,17 @@ int launch(const void* q, const void* kp, const void* vp, const void* tables,
 // q: dense [R, Hq, D]; pools: dense [n_pool, Hkv, bs, D]; tables: dense int32
 // [R, maxb]; ctx: int32 [R]; out: dense [R, Hq, D] of q's dtype.  Table
 // entries are clamped into [0, n_pool), as the JAX gather clamps.
-// keys_per_split must be 64 (the kernel's KPS); with n_splits = ceil(maxb *
-// bs / 64), `part` is fp32 scratch of R * Hq * n_splits * (D + 2) floats and
-// `counters` at least R * Hq int32, zero before the first launch (each
-// launch leaves them zero).  Calls that share `counters` must run one after
-// another, on one stream.
+// With n_splits = ceil(maxb * bs / KPS), `part` is fp32 scratch of R * Hq *
+// n_splits * (D + 2) floats and `counters` at least R * Hq int32, zero
+// before the first launch (each launch leaves them zero).  Calls that share
+// `part` or `counters` must run one after another, on one stream.
 extern "C" int rt_paged_attention_decode(const void* q, const void* k_pool,
                                          const void* v_pool, const void* tables,
                                          const void* ctx, void* out, void* part,
                                          void* counters, int R, int Hq, int Hkv, int D,
-                                         int n_pool, int bs, int maxb, int keys_per_split,
-                                         int window, float softcap, int dtype,
-                                         void* stream) {
-  if (R <= 0 || Hkv <= 0 || Hq % Hkv != 0 || n_pool <= 0 || bs <= 0 || maxb <= 0 ||
-      keys_per_split != KPS)
+                                         int n_pool, int bs, int maxb, int window,
+                                         float softcap, int dtype, void* stream) {
+  if (R <= 0 || Hkv <= 0 || Hq % Hkv != 0 || n_pool <= 0 || bs <= 0 || maxb <= 0)
     return kBadArgs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
 #define RT_PAGED(T_, D_) \

@@ -16,18 +16,19 @@ from repro_torch.kernels.ref import paged_attention_ref as plain  # noqa: F401
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
-KEYS_PER_SPLIT = 64   # the kernel's split (KPS in the source)
+KEYS_PER_SPLIT = 64   # must equal KPS in csrc/paged_attention.cu
 launches = 0   # kernel launches; chip_smoke.py resets and reads it
-_counters: dict[torch.device, torch.Tensor] = {}
+# per device: the splits' fp32 partials, and the int32 merge counters (zero;
+# every launch leaves them zero again, so no call clears them).  Each is made
+# once and grown when needed; launches on one stream run in order, so they
+# can share both.
+_scratch: dict[tuple[torch.device, torch.dtype], torch.Tensor] = {}
 
 
-def _merge_counters(n: int, device: torch.device) -> torch.Tensor:
-    """n int32 merge counters on ``device``, zero: made once and grown when
-    needed; every launch leaves them zero again, so no call clears them."""
-    buf = _counters.get(device)
+def _buffer(n: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    buf = _scratch.get((device, dtype))
     if buf is None or buf.numel() < n:
-        buf = _counters[device] = torch.zeros(max(n, 256), dtype=torch.int32,
-                                              device=device)
+        buf = _scratch[device, dtype] = torch.zeros(max(n, 256), dtype=dtype, device=device)
     return buf
 
 
@@ -55,12 +56,12 @@ def paged_attention_cuda(q, k_pool, v_pool, block_tables, context_lens, *,
     maxb = block_tables.shape[1]
     n_splits = -(-maxb * bs // KEYS_PER_SPLIT)
     out = torch.empty_like(q)
-    part = torch.empty(R * Hq * n_splits * (D + 2), dtype=torch.float32, device=q.device)
-    counters = _merge_counters(R * Hq, q.device)     # >= one per (request, head group)
+    part = _buffer(R * Hq * n_splits * (D + 2), torch.float32, q.device)
+    counters = _buffer(R * Hq, torch.int32, q.device)   # >= one per (request, head group)
     status = _build.library().rt_paged_attention_decode(
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(), block_tables.data_ptr(),
         context_lens.data_ptr(), out.data_ptr(), part.data_ptr(), counters.data_ptr(),
-        R, Hq, Hkv, D, N, bs, maxb, KEYS_PER_SPLIT, int(window), float(softcap),
+        R, Hq, Hkv, D, N, bs, maxb, int(window), float(softcap),
         DTYPES[q.dtype], torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "rt_paged_attention_decode")
     launches += 1
