@@ -28,16 +28,26 @@ nonzero and prints no result:
      accumulation, fused AdamW), global batch 8 x 2048 tokens in 4
      micro-batches, with the exact launch counts of every step; then one
      profiled step, which reports and never fails the run;
-  6. the ``kernels`` line, and as the last line
+  6. the process-group path on the card: phase 5's run again under a
+     world-size-1 NCCL group (every collective issued), whose losses and grad
+     norms must equal phase 5's to 1e-6 relative, with the exact per-step
+     collective counts of the layered schedule (2 x 9 L + 3 all-gathers and
+     9 L + 3 reduce-scatters over the data group) and of one standard step
+     (M times those); then the §C.3 fused per-layer update against the
+     classic step, 3 steps each at grad_clip=0: equal losses (1e-6), 9 L + 3
+     K6 launches a step, both peak memories and step times;
+  7. the ``kernels`` line, and as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
 import os
 import re
+import socket
 import subprocess
 import sys
 import time
@@ -85,6 +95,18 @@ def cuda_ms(torch, fn, iters: int) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def in_turns(torch, fns: dict, iters: int, rounds: int) -> dict:
+    """``cuda_ms`` of each function, taken in turns: each round runs them in
+    order and then in reverse (a, b, b, a), so that a drifting clock weighs
+    on each alike.  Returns every reading, by name."""
+    out = {k: [] for k in fns}
+    order = list(fns) + list(reversed(fns))
+    for _ in range(rounds):
+        for k in order:
+            out[k].append(cuda_ms(torch, fns[k], iters))
+    return out
 
 
 def smi_clocks() -> str:
@@ -417,12 +439,20 @@ def phase_kernels(torch, F):
         torch.autograd.grad(lib_fwd(), [xr, sr], dy)
 
     es = x.element_size()
+    # K2 and its library call timed in turns (K2, library, library, K2, ...),
+    # each reading a mean over 200 calls; the medians are kept
+    turns = in_turns(torch, {"k2": lambda: rn.rmsnorm_bwd_cuda(x, s, dy),
+                             "lib_fwd_bwd": lib_fwd_bwd, "lib_fwd": lib_fwd}, 200, rounds=5)
+    med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
+    k2_bound = bound(3 * x.numel() * es + 8 * x.shape[1], 10 * x.numel(), "bfloat16")
+    say(f"  K2 in turns with its library call, {len(turns['k2'])} readings each: K2 ms "
+        f"min {min(turns['k2']):.4f} median {med['k2']:.4f} max {max(turns['k2']):.4f} "
+        f"({100 * k2_bound[0] / med['k2']:.0f}% of its bound {k2_bound[0]:.4f}); library "
+        f"(backward less forward) median {med['lib_fwd_bwd'] - med['lib_fwd']:.4f}")
     rows["rmsnorm_bwd"] = dict(
-        shape=f"x, dy [{x.shape[0]}, {x.shape[1]}] bf16", max_abs_err=err,
-        ms=cuda_ms(torch, lambda: rn.rmsnorm_bwd_cuda(x, s, dy), 200),
+        shape=f"x, dy [{x.shape[0]}, {x.shape[1]}] bf16", max_abs_err=err, ms=med["k2"],
         plain_ms=cuda_ms(torch, lambda: rn.plain_bwd(x, s, dy), 20),
-        library_ms=cuda_ms(torch, lib_fwd_bwd, 100) - cuda_ms(torch, lib_fwd, 100),
-        bound=bound(3 * x.numel() * es + 8 * x.shape[1], 10 * x.numel(), "bfloat16"))
+        library_ms=med["lib_fwd_bwd"] - med["lib_fwd"], bound=k2_bound)
 
     # -- K4/K5 flash backward: training micro-batch 2 x 2048, 32 q heads, 4 KV heads
     say("K4 flash_attention_bwd_dq (dq, delta) and K5 flash_attention_bwd_dkv (dk, dv), "
@@ -852,33 +882,52 @@ TRAIN_ARGV = ["--arch", "yi-6b", "--layers", str(TRAIN_LAYERS), "--global-batch"
               str(TRAIN_STEPS), "--lr", "3e-3", "--seed", str(SEED)]
 
 
-def phase_train(torch, smi):
+def train_counters():
+    """The training kernels' launch counters: name -> (module, attribute)."""
     from repro_torch.kernels import adamw as aw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
+    return {"rmsnorm": (rn, "launches"), "rmsnorm_bwd": (rn, "bwd_launches"),
+            "flash_attention_fwd": (fa, "launches"),
+            "flash_attention_bwd_dq": (fa, "bwd_dq_launches"),
+            "flash_attention_bwd_dkv": (fa, "bwd_dkv_launches"),
+            "adamw": (aw, "launches")}
+
+
+def reset_counts(counters) -> None:
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+
+
+def read_counts(counters) -> dict:
+    return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
+
+
+# one layered step: the forward (2 norms, 1 attention per layer and
+# micro-batch), the head (final norm forward and backward per micro-batch),
+# the backward's recompute and its backward; AdamW once per storage leaf (9
+# stacked layer leaves, embed, head, final norm)
+L_, M_ = TRAIN_LAYERS, TRAIN_MB
+TRAIN_PER_STEP = {"rmsnorm": 4 * L_ * M_ + M_, "rmsnorm_bwd": 2 * L_ * M_ + M_,
+                  "flash_attention_fwd": 2 * L_ * M_, "flash_attention_bwd_dq": L_ * M_,
+                  "flash_attention_bwd_dkv": L_ * M_, "adamw": 12}
+
+
+def phase_train(torch, smi):
     from repro_torch.launch import train
 
     L, M = TRAIN_LAYERS, TRAIN_MB
-    counters = {"rmsnorm": (rn, "launches"), "rmsnorm_bwd": (rn, "bwd_launches"),
-                "flash_attention_fwd": (fa, "launches"),
-                "flash_attention_bwd_dq": (fa, "bwd_dq_launches"),
-                "flash_attention_bwd_dkv": (fa, "bwd_dkv_launches"),
-                "adamw": (aw, "launches")}
+    counters = train_counters()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
-    for mod, attr in counters.values():
-        setattr(mod, attr, 0)
+    reset_counts(counters)
+    a0 = alloc_counts(torch)
     res = train.main(TRAIN_ARGV)
     torch.cuda.synchronize()
-    counts = {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
-    # one layered step: the forward (2 norms, 1 attention per layer and
-    # micro-batch), the head (final norm forward and backward per
-    # micro-batch), the backward's recompute and its backward; AdamW once
-    # per storage leaf (9 stacked layer leaves, embed, head, final norm)
-    per_step = {"rmsnorm": 4 * L * M + M, "rmsnorm_bwd": 2 * L * M + M,
-                "flash_attention_fwd": 2 * L * M, "flash_attention_bwd_dq": L * M,
-                "flash_attention_bwd_dkv": L * M, "adamw": 12}
+    res["alloc"] = {k: v - a0[k] for k, v in alloc_counts(torch).items()}
+    counts = read_counts(counters)
+    per_step = TRAIN_PER_STEP
     want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
     for r in res["records"]:
         say(f"  step {r['step']}: {r['step_time_s']:.3f} s, {r['tokens_per_s']:.0f} tok/s, "
@@ -902,32 +951,34 @@ def phase_train(torch, smi):
     if problems:
         raise AssertionError("; ".join(problems))
     try:
-        phase_train_profile(torch)
+        res["profile"] = phase_train_profile(torch)
     except Exception as e:  # noqa: BLE001 — the breakdown is optional; say why it is missing
         say(f"  profile: not measured ({type(e).__name__}: {e})")
-    return counts
+    return counts, res
 
 
-def phase_train_profile(torch):
+def phase_train_profile(torch, axis=None, label="train step"):
     """Device time by group over one steady train step (after one warm-up
-    step) at the phase's configuration."""
+    step) at the phase's configuration, on ``axis``'s groups when given."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
-    from repro_torch.core import stepfn
+    from repro_torch.core import dist, stepfn
     from repro_torch.core.accumulation import AccumConfig
-    from repro_torch.data.synthetic import DataConfig, make_batch
+    from repro_torch.data.synthetic import DataConfig, batch_for
     from repro_torch.optim.adam import AdamConfig, adam_init
 
+    axis = axis or dist.LOCAL
     cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=TRAIN_LAYERS)
     step = stepfn.build_train_step(cfg, AccumConfig("layered", True, TRAIN_MB),
-                                   AdamConfig(lr=3e-3, warmup_steps=1, decay_steps=5))
-    storage = stepfn.init_storage(cfg, SEED, partitioned=True, device="cuda")
+                                   AdamConfig(lr=3e-3, warmup_steps=1, decay_steps=5),
+                                   axis=axis)
+    storage = stepfn.init_storage(cfg, SEED, partitioned=True, device="cuda", axis=axis)
     opt = adam_init(storage)
     data = DataConfig(cfg.vocab_size, 2048, 8, TRAIN_MB, seed=SEED)
-    storage, opt, _ = step(storage, opt, make_batch(data, 0))
-    batch = make_batch(data, 1)
+    storage, opt, _ = step(storage, opt, batch_for(cfg, data, 0, axis))
+    batch = batch_for(cfg, data, 1, axis)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -939,20 +990,240 @@ def phase_train_profile(torch):
     dev_us = sum(e.self_device_time_total for e in kern)
     names = ("rmsnorm_kernel", "rmsnorm_bwd_kernel", "flash_fwd_kernel",
              "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel", "adamw_kernel")
-    groups = dict.fromkeys((*names, "gemm", "other"), 0.0)
+    groups = dict.fromkeys((*names, "gemm", "nccl", "other"), 0.0)
     for e in kern:
         key = e.key.lower()
         hit = next((n for n in names if n in key), None)
+        if hit is None and "nccl" in key:
+            hit = "nccl"
         if hit is None:
             hit = "gemm" if any(k in key for k in ("gemm", "xmma", "cutlass", "nvjet",
                                                     "gemv")) else "other"
         groups[hit] += e.self_device_time_total
-    say(f"  profile train step: wall {wall_us / 1e3:.1f} ms, device busy {dev_us / 1e3:.1f} ms "
+    say(f"  profile {label}: wall {wall_us / 1e3:.1f} ms, device busy {dev_us / 1e3:.1f} ms "
         f"({100 * dev_us / wall_us:.1f}% of wall, idle {100 - 100 * dev_us / wall_us:.1f}%), "
         f"kernel launches {sum(e.count for e in kern)}; device ms by group "
         f"{ {k: round(v / 1e3, 2) for k, v in groups.items()} }")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
         say(f"    {e.self_device_time_total / 1e3:9.2f} ms x{e.count:<5d} {e.key[:90]}")
+    return {e.key: (e.self_device_time_total / 1e3, e.count) for e in kern}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the process-group path, and the fused per-layer update
+# ---------------------------------------------------------------------------
+# Yi-6B's leaves: ln1, ln2, wq, wk, wv, wo, w_gate, w_up, w_down in each layer;
+# embed, head and the final norm outside
+N_LAYER_LEAVES, N_OUTER_LEAVES = 9, 3
+FUSED_STEPS = 3
+
+
+@contextlib.contextmanager
+def one_rank_launch():
+    """The environment ``torch.distributed.run`` gives a group of one
+    process (rank 0 of 1 on this host, a free port), removed on exit."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {"RANK": "0", "LOCAL_RANK": "0", "WORLD_SIZE": "1", "MASTER_ADDR": "localhost",
+           "MASTER_PORT": str(port)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+ALLOC_KEYS = ("num_alloc_retries", "num_sync_all_streams", "num_device_alloc",
+              "num_device_free")
+
+
+def alloc_counts(torch) -> dict:
+    """The caching allocator's counters that mark a device synchronisation
+    or a cudaMalloc / cudaFree (each stalls the host behind the device)."""
+    st = torch.cuda.memory_stats()
+    return {k: st.get(k, 0) for k in ALLOC_KEYS}
+
+
+def rel(a: float, b: float) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def phase_group(torch, smi, phase5):
+    """(a) phase 5's run again under a world-size-1 NCCL group: the same
+    losses and grad norms, and exact per-step collective counts of both
+    schedules; (b) the fused per-layer update against the classic step at
+    grad_clip=0, and the classic step without a group: the same losses,
+    9 L + 3 K6 launches a step, and the peak memories, host enqueue times
+    and allocator counters of all three."""
+    import torch.distributed as tdist
+
+    from repro_torch import configs
+    from repro_torch.core import dist, stepfn
+    from repro_torch.core.accumulation import AccumConfig
+    from repro_torch.data.synthetic import DataConfig, batch_for
+    from repro_torch.launch import train
+    from repro_torch.optim.adam import AdamConfig, adam_init
+
+    L, M = TRAIN_LAYERS, TRAIN_MB
+    counters = train_counters()
+    problems = []
+    total = dict.fromkeys(counters, 0)
+
+    # (a) the layered schedule through the entry point, on a group of one
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    a0 = alloc_counts(torch)
+    with one_rank_launch():
+        res = train.main(TRAIN_ARGV)
+    torch.cuda.synchronize()
+    alloc = {k: v - a0[k] for k, v in alloc_counts(torch).items()}
+    counts = read_counts(counters)
+    total = {k: total[k] + counts[k] for k in total}
+    want_coll = {"data all_gather": 2 * N_LAYER_LEAVES * L + N_OUTER_LEAVES,
+                 "data reduce_scatter": N_LAYER_LEAVES * L + N_OUTER_LEAVES}
+    for r, r5 in zip(res["records"], phase5["records"]):
+        coll = {k: r["collectives"].get(k, [0, 0])[0] for k in want_coll}
+        say(f"  group of one, step {r['step']}: {r['step_time_s']:.3f} s (phase 5 "
+            f"{r5['step_time_s']:.3f} s), loss {r['loss']:.6f} (rel diff "
+            f"{rel(r['loss'], r5['loss']):.1e}), grad norm {r['grad_norm']:.6f} (rel diff "
+            f"{rel(r['grad_norm'], r5['grad_norm']):.1e}); collectives [calls, bytes] "
+            f"{r['collectives']}")
+        if rel(r["loss"], r5["loss"]) > 1e-6 or rel(r["grad_norm"], r5["grad_norm"]) > 1e-6:
+            problems.append(f"step {r['step']}: loss or grad norm differs from phase 5's")
+        if coll != want_coll:
+            problems.append(f"step {r['step']}: layered collectives {coll} != {want_coll}")
+    mean = lambda recs: sum(r["step_time_s"] for r in recs[1:]) / (len(recs) - 1)  # noqa: E731
+    t_grp, t_p5 = mean(res["records"]), mean(phase5["records"])
+    say(f"  group of one on {smi}: steady step {t_grp:.4f} s against phase 5's {t_p5:.4f} s "
+        f"({100 * (t_grp / t_p5 - 1):+.2f}%); launches {counts}; allocator over the run "
+        f"{alloc} (phase 5's {phase5.get('alloc')})")
+    if counts != {k: v * TRAIN_STEPS for k, v in TRAIN_PER_STEP.items()}:
+        problems.append(f"group-of-one launch counts {counts}")
+
+    # the standard schedule, one step: 3 collectives per layer leaf, layer
+    # and micro-batch
+    i = TRAIN_ARGV.index("--steps")
+    argv = TRAIN_ARGV[:i + 1] + ["1"] + TRAIN_ARGV[i + 2:] + ["--method", "standard"]
+    reset_counts(counters)
+    with one_rank_launch():
+        res_s = train.main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    total = {k: total[k] + counts[k] for k in total}
+    (r,) = res_s["records"]
+    want_std = {k: v * M for k, v in want_coll.items()}
+    coll = {k: r["collectives"].get(k, [0, 0])[0] for k in want_std}
+    layer_coll = sum(coll.values()) - 2 * M * N_OUTER_LEAVES
+    say(f"  standard schedule, one step: {r['step_time_s']:.3f} s, loss {r['loss']:.6f}; "
+        f"data-group layer collectives {layer_coll} (3 x {N_LAYER_LEAVES} leaves x L {L} x "
+        f"M {M} = {3 * N_LAYER_LEAVES * L * M}; layered {3 * N_LAYER_LEAVES * L}); "
+        f"collectives {r['collectives']}")
+    if coll != want_std or layer_coll != 3 * N_LAYER_LEAVES * L * M:
+        problems.append(f"standard collectives {coll} != {want_std}")
+
+    # (b) the fused per-layer update against the classic step, both on a
+    # group of one, grad_clip=0
+    cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=L)
+    acc = AccumConfig("layered", True, M)
+    opt_cfg = AdamConfig(lr=3e-3, warmup_steps=1, decay_steps=FUSED_STEPS, grad_clip=0.0)
+    data = DataConfig(cfg.vocab_size, 2048, 8, M, seed=SEED)
+    out = {}
+    with one_rank_launch():
+        axis = dist.from_env(1, 1, torch.device("cuda"))
+        try:
+            try:
+                prof = phase_train_profile(torch, axis, "train step on a group of one")
+                base = phase5.get("profile", {})
+                grew = sorted(((ms - base.get(k, (0.0, 0))[0], k, n, base.get(k, (0.0, 0)))
+                               for k, (ms, n) in prof.items()), reverse=True)[:8]
+                say("  kernels that take longer on the group of one than in phase 5's profile "
+                    "(ms more, launches here / there):")
+                for d, k, n, (_, n0) in grew:
+                    say(f"    {d:+9.2f} ms x{n}/{n0} {k[:90]}")
+            except Exception as e:  # noqa: BLE001 — the breakdown is optional
+                say(f"  profile on a group of one: not measured ({type(e).__name__}: {e})")
+            # the classic step without a group too: its host enqueue time
+            # and memory, on the same card in the same process
+            for name, build, ax in (("classic, no group", stepfn.build_train_step, dist.LOCAL),
+                                    ("classic", stepfn.build_train_step, axis),
+                                    ("fused", stepfn.build_fused_train_step, axis)):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                reset_counts(counters)
+                a0 = alloc_counts(torch)
+                step = build(cfg, acc, opt_cfg, axis=ax)
+                storage = stepfn.init_storage(cfg, SEED, partitioned=True, device="cuda",
+                                              axis=ax)
+                opt = adam_init(storage)
+                losses, times, host = [], [], []
+                for i in range(FUSED_STEPS):
+                    batch = batch_for(cfg, data, i, ax)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    storage, opt, m = step(storage, opt, batch)
+                    host.append(time.perf_counter() - t0)   # enqueued, not yet run
+                    losses.append(m["loss"].item())
+                    times.append(time.perf_counter() - t0)
+                torch.cuda.synchronize()
+                counts = read_counts(counters)
+                total = {k: total[k] + counts[k] for k in total}
+                out[name] = dict(losses=losses, times=times, host=host, counts=counts,
+                                 peak=torch.cuda.max_memory_allocated() / 1e9,
+                                 alloc={k: v - a0[k] for k, v in alloc_counts(torch).items()})
+                del storage, opt, step
+            # the host's cost of one collective call on the group of one (1024
+            # fp32, so the device's share is nil): enqueue time over 200 calls
+            x = torch.zeros(1024, device="cuda")
+            big = torch.empty(1024, device="cuda")
+            calls = {"all_reduce": lambda: axis.all_reduce(x, "model"),
+                     "all_gather": lambda: axis.all_gather(big, x, "data"),
+                     "reduce_scatter": lambda: axis.reduce_scatter(big, x, "data")}
+            host_us = {}
+            for op, fn in calls.items():
+                for _ in range(10):
+                    fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(200):
+                    fn()
+                host_us[op] = round((time.perf_counter() - t0) / 200 * 1e6, 1)
+                torch.cuda.synchronize()
+            say(f"  host time per collective call on the group of one (us, 200 calls "
+                f"each): {host_us}")
+        finally:
+            tdist.destroy_process_group()
+    c, f, n = out["classic"], out["fused"], out["classic, no group"]
+    for name, o in out.items():
+        say(f"  {name} step (grad_clip=0): losses "
+            f"{[round(x, 6) for x in o['losses']]}, step times "
+            f"{[round(t, 4) for t in o['times']]} s (host enqueue "
+            f"{[round(t, 4) for t in o['host']]} s), max memory allocated {o['peak']:.2f} GB, "
+            f"K6 launches {o['counts']['adamw']}, allocator {o['alloc']}")
+    worst = max(rel(a, b) for a, b in zip(f["losses"], c["losses"]))
+    if max(rel(a, b) for a, b in zip(n["losses"], c["losses"])) > 1e-6:
+        problems.append(f"classic losses with a group {c['losses']} != without {n['losses']}")
+    k6 = (N_LAYER_LEAVES * L + N_OUTER_LEAVES) * FUSED_STEPS
+    say(f"  fused against classic on {smi}: losses max rel diff {worst:.1e} (tol 1e-6); peak "
+        f"memory {f['peak']:.2f} GB against {c['peak']:.2f} GB; steady step "
+        f"{sum(f['times'][1:]) / (FUSED_STEPS - 1):.4f} s against "
+        f"{sum(c['times'][1:]) / (FUSED_STEPS - 1):.4f} s; K6 launches {f['counts']['adamw']} "
+        f"(want {k6})")
+    if worst > 1e-6:
+        problems.append(f"fused losses {f['losses']} != classic {c['losses']}")
+    if f["counts"]["adamw"] != k6 or c["counts"]["adamw"] != 12 * FUSED_STEPS \
+            or n["counts"]["adamw"] != 12 * FUSED_STEPS:
+        problems.append(f"K6 launches fused {f['counts']['adamw']} (want {k6}), classic "
+                        f"{c['counts']['adamw']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -1021,14 +1292,20 @@ def main() -> int:
         say(f"[phase 4] full Yi-6B engine run ok; {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        train_counts = phase_train(torch, smi)
+        train_counts, phase5 = phase_train(torch, smi)
         say(f"[phase 5] full-width Yi-6B training run ok; {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        group_counts = phase_group(torch, smi, phase5)
+        say(f"[phase 6] the process-group path and the fused update ok; "
+            f"{time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
 
-    # launches: the serving run's plus the training run's
-    counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0) for name in KERNELS}
+    # launches: the serving run's, the training run's and phase 6's
+    counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0)
+              + group_counts.get(name, 0) for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],
@@ -1037,7 +1314,7 @@ def main() -> int:
          "library_ms": rows[name]["library_ms"],
          **({"device_ms": rows[name]["device_ms"]} if "device_ms" in rows[name] else {})}
         for name, (src, rep) in KERNELS.items()]}
-    say(f"[phase 6] total {time.perf_counter() - t_all:.1f} s")
+    say(f"[phase 7] total {time.perf_counter() - t_all:.1f} s")
     say(smi)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -14,7 +14,9 @@ import numpy as np
 import torch
 
 from repro_torch import tree as ptree
-from repro_torch.core.stepfn import storage_from_params
+from repro_torch.core import partition as zp
+from repro_torch.core.dist import LOCAL, AxisCtx
+from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 
 
@@ -48,12 +50,26 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict:
 
 
 def storage_from_numpy(cfg: ModelConfig, tree: dict, *, partitioned: bool,
-                       device="cpu") -> dict:
-    """The JAX parameter tree -> the port's fp32 training storage (the chunk
-    layout when ``partitioned``), so both packages start a step from the same
-    weights.  The dense stacks' empty ``shared`` subtree is dropped."""
+                       device="cpu", axis: AxisCtx = LOCAL) -> dict:
+    """The JAX parameter tree -> this rank's fp32 training storage, so both
+    packages start a step from the same weights: when ``partitioned``, the
+    rank's chunks ``[L?, 1, 1, chunk]`` (block ``[..., m, d, :]`` of
+    ``partition.host_partition_leaf``), else its model shard of each leaf.
+    The dense stacks' empty ``shared`` subtree is dropped."""
     if tree.get("shared"):
         raise NotImplementedError("hybrid shared-attention blocks are not ported yet")
-    params = {k: ptree.tree_map(lambda a: _tensor(a, torch.float32, device), v)
-              for k, v in tree.items() if k != "shared"}
-    return storage_from_params(params, partitioned=partitioned)
+
+    def conv(path, a, spec):
+        a = np.asarray(a, np.float32)
+        dim = zp.model_dim(spec)
+        if not partitioned:
+            local = a if dim is None else np.split(a, axis.tp, dim)[axis.model_index]
+            return _tensor(local, torch.float32, device)
+        chunks = zp.host_partition_leaf(a, axis.tp, axis.ndata, stacked=path[0] == "layers",
+                                        model_dim=dim)
+        m = axis.model_index if chunks.shape[-3] > 1 else 0
+        d = axis.data_index
+        return _tensor(chunks[..., m:m + 1, d:d + 1, :], torch.float32, device)
+
+    return ptree.tree_map_with_path(conv, {k: v for k, v in tree.items() if k != "shared"},
+                                    T.param_specs(cfg, axis.tp))

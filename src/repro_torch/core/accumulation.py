@@ -1,25 +1,32 @@
 """Gradient-accumulation schedules: standard (batch-major) vs layered
-(layer-major, the paper's §3), in one process (counterpart of
-``repro/core/accumulation.py``).
+(layer-major, the paper's §3), over the data and model process groups of an
+``AxisCtx`` (counterpart of ``repro/core/accumulation.py``).
 
-Both schedules compute the same gradients; they differ in loop order, which
-is what moves the ZeRO collectives once the state is partitioned across
-processes (once per layer instead of once per layer and micro-batch):
+Both schedules compute the same gradients; they differ in loop order and so
+in where the ZeRO collectives of the data group land:
 
-  standard   for each micro-batch: gather every layer, forward (each layer
-             recomputed in the backward), backward, accumulate
+  standard   for each micro-batch: gather the outer leaves and every layer,
+             forward (each layer recomputed, and re-gathered, in the
+             backward), backward with one reduce-scatter per layer leaf
+             -> 3 * L * M data-group collectives per layer leaf and step
   layered    for each layer: gather it once, forward every micro-batch,
              keep the (layer, micro-batch) boundary activations; the head's
              loss and dx per micro-batch; then for each layer in reverse:
              gather it once, recompute and back-propagate every micro-batch,
-             accumulate the layer's gradient in fp32
+             reduce-scatter its gradient once
+             -> 3 * L per layer leaf (the paper's fig. 2); the outer leaves
+             are gathered once and scattered once per step
 
-Parameters arrive in the storage layout of ``core/partition.py`` and are
-gathered to ``cfg.dtype`` copies (every leaf, norm scales included, as the
-JAX package's ``gather_layer`` casts them); their gradients come back in
-``cfg.dtype`` and are added to fp32 accumulators in the storage layout.
-The JAX ``AccumConfig`` fields for meshes, pods, MoE and wire dtypes have no
-counterpart yet.
+With replicated storage the same loop inversion spreads the gradient sum
+(one all-reduce per leaf at the end of the standard schedule) over the
+backward, one all-reduce per layer leaf as its layer ends (fig. 1).
+
+Parameters arrive in the storage layout of ``core/partition.py`` (this
+rank's chunks) and are gathered to ``cfg.dtype`` model-local copies (every
+leaf, norm scales included, as the JAX package's ``gather_layer`` casts
+them); the batch arrives as this rank's rows, ``[M, mb_local, S]``.
+Without groups (``dist.LOCAL``) a gather is a cast and the gradients are
+added straight into the fp32 storage-layout buffers.
 """
 from __future__ import annotations
 
@@ -27,9 +34,11 @@ import dataclasses
 from typing import Callable
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
 from repro_torch.core import partition as zp
+from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig, apply_norm
 
@@ -37,152 +46,327 @@ from repro_torch.models.common import ModelConfig, apply_norm
 @dataclasses.dataclass(frozen=True)
 class AccumConfig:
     method: str = "layered"        # "standard" | "layered"
-    partitioned: bool = True       # the ZeRO chunk layout
+    partitioned: bool = True       # ZeRO-3 partition over the data group
     n_microbatches: int = 1
     remat: bool = True             # standard: recompute each layer in the backward
+    # layered: keep each (layer, micro-batch) checkpoint sharded over the
+    # model group along the sequence, all-gathered back in the backward
+    seq_shard_ckpt: bool = True
+    span_pods: bool = False        # not ported (multi-pod meshes)
+    expert_parallel: bool = False  # not ported (MoE)
+    reduce_dtype: str = "float32"  # the reduce-scatter's wire dtype
 
 
 def outer_keys(storage: dict) -> list[str]:
     return [k for k in storage if k != "layers"]
 
 
-def layer_view(tree_: dict, template: dict, l: int, partitioned: bool) -> dict:
-    """Full-shape fp32 views of layer ``l`` of a storage-layout tree."""
-    if partitioned:
-        return tree.tree_map(lambda s, shp: zp.full_view(s[l], shp[1:]),
-                             tree_["layers"], template["layers"])
-    return tree.tree_map(lambda s: s[l], tree_["layers"])
+# ---------------------------------------------------------------------------
+# Gather / reduce adapters (partitioned vs replicated storage)
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class Adapters:
+    """How the storage layout turns into compute copies and gradients go
+    back into it.  ``outer_shapes`` / ``layer_shapes`` are model-local
+    shapes (a layer's without its stacking dim); ``partial`` names the
+    layer leaves whose per-rank gradients are partial over the model
+    group."""
+
+    cfg: ModelConfig
+    axis: AxisCtx
+    partitioned: bool
+    reduce_dtype: torch.dtype
+    outer_shapes: dict
+    layer_shapes: dict
+    partial: frozenset
+
+    @property
+    def grouped(self) -> bool:
+        return self.axis.data is not None or self.axis.model is not None
+
+    def _chunk(self, leaf: torch.Tensor, shape, dtype) -> torch.Tensor:
+        if self.partitioned:
+            return zp.gather_local(leaf, self.axis, shape, dtype)
+        return leaf.to(dtype, copy=True)
+
+    def gather_outer(self, storage: dict) -> dict:
+        """Compute copies of the outer leaves, requiring grad."""
+        return {k: tree.tree_map(lambda s, shp: self._chunk(s, shp, self.cfg.torch_dtype)
+                                 .requires_grad_(), storage[k], self.outer_shapes[k])
+                for k in outer_keys(storage)}
+
+    def gather_layer(self, storage: dict, l: int) -> dict:
+        """Compute copies of layer ``l``, requiring grad: one all-gather per
+        leaf when partitioned."""
+        return tree.tree_map(lambda s, shp: self._chunk(s[l], shp, self.cfg.torch_dtype)
+                             .requires_grad_(), storage["layers"], self.layer_shapes)
+
+    def gather_ad(self, chunks: dict, shapes: dict, layer: bool) -> dict:
+        """Differentiable compute copies of partitioned ``chunks`` (which
+        require grad): a gather whose backward is the reduce-scatter into
+        the fp32 chunk."""
+        dt, rdt = self.cfg.torch_dtype, self.reduce_dtype
+        return tree.tree_map_with_path(
+            lambda path, s, shp: zp.GatherLocal.apply(
+                s, self.axis, shp, dt, rdt, layer and path in self.partial), chunks, shapes)
+
+    def accumulators(self, like: dict, shapes: dict, dest: dict | None = None):
+        """(accumulators, dest): fp32 buffers in the model-local shapes that
+        gradients are summed into over the micro-batches, and the tree in the
+        storage layout of ``like`` that ``reduce`` fills from them.  Where no
+        reduce-scatter follows, the accumulators are views of ``dest`` (zeros
+        when not given); where one does, they are fresh zeros, and a ``dest``
+        not given is made only by ``reduce`` (None until then), so that the
+        two never live at once longer than needed."""
+        if self.partitioned and self.grouped:
+            accs = tree.tree_map(lambda t, shp: torch.zeros(shp, dtype=torch.float32,
+                                                            device=t.device), like, shapes)
+            return accs, dest
+        if dest is None:
+            dest = tree.tree_map(torch.zeros_like, like)
+        if not self.partitioned:
+            return dest, dest
+        return tree.tree_map(zp.full_view, dest, shapes), dest
+
+    def reduce(self, accs: dict, like: dict, dest: dict | None, layer: bool) -> dict:
+        """Sum the accumulated gradients over the groups into ``dest`` (this
+        rank's fp32 chunks, or replicated leaves; made like ``like`` when
+        None) and return it: a reduce-scatter over the data group per leaf
+        when partitioned, an all-reduce of ``dest`` in place otherwise."""
+        if not self.grouped:
+            return dest
+        if dest is None:        # the reduce-scatter writes every element
+            dest = tree.tree_map(torch.empty_like, like)
+        for (path, a), d in zip(tree.leaves_with_path(accs), tree.leaves(dest)):
+            partial = layer and path in self.partial
+            if self.partitioned:
+                zp.scatter_grad_local(a, self.axis, reduce_dtype=self.reduce_dtype,
+                                      model_partial=partial, out=d.reshape(-1))
+                continue
+            if partial and self.axis.model is not None:
+                self.axis.all_reduce(d, "model")
+            if self.axis.data is not None:
+                self.axis.all_reduce(d, "data")
+        return dest
 
 
-def outer_view(tree_: dict, template: dict, partitioned: bool) -> dict:
-    """Full-shape fp32 views of the outer leaves (embed, head, final norm)."""
-    keys = outer_keys(tree_)
-    if partitioned:
-        return tree.tree_map(zp.full_view, {k: tree_[k] for k in keys},
-                             {k: template[k] for k in keys})
-    return {k: tree_[k] for k in keys}
+def make_adapters(cfg: ModelConfig, axis: AxisCtx, acc: AccumConfig,
+                  template: dict) -> Adapters:
+    specs = T.param_specs(cfg, axis.tp)
+    local = tree.tree_map(lambda shp, sp: zp.local_shape(shp, sp, axis.tp), template, specs)
+    return Adapters(cfg=cfg, axis=axis, partitioned=acc.partitioned,
+                    reduce_dtype=getattr(torch, acc.reduce_dtype),
+                    outer_shapes={k: v for k, v in local.items() if k != "layers"},
+                    layer_shapes=tree.tree_map(lambda s: s[1:], local["layers"]),
+                    partial=T.model_partial_leaves(cfg, axis.tp))
 
 
-def _gather(views: dict, dtype) -> dict:
-    """Compute copies in ``dtype`` that autograd differentiates against."""
-    return tree.tree_map(lambda t: t.to(dtype, copy=True).requires_grad_(), views)
+def _accumulate(accs, grads) -> None:
+    """fp32 accumulators += gradients (of any dtype)."""
+    for a, g in zip(accs, grads):
+        a.add_(g)
 
 
-def _accumulate(views, grads) -> None:
-    """fp32 accumulators += gradients of the compute dtype."""
-    for acc, g in zip(views, grads):
-        acc.add_(g)
-
-
-def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict) -> Callable:
+# ---------------------------------------------------------------------------
+# The gradient functions
+# ---------------------------------------------------------------------------
+def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
+                 axis: AxisCtx = LOCAL, layer_update: Callable | None = None) -> Callable:
     """Returns ``grad_fn(storage, batch) -> (grads like storage, metrics)``.
-    ``batch`` leaves are ``[M, mb, S]`` on the storage's device; ``template``
-    is ``stepfn.full_template(cfg)``."""
+    ``batch`` leaves are this rank's ``[M, mb_local, S]`` on the storage's
+    device; ``template`` is ``stepfn.full_template(cfg)``.
+
+    ``layer_update`` (layered only): the paper's §C.3 "update the weights as
+    soon as possible", called as ``layer_update(l, dw)`` right after layer
+    ``l``'s gradient is reduced, with ``dw`` this rank's fp32 gradient of
+    the layer in the storage layout (``storage["layers"]`` leaves at ``[l]``).
+    The stacked layer-gradient buffer is then never allocated, and the
+    returned grads hold the outer leaves only."""
     if cfg.block_kind != "attn" or cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: the port trains dense attention "
                                   f"stacks only so far")
-    M, L, dt = acc.n_microbatches, cfg.num_layers, cfg.torch_dtype
+    if acc.span_pods or acc.expert_parallel:
+        raise NotImplementedError("span_pods and expert_parallel are not ported yet")
+    if acc.method not in ("layered", "standard"):
+        raise ValueError(f"unknown accumulation method {acc.method!r}")
+    if layer_update is not None and acc.method != "layered":
+        raise ValueError("the per-layer update needs the layered schedule")
+    ad = make_adapters(cfg, axis, acc, template)
+    M, L = acc.n_microbatches, cfg.num_layers
     windows = cfg.layer_windows()
     part = acc.partitioned
+    head_key = "embed" if cfg.tie_embeddings else "head"
 
-    def setup(storage, batch):
+    def setup(batch):
         if batch["tokens"].shape[0] != M:
             raise ValueError(f"batch has {batch['tokens'].shape[0]} micro-batches, "
                              f"the schedule {M}")
-        grads = tree.tree_map(torch.zeros_like, storage)
-        mbs = [{k: v[m] for k, v in batch.items()} for m in range(M)]
-        inv_n = 1.0 / batch["mask"].float().sum()
-        return grads, mbs, inv_n
+        ntok = batch["mask"].float().sum()
+        if axis.data is not None:
+            axis.all_reduce(ntok, "data")          # the global token count
+        return [{k: v[m] for k, v in batch.items()} for m in range(M)], 1.0 / ntok
+
+    def layer_dest(grads_l, l):
+        return tree.tree_map(lambda g: g[l], grads_l)
+
+    def metrics(nlls, batch):
+        t = torch.stack([torch.stack(nlls).sum(), batch["mask"].float().sum()])
+        if axis.data is not None:
+            axis.all_reduce(t, "data")
+        return {"loss": t[0] / t[1], "ntok": t[1],
+                "aux": torch.zeros((), device=t.device)}
 
     # ------------------------------------------------------------------
     # standard (batch-major) gradient accumulation
     # ------------------------------------------------------------------
     def standard_grad(storage, batch):
-        grads, mbs, inv_n = setup(storage, batch)
-        acc_views = tree.leaves(outer_view(grads, template, part)) + [
-            leaf for l in range(L) for leaf in tree.leaves(layer_view(grads, template, l, part))]
+        mbs, inv_n = setup(batch)
+        grads = tree.tree_map(torch.zeros_like, storage)
+        okeys = outer_keys(storage)
+
+        def leaf(s):
+            """What autograd differentiates against: the fp32 chunk itself
+            (gathered inside the graph), or a cast copy of a replicated leaf."""
+            if part:
+                return s.detach().requires_grad_()
+            return s.to(cfg.torch_dtype, copy=True).requires_grad_()
+
+        def layer_fn(lp_in, x, pos, w):
+            lp = ad.gather_ad(lp_in, ad.layer_shapes, layer=True) if part else lp_in
+            return T.apply_layer(cfg, lp, x, positions=pos, window=w, axis=axis)
+
         nlls = []
         for mb in mbs:
-            # gathered per micro-batch, as standard ZeRO does
-            outer = _gather(outer_view(storage, template, part), dt)
-            layers = [_gather(layer_view(storage, template, l, part), dt) for l in range(L)]
+            # gathered per micro-batch, as standard ZeRO does; the layers
+            # inside the (recomputed) layer function
+            outer_in = {k: tree.tree_map(leaf, storage[k]) for k in okeys}
+            layers_in = [tree.tree_map(lambda s: leaf(s[l]), storage["layers"])
+                         for l in range(L)]
             with torch.enable_grad():
-                params = dict(outer, layers=layers)
-                x = T.forward(cfg, params, mb, remat=acc.remat)
-                nll = T.head_loss(cfg, params, x, mb)
+                outer = (ad.gather_ad(outer_in, ad.outer_shapes, layer=False) if part
+                         else outer_in)
+                x, pos = T.embed_inputs(cfg, outer, mb, axis)
+                for l in range(L):
+                    if acc.remat:
+                        x = checkpoint(layer_fn, layers_in[l], x, pos, windows[l],
+                                       use_reentrant=False)
+                    else:
+                        x = layer_fn(layers_in[l], x, pos, windows[l])
+                x = apply_norm(cfg, outer["final_norm"], x)
+                nll = T.head_loss(cfg, outer, x, mb, axis)
                 loss = nll * inv_n
-            wrt = tree.leaves(outer) + [leaf for lp in layers for leaf in tree.leaves(lp)]
-            _accumulate(acc_views, torch.autograd.grad(loss, wrt))
+            wrt = tree.leaves(outer_in) + [t for lp in layers_in for t in tree.leaves(lp)]
+            dests = tree.leaves({k: grads[k] for k in okeys}) + [
+                t for l in range(L) for t in tree.leaves(layer_dest(grads["layers"], l))]
+            _accumulate(dests, torch.autograd.grad(loss, wrt))
             nlls.append(nll.detach())
-        return grads, _metrics(nlls, batch)
+        if not part:   # one sum per leaf over the data group, at the end
+            outer_g = {k: grads[k] for k in okeys}
+            ad.reduce(outer_g, outer_g, outer_g, layer=False)
+            ad.reduce(grads["layers"], grads["layers"], grads["layers"], layer=True)
+        return grads, metrics(nlls, batch)
 
     # ------------------------------------------------------------------
     # layered (layer-major) gradient accumulation — the paper's §3
     # ------------------------------------------------------------------
+    def shard_ckpt(S: int) -> bool:
+        return (acc.seq_shard_ckpt and axis.model is not None and axis.tp > 1
+                and S % axis.tp == 0)
+
+    def ckpt_slice(x):
+        """Keep this rank's share of the sequence of a checkpoint."""
+        if not shard_ckpt(x.shape[-2]):
+            return x
+        c = x.shape[-2] // axis.tp
+        return x[..., axis.model_index * c:(axis.model_index + 1) * c, :].contiguous()
+
+    def ckpt_restore(ck, S):
+        """The whole sequence back, all-gathered over the model group."""
+        if not shard_ckpt(S):
+            return ck
+        out = torch.empty((axis.tp, *ck.shape), dtype=ck.dtype, device=ck.device)
+        axis.all_gather(out, ck, "model")
+        return out.movedim(0, -3).reshape(*ck.shape[:-2], S, ck.shape[-1])
+
     def layered_grad(storage, batch):
-        grads, mbs, inv_n = setup(storage, batch)
-        outer = _gather(outer_view(storage, template, part), dt)   # once per step
-        g_outer = outer_view(grads, template, part)
+        mbs, inv_n = setup(batch)
+        okeys = outer_keys(storage)
+        outer = ad.gather_outer(storage)            # gathered once per step
+        a_outer, g_outer = {}, {}
+        for k in okeys:
+            a_outer[k], g_outer[k] = ad.accumulators(storage[k], ad.outer_shapes[k])
+        # the stacked layer gradients (none with the per-layer update); a
+        # reduce-scatter writes every element, so it need not be zeroed
+        fill = torch.empty_like if part and ad.grouped else torch.zeros_like
+        grads_l = None if layer_update is not None else tree.tree_map(fill, storage["layers"])
 
         # forward: embed each micro-batch, then layer-major, keeping the
         # (layer, micro-batch) boundary activations
         with torch.no_grad():
-            embedded = [T.embed_inputs(cfg, outer, mb) for mb in mbs]
+            embedded = [T.embed_inputs(cfg, outer, mb, axis) for mb in mbs]
         pos = [p for _, p in embedded]
         xs = [x for x, _ in embedded]
+        S = xs[0].shape[-2]
         ckpt = []
         for l in range(L):
-            lp = _gather(layer_view(storage, template, l, part), dt)
-            ckpt.append(xs)
+            lp = ad.gather_layer(storage, l)        # one gather per layer
+            ckpt.append([ckpt_slice(x) for x in xs])
             with torch.no_grad():
-                xs = [T.apply_layer(cfg, lp, x, positions=p, window=windows[l])
+                xs = [T.apply_layer(cfg, lp, x, positions=p, window=windows[l], axis=axis)
                       for x, p in zip(xs, pos)]
+            del lp
 
         # head: loss and dx per micro-batch
-        fn_leaves = tree.leaves(outer["final_norm"])
-        head_key = "embed" if cfg.tie_embeddings else "head"
-        acc_views = tree.leaves(g_outer["final_norm"]) + [g_outer[head_key]]
-        wrt = fn_leaves + [outer[head_key]]
+        wrt = tree.leaves(outer["final_norm"]) + [outer[head_key]]
+        accs = tree.leaves(a_outer["final_norm"]) + [a_outer[head_key]]
         dxs, nlls = [], []
         for mb, x in zip(mbs, xs):
             x = x.requires_grad_()
             with torch.enable_grad():
                 h = apply_norm(cfg, outer["final_norm"], x)
-                nll = T.head_loss(cfg, outer, h, mb)
+                nll = T.head_loss(cfg, outer, h, mb, axis)
                 loss = nll * inv_n
             dx, *g = torch.autograd.grad(loss, [x] + wrt)
-            _accumulate(acc_views, g)
-            dxs.append(dx.to(dt))
+            _accumulate(accs, g)
+            dxs.append(dx.to(cfg.torch_dtype))
             nlls.append(nll.detach())
         del xs
 
-        # backward: reverse layer-major, one gather per layer
+        # backward: reverse layer-major, one gather and one reduction per layer
         for l in reversed(range(L)):
-            lp = _gather(layer_view(storage, template, l, part), dt)
-            wrt = tree.leaves(lp)
-            acc_views = tree.leaves(layer_view(grads, template, l, part))
-            for m in range(M):
-                x_in = ckpt[l][m].requires_grad_()
-                with torch.enable_grad():
-                    y = T.apply_layer(cfg, lp, x_in, positions=pos[m], window=windows[l])
-                dx, *g = torch.autograd.grad(y, [x_in] + wrt, dxs[m])
-                _accumulate(acc_views, g)
-                dxs[m] = dx
+            x_in = [ckpt_restore(c, S) for c in ckpt[l]]
             ckpt[l] = None
+            lp = ad.gather_layer(storage, l)
+            wrt = tree.leaves(lp)
+            like = layer_dest(storage["layers"], l)
+            a_layer, dest = ad.accumulators(
+                like, ad.layer_shapes, None if grads_l is None else layer_dest(grads_l, l))
+            accs = tree.leaves(a_layer)
+            for m in range(M):
+                xm = x_in[m].requires_grad_()
+                with torch.enable_grad():
+                    y = T.apply_layer(cfg, lp, xm, positions=pos[m], window=windows[l],
+                                      axis=axis)
+                dx, *g = torch.autograd.grad(y, [xm] + wrt, dxs[m])
+                _accumulate(accs, g)
+                dxs[m] = dx
+            del lp, x_in, accs
+            dest = ad.reduce(a_layer, like, dest, layer=True)
+            del a_layer
+            if layer_update is not None:
+                layer_update(l, dest)
+            del dest
 
         # embed backward
         for mb, dx in zip(mbs, dxs):
             with torch.enable_grad():
-                x, _ = T.embed_inputs(cfg, outer, mb)
+                x, _ = T.embed_inputs(cfg, outer, mb, axis)
             (de,) = torch.autograd.grad(x, [outer["embed"]], dx)
-            g_outer["embed"].add_(de)
-        return grads, _metrics(nlls, batch)
+            a_outer["embed"].add_(de)
+        g_outer = {k: ad.reduce(a_outer[k], storage[k], g_outer[k], layer=False)
+                   for k in okeys}
+        del a_outer
+        grads = g_outer if grads_l is None else dict(g_outer, layers=grads_l)
+        return grads, metrics(nlls, batch)
 
-    def _metrics(nlls, batch):
-        ntok = batch["mask"].float().sum()
-        return {"loss": torch.stack(nlls).sum() / ntok, "ntok": ntok,
-                "aux": torch.zeros((), device=ntok.device)}
-
-    if acc.method not in ("layered", "standard"):
-        raise ValueError(f"unknown accumulation method {acc.method!r}")
     return layered_grad if acc.method == "layered" else standard_grad

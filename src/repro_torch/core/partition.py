@@ -1,17 +1,23 @@
-"""The ZeRO training-state layout (counterpart of ``repro/core/partition.py``).
+"""The ZeRO-3 training-state layout over the data group (counterpart of
+``repro/core/partition.py``).
 
 Every parameter leaf is stored as flat fp32 chunks ``[L?, n_model, n_data,
-chunk]``: stacked layer leaves keep their leading ``L`` dim, outer leaves
-are ``[n_model, n_data, chunk]``.  The port runs in one process, so
-``n_model = n_data = 1`` and a chunk holds the whole (model-local) leaf;
-the layout is kept so that tensor parallelism and the ZeRO collectives can
-come later without a new layout.  With one data shard, "gather" is a cast to
-the compute dtype of a view of the chunk, and "scatter" is the same view of
-the fp32 gradient chunk, which the accumulation adds each layer's gradient
-into (``full_view``).
+chunk]``: stacked layer leaves keep their leading ``L`` dim, outer leaves are
+``[n_model, n_data, chunk]``.  A rank holds its own block, ``[L?, 1, 1,
+chunk]``: its model shard of the leaf (the model-local leaf), flattened,
+padded and cut into ``n_data`` chunks, of which it keeps chunk ``d``.
+
+The compute path restores a (16-bit) model-local leaf with one all-gather
+over the data group, cast *before* the gather so that the wire carries 16
+bits, and reduces its gradient with one reduce-scatter.  How often those
+two run is what layered accumulation changes (once per layer instead of once
+per layer and micro-batch).
+
+A spec names the mesh axis of each dim of a leaf, as a ``PartitionSpec``
+does in the JAX package: a tuple of ``"model"``, ``"data"`` or None.
 
 ``host_partition_leaf`` / ``host_unpartition_leaf`` are the numpy forms for
-any ``n_data`` and ``tp``, bit-compatible with the JAX package's.
+all ranks at once, bit-compatible with the JAX package's.
 """
 from __future__ import annotations
 
@@ -19,33 +25,149 @@ import math
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
-N_MODEL = 1
-N_DATA = 1
+from repro_torch.core.dist import AxisCtx
+
+
+def model_dim(spec: tuple) -> int | None:
+    """The dim sharded over the model group (None: replicated)."""
+    return spec.index("model") if "model" in spec else None
+
+
+def model_replicated(spec: tuple) -> bool:
+    return "model" not in spec
+
+
+def local_shape(global_shape: tuple[int, ...], spec: tuple, tp: int) -> tuple[int, ...]:
+    """Model-local shape of a leaf under tensor parallelism."""
+    dims = list(global_shape)
+    for i, ax in enumerate(spec):
+        if ax == "model":
+            if dims[i] % tp:
+                raise ValueError(f"tensor-parallel width tp={tp} does not divide dim {i} "
+                                 f"(size {dims[i]}) of shape {tuple(global_shape)} "
+                                 f"(spec {spec})")
+            dims[i] //= tp
+    return tuple(dims)
 
 
 def chunk_size(local_numel: int, n_data: int) -> int:
     return math.ceil(local_numel / n_data)
 
 
-def partition(leaf: torch.Tensor, *, stacked: bool) -> torch.Tensor:
-    """A full leaf -> its fp32 chunk ``[L?, 1, 1, chunk]`` (a view when the
-    leaf is already a contiguous fp32 tensor)."""
-    x = leaf.float()
+def partitioned_specs(specs: dict) -> dict:
+    """Specs of the partitioned storage: ``(None?, model?, "data", None)``.
+    ``specs`` is the parameter tree's (stacked layer leaves already carry
+    their leading None)."""
+    def conv(spec, stacked):
+        m = None if model_replicated(spec) else "model"
+        return (None, m, "data", None) if stacked else (m, "data", None)
+
+    def walk(node, stacked):
+        if isinstance(node, dict):
+            return {k: walk(v, stacked) for k, v in node.items()}
+        return conv(node, stacked)
+
+    return {k: walk(v, k == "layers") for k, v in specs.items()}
+
+
+# ---------------------------------------------------------------------------
+# Layout conversion on one rank
+# ---------------------------------------------------------------------------
+def model_shard(full: torch.Tensor, spec: tuple, tp: int, model_index: int) -> torch.Tensor:
+    """A global leaf -> this rank's model-local leaf (itself when replicated)."""
+    dim = model_dim(spec)
+    if tp == 1 or dim is None:
+        return full
+    return full.chunk(tp, dim)[model_index].contiguous()
+
+
+def partition_local(leaf_local: torch.Tensor, n_data: int, data_index: int, *,
+                    stacked: bool) -> torch.Tensor:
+    """Model-local leaf -> this rank's fp32 chunk ``[L?, 1, 1, chunk]`` (a
+    view when the leaf is a contiguous fp32 tensor held whole)."""
+    x = leaf_local.float()
     lead = (x.shape[0],) if stacked else ()
-    return x.reshape(*lead, N_MODEL, N_DATA, -1)
+    flat = x.reshape(*lead, -1)
+    c = chunk_size(flat.shape[-1], n_data)
+    if c * n_data != flat.shape[-1]:
+        flat = F.pad(flat, (0, c * n_data - flat.shape[-1]))
+    mine = flat[..., data_index * c:(data_index + 1) * c].contiguous()
+    return mine.reshape(*lead, 1, 1, c)
 
 
 def full_view(chunk: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
-    """A ``[1, 1, chunk]`` fp32 chunk (or one layer of a stacked leaf) -> a
-    view of it in the leaf's full shape."""
+    """A chunk that holds a whole model-local leaf (``n_data == 1``), or one
+    layer of a stacked one -> a view of it in the leaf's shape."""
     return chunk.reshape(-1)[:math.prod(shape)].view(shape)
 
 
-def gather(chunk: torch.Tensor, shape: tuple[int, ...], dtype) -> torch.Tensor:
-    """The compute copy of a leaf: cast to ``dtype`` (always a fresh tensor,
-    so the optimizer's in-place update never aliases it)."""
-    return full_view(chunk, shape).to(dtype, copy=True)
+def gather_local(chunk: torch.Tensor, axis: AxisCtx, shape: tuple[int, ...],
+                 dtype) -> torch.Tensor:
+    """This rank's chunk (``[1, 1, chunk]``: an outer leaf, or one layer of a
+    stacked one) -> the model-local leaf in ``dtype``, all-gathered over the
+    data group after the cast.  Always a fresh tensor, so the optimizer's
+    in-place update never aliases it."""
+    x = chunk.reshape(-1)
+    n = math.prod(shape)
+    if axis.data is None:
+        return x[:n].to(dtype, copy=True).view(shape)
+    x = x.to(dtype)
+    out = torch.empty(axis.ndata * x.numel(), dtype=dtype, device=x.device)
+    axis.all_gather(out, x, "data")
+    return out[:n].view(shape)
+
+
+def scatter_grad_local(grad: torch.Tensor, axis: AxisCtx, *,
+                       reduce_dtype=torch.float32, model_partial: bool = False,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """A model-local gradient (the leaf's shape, or flat and already padded
+    to ``n_data * chunk``) -> this rank's reduced fp32 chunk, flat
+    ``[chunk]``, written into ``out`` when given.
+
+    Cast to ``reduce_dtype`` (the wire dtype), summed over the model group
+    first when ``model_partial`` (a leaf replicated over the model group
+    whose per-rank gradients are partial), then padded and reduce-scattered
+    over the data group.  ``grad`` itself is not changed."""
+    g = grad.reshape(-1).to(reduce_dtype)
+    if model_partial and axis.model is not None:
+        if g.data_ptr() == grad.data_ptr():
+            g = g.clone()
+        axis.all_reduce(g, "model")
+    c = chunk_size(g.numel(), axis.ndata)
+    if g.numel() < c * axis.ndata:
+        g = F.pad(g, (0, c * axis.ndata - g.numel()))
+    if axis.data is None:
+        res = g
+    else:
+        direct = out is not None and out.dtype == reduce_dtype
+        res = out if direct else torch.empty(c, dtype=reduce_dtype, device=g.device)
+        axis.reduce_scatter(res, g, "data")
+    if out is None:
+        return res.float()
+    if res is not out:
+        out.copy_(res)
+    return out
+
+
+class GatherLocal(torch.autograd.Function):
+    """``gather_local`` whose backward is ``scatter_grad_local`` into the
+    fp32 chunk: the transpose the JAX package gets from ``all_gather``.  The
+    standard schedule gathers through it, so every layer's reduce-scatter
+    runs inside each micro-batch's backward."""
+
+    @staticmethod
+    def forward(ctx, chunk, axis, shape, dtype, reduce_dtype, model_partial):
+        ctx.axis, ctx.chunk_shape = axis, chunk.shape
+        ctx.reduce_dtype, ctx.model_partial = reduce_dtype, model_partial
+        return gather_local(chunk, axis, shape, dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = scatter_grad_local(g, ctx.axis, reduce_dtype=ctx.reduce_dtype,
+                                 model_partial=ctx.model_partial)
+        return out.view(ctx.chunk_shape), None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------
@@ -53,7 +175,7 @@ def gather(chunk: torch.Tensor, shape: tuple[int, ...], dtype) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def host_partition_leaf(full: np.ndarray, tp: int, n_data: int, *, stacked: bool,
                         model_dim: int | None = None) -> np.ndarray:
-    """Global full leaf -> ALL devices' fp32 chunks ``[L?, n_model, n_data,
+    """Global full leaf -> ALL ranks' fp32 chunks ``[L?, n_model, n_data,
     chunk]``.  ``model_dim`` is the dim sharded over the model axis (None:
     replicated).  Pure reshape/pad/moveaxis, so values move bit-identically."""
     x = np.asarray(full, dtype=np.float32)

@@ -1,7 +1,9 @@
-"""The train step and the training-state construction (counterpart of
-``repro/core/stepfn.py``), in one process: no mesh, no ``shard_map`` and no
-``jit`` — ``build_train_step`` returns a plain function that runs eagerly
-on the storage's device.
+"""The train steps and the training-state construction (counterpart of
+``repro/core/stepfn.py``), for one rank of a data x model grid of processes
+(``core/dist.py``): no mesh, no ``shard_map`` and no ``jit`` — each ``build_*``
+returns a plain function that runs eagerly on the storage's device, on this
+rank's chunks and this rank's rows of the batch.  With ``axis=dist.LOCAL``
+(the default) it is the one-process step.
 """
 from __future__ import annotations
 
@@ -11,10 +13,11 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import partition as zp
-from repro_torch.core.accumulation import AccumConfig, layer_view, make_grad_fn
+from repro_torch.core.accumulation import AccumConfig, make_grad_fn, outer_keys
+from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
-from repro_torch.optim.adam import AdamConfig, adam_step
+from repro_torch.optim.adam import AdamConfig, adam_step, leaf_update, step_scalars
 
 
 def full_template(cfg: ModelConfig) -> dict:
@@ -36,73 +39,168 @@ def full_template(cfg: ModelConfig) -> dict:
     return out
 
 
-def storage_from_params(params: dict, *, partitioned: bool) -> dict:
-    """A full fp32 parameter tree (layers stacked) -> the storage layout."""
-    if not partitioned:
-        return params
-    out = {k: tree.tree_map(lambda t: zp.partition(t, stacked=False), v)
-           for k, v in params.items() if k != "layers"}
-    out["layers"] = tree.tree_map(lambda t: zp.partition(t, stacked=True),
-                                  params["layers"])
-    return out
+def storage_specs(cfg: ModelConfig, axis: AxisCtx, partitioned: bool) -> dict:
+    """The storage layout's specs: the parameter tree's, or the chunks'."""
+    full = T.param_specs(cfg, axis.tp)
+    return zp.partitioned_specs(full) if partitioned else full
 
 
-def init_storage(cfg: ModelConfig, seed: int, *, partitioned: bool,
-                 device="cuda") -> dict:
-    """Random fp32 master weights from ``seed``, drawn on ``device`` one layer
-    at a time into the stacked leaves, in the storage layout.  (The JAX and
-    torch generators differ; tests that compare the packages convert the JAX
-    tree with ``convert.storage_from_numpy`` instead.)"""
+def storage_from_params(cfg: ModelConfig, params: dict, *, partitioned: bool,
+                        axis: AxisCtx = LOCAL) -> dict:
+    """A global fp32 parameter tree (layers stacked) -> this rank's storage:
+    its model shard of every leaf, and of that its data chunk when
+    ``partitioned`` (views where the rank holds a contiguous leaf whole)."""
+    def conv(path, t, spec):
+        local = zp.model_shard(t, spec, axis.tp, axis.model_index)
+        if not partitioned:
+            return local
+        return zp.partition_local(local, axis.ndata, axis.data_index,
+                                  stacked=path[0] == "layers")
+    return tree.tree_map_with_path(conv, params, T.param_specs(cfg, axis.tp))
+
+
+def init_storage(cfg: ModelConfig, seed: int, *, partitioned: bool, device="cuda",
+                 axis: AxisCtx = LOCAL) -> dict:
+    """Random fp32 master weights from ``seed``, drawn on ``device``, in this
+    rank's storage layout.  Every rank draws the same full weights, one layer
+    at a time, and keeps its share.  (The JAX and torch generators differ;
+    tests that compare the packages convert the JAX tree with
+    ``convert.storage_from_numpy`` instead.)"""
     fcfg = dataclasses.replace(cfg, dtype=cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
-    tmpl = full_template(cfg)
-    layers = tree.tree_map(lambda s: torch.empty(s, dtype=torch.float32, device=device),
-                           tmpl["layers"])
     outer = T.init_params(dataclasses.replace(fcfg, num_layers=0), gen, device)
+    outer = storage_from_params(cfg, {k: v for k, v in outer.items() if k != "layers"},
+                                partitioned=partitioned, axis=axis)
+    layers = None
     for l in range(cfg.num_layers):
-        one = T.init_layer(fcfg, gen, device)
-        tree.tree_map(lambda buf, t: buf[l].copy_(t), layers, one)
-    params = dict({k: v for k, v in outer.items() if k != "layers"}, layers=layers)
-    return storage_from_params(params, partitioned=partitioned)
+        one = storage_from_params(cfg, {"layers": tree.tree_map(
+            lambda t: t[None], T.init_layer(fcfg, gen, device))}, partitioned=partitioned,
+            axis=axis)["layers"]
+        if layers is None:
+            layers = tree.tree_map(lambda t: torch.empty((cfg.num_layers, *t.shape[1:]),
+                                                         dtype=torch.float32, device=device),
+                                   one)
+        tree.tree_map(lambda buf, t: buf[l].copy_(t[0]), layers, one)
+    return dict(outer, layers=layers)
 
 
-def gather_params(cfg: ModelConfig, storage: dict, *, partitioned: bool) -> dict:
-    """Storage -> the model's parameter dict (a list of layers, every leaf in
-    ``cfg.dtype`` as the JAX package gathers it), for eval or serving."""
-    tmpl = full_template(cfg)
-    outer = {k: storage[k] for k in storage if k != "layers"}
-    if partitioned:
-        outer = tree.tree_map(lambda s, shp: zp.gather(s, shp, cfg.torch_dtype), outer,
-                              {k: tmpl[k] for k in outer})
-    else:
-        outer = tree.tree_map(lambda s: s.to(cfg.torch_dtype, copy=True), outer)
-    layers = [tree.tree_map(lambda t: t.to(cfg.torch_dtype, copy=True),
-                            layer_view(storage, tmpl, l, partitioned))
+def gather_params(cfg: ModelConfig, storage: dict, *, partitioned: bool,
+                  axis: AxisCtx = LOCAL) -> dict:
+    """Storage -> the model's parameter dict (this rank's model shards, a
+    list of layers, every leaf in ``cfg.dtype`` as the JAX package gathers
+    it), for eval or serving."""
+    specs = T.param_specs(cfg, axis.tp)
+    shapes = tree.tree_map(lambda shp, sp: zp.local_shape(shp, sp, axis.tp),
+                           full_template(cfg), specs)
+    dt = cfg.torch_dtype
+
+    def get(s, shp):
+        if partitioned:
+            return zp.gather_local(s, axis, shp, dt)
+        return s.to(dt, copy=True)
+
+    outer = {k: tree.tree_map(get, storage[k], shapes[k]) for k in outer_keys(storage)}
+    lshapes = tree.tree_map(lambda s: s[1:], shapes["layers"])
+    layers = [tree.tree_map(lambda s, shp: get(s[l], shp), storage["layers"], lshapes)
               for l in range(cfg.num_layers)]
     return dict(outer, layers=layers)
 
 
+# ---------------------------------------------------------------------------
+# Train steps
+# ---------------------------------------------------------------------------
 def sq_reduce(grads: dict) -> torch.Tensor:
-    """Sum of squares over a gradient tree in storage layout (the global
-    norm's square; one process, so no collective)."""
+    """Sum of squares over a gradient tree on this rank (no collective)."""
     return sum(g.float().square().sum() for g in tree.leaves(grads))
 
 
-def build_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig):
+def make_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool):
+    """The global norm's square over a gradient tree in this rank's storage
+    layout: model-sharded leaves summed over the model group, then, when the
+    state is partitioned, everything over the data group."""
+    specs = T.param_specs(cfg, axis.tp)
+
+    def reduce(grads: dict) -> torch.Tensor:
+        pairs = tree.leaves(tree.tree_map(lambda g, sp: (g, sp), grads,
+                                          {k: specs[k] for k in grads}))
+        repl = {i: g for i, (g, sp) in enumerate(pairs)
+                if axis.model is None or zp.model_replicated(sp)}
+        tot = sq_reduce(repl)
+        shard = {i: g for i, (g, _) in enumerate(pairs) if i not in repl}
+        if shard:
+            s = sq_reduce(shard)
+            axis.all_reduce(s, "model")
+            tot = tot + s
+        if partitioned and axis.data is not None:
+            axis.all_reduce(tot, "data")
+        return tot
+
+    return reduce
+
+
+def _on_device(storage: dict, batch: dict) -> dict:
+    device = storage["embed"].device
+    return {k: v.to(device) for k, v in batch.items()}
+
+
+def build_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
+                     axis: AxisCtx = LOCAL):
     """Returns ``step(storage, opt, batch) -> (storage, opt, metrics)``.
-    ``batch`` leaves are ``[M, B/M, S]`` (on any device: they are moved to
-    the storage's).  The storage and the optimizer state are updated in
-    place.  The fused one-pass AdamW (K6 on the card) updates the flat fp32
-    chunks of the partitioned layout; the full-leaf layout keeps the
-    tree-map update, as the JAX package does."""
-    grad_fn = make_grad_fn(cfg, acc, full_template(cfg))
+    ``batch`` leaves are this rank's rows, ``[M, B/(M * n_data), S]``
+    (``data.synthetic.local_rows``), on any device: they are moved to the
+    storage's.  The storage and the optimizer state are updated in place.
+    The fused one-pass AdamW (K6 on the card) updates the flat fp32 chunks of
+    the partitioned layout; the full-leaf layout keeps the tree-map update,
+    as the JAX package does."""
+    grad_fn = make_grad_fn(cfg, acc, full_template(cfg), axis=axis)
+    reduce = make_sq_reduce(cfg, axis, acc.partitioned)
 
     def step(storage, opt, batch):
-        device = storage["embed"].device
-        batch = {k: v.to(device) for k, v in batch.items()}
-        grads, metrics = grad_fn(storage, batch)
+        grads, metrics = grad_fn(storage, _on_device(storage, batch))
         storage, opt, om = adam_step(opt_cfg, storage, opt, grads,
-                                     sq_reduce=sq_reduce, fused=acc.partitioned)
+                                     sq_reduce=reduce, fused=acc.partitioned)
         return storage, opt, dict(metrics, **om)
+
+    return step
+
+
+def build_fused_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
+                           axis: AxisCtx = LOCAL):
+    """Layered training with the paper's §C.3 fused per-layer update: each
+    layer's AdamW (K6 on the card, on that layer's slice of every leaf) runs
+    the moment its gradient is reduce-scattered inside the backward, so the
+    stacked fp32 layer-gradient buffer is never allocated.  The global norm
+    is known only after the last layer, so ``grad_clip`` clips each leaf
+    (each layer's slice of it, on this rank) by its own norm, as the JAX
+    package does; the metrics' grad_norm is 0.  Same interface as
+    ``build_train_step``."""
+    if acc.method != "layered":
+        raise ValueError("the fused update requires the layered schedule")
+    tmpl = full_template(cfg)
+    c = opt_cfg
+
+    def step(storage, opt, batch):
+        stp = opt["step"] + 1
+        lr, b1c, b2c = step_scalars(c, stp)
+        scalars = torch.stack([lr, b1c, b2c, torch.ones_like(lr)]).float()
+
+        def upd(p, m, v, g):
+            leaf_update(c, p, m, v, g, scalars)
+
+        def layer_update(l, dw):
+            for p, m, v, g in zip(tree.leaves(storage["layers"]),
+                                  tree.leaves(opt["mu"]["layers"]),
+                                  tree.leaves(opt["nu"]["layers"]), tree.leaves(dw)):
+                upd(p[l], m[l], v[l], g)
+
+        grad_fn = make_grad_fn(cfg, acc, tmpl, axis=axis, layer_update=layer_update)
+        outer_grads, metrics = grad_fn(storage, _on_device(storage, batch))
+        # the outer leaves (embed, head, final norm) are updated after the step
+        for k, g in outer_grads.items():
+            for p, m, v, gg in zip(tree.leaves(storage[k]), tree.leaves(opt["mu"][k]),
+                                   tree.leaves(opt["nu"][k]), tree.leaves(g)):
+                upd(p, m, v, gg)
+        metrics = dict(metrics, lr=lr, grad_norm=torch.zeros((), device=lr.device))
+        return storage, dict(opt, step=stp), metrics
 
     return step

@@ -11,6 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models.common import ModelConfig
 
 
@@ -52,7 +53,22 @@ def make_batch(cfg: DataConfig, step: int) -> dict:
             "mask": torch.ones(tokens.shape, dtype=torch.int32)}
 
 
-def batch_for(model: ModelConfig, cfg: DataConfig, step: int) -> dict:
+def local_rows(batch: dict, axis: AxisCtx) -> dict:
+    """This rank's rows of a micro-batched global batch: the micro-batch dim
+    ``[M, B/M, S]`` split over the data group in rank order, as the JAX
+    package's ``batch_specs`` shard it; every rank of a model group gets the
+    same rows."""
+    mb = batch["tokens"].shape[1]
+    if mb % axis.ndata:
+        raise ValueError(f"micro-batch of {mb} rows does not split over {axis.ndata} "
+                         f"data ranks")
+    n = mb // axis.ndata
+    return {k: v[:, axis.data_index * n:(axis.data_index + 1) * n] for k, v in batch.items()}
+
+
+def batch_for(model: ModelConfig, cfg: DataConfig, step: int,
+              axis: AxisCtx = LOCAL) -> dict:
+    """This rank's rows of the global batch of ``step``."""
     if model.input_mode != "tokens":
         raise NotImplementedError(f"input mode {model.input_mode!r} is not ported yet")
-    return make_batch(cfg, step)
+    return local_rows(make_batch(cfg, step), axis)

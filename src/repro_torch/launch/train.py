@@ -1,5 +1,5 @@
-"""Training entry point: real steps on one card (counterpart of
-``repro/launch/train.py``).
+"""Training entry point: real steps on one card, or on a data x model grid
+of processes (counterpart of ``repro/launch/train.py``).
 
 Runs ``build_train_step`` (layered or standard accumulation, over the fp32
 ZeRO chunk layout unless ``--no-partition``, then AdamW: the fused one-pass
@@ -7,9 +7,18 @@ kernel on the chunks) on deterministic synthetic data.  Weights are random,
 drawn from ``--seed``; the run goes on the card unless ``--device cpu`` is
 given (the plain PyTorch versions of the kernels).
 
+``--mesh DxM`` runs D data-parallel (ZeRO) by M tensor-parallel ranks under
+``python -m torch.distributed.run --nproc_per_node D*M``: NCCL on the cards
+(rank r on card LOCAL_RANK), gloo with ``--device cpu``.  Under the launcher
+even ``--mesh 1x1`` runs the process-group path (every collective issued, on
+a group of one); outside it only ``--mesh 1x1`` runs, with no group.  Rank 0
+prints.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \\
       --device cpu --steps 3
+  PYTHONPATH=src python -m torch.distributed.run --nproc_per_node 4 \\
+      -m repro_torch.launch.train --arch yi-6b --smoke --device cpu --mesh 2x2 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --layers 8 \\
       --global-batch 8 --seq-len 2048 --microbatches 4 --steps 5
 """
@@ -18,12 +27,14 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import time
 
 import torch
+import torch.distributed
 
 from repro_torch import configs
-from repro_torch.core import stepfn
+from repro_torch.core import dist, stepfn
 from repro_torch.core.accumulation import AccumConfig
 from repro_torch.data.synthetic import DataConfig, batch_for
 from repro_torch.device import resolve_device
@@ -53,20 +64,45 @@ def main(argv=None) -> dict:
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--mesh", default="1x1",
-                    help="data x model; the port runs 1x1 (one card) so far")
+                    help="data x model ranks, DxM; more than one rank needs "
+                         "python -m torch.distributed.run --nproc_per_node D*M")
     ap.add_argument("--log-every", type=int, default=1)
     for flag in NOT_PORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help="not ported yet")
     args = ap.parse_args(argv)
     refused = [f for f in NOT_PORTED if getattr(args, f[2:].replace("-", "_")) is not None]
-    if args.mesh != "1x1":
-        refused.append(f"--mesh {args.mesh}")
     if refused:
-        ap.error(f"not ported yet: {', '.join(refused)} (the port trains on one card: "
-                 f"--mesh 1x1, no pipeline, checkpoints or telemetry yet)")
+        ap.error(f"not ported yet: {', '.join(refused)} (the port trains without a "
+                 f"pipeline, checkpoints or telemetry so far)")
+    try:
+        ndata, tp = (int(n) for n in args.mesh.lower().split("x"))
+    except ValueError:
+        ap.error(f"--mesh {args.mesh}: expected DxM, for example 2x2")
+    if dist.under_launcher():
+        world = int(os.environ["WORLD_SIZE"])
+        if world != ndata * tp:
+            ap.error(f"--mesh {args.mesh} needs {ndata * tp} processes, the launcher "
+                     f"started {world} (--nproc_per_node {ndata * tp})")
+    elif ndata * tp != 1:
+        ap.error(f"--mesh {args.mesh} needs {ndata * tp} processes: run it under "
+                 f"python -m torch.distributed.run --nproc_per_node {ndata * tp}")
 
     device = resolve_device(args.device)
+    axis = dist.LOCAL
+    if dist.under_launcher():
+        axis = dist.from_env(ndata, tp, device)
+        if device.type == "cuda":
+            device = torch.device("cuda", torch.cuda.current_device())
+    try:
+        return _train(args, device, axis)
+    finally:
+        if axis is not dist.LOCAL:
+            torch.distributed.destroy_process_group()
+
+
+def _train(args, device: torch.device, axis: dist.AxisCtx) -> dict:
+    rank0 = axis.data_index == 0 and axis.model_index == 0
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
@@ -75,8 +111,9 @@ def main(argv=None) -> dict:
                          decay_steps=args.steps)
     acc = AccumConfig(method=args.method, partitioned=partitioned,
                       n_microbatches=args.microbatches)
-    step = stepfn.build_train_step(cfg, acc, opt_cfg)
-    storage = stepfn.init_storage(cfg, args.seed, partitioned=partitioned, device=device)
+    step = stepfn.build_train_step(cfg, acc, opt_cfg, axis=axis)
+    storage = stepfn.init_storage(cfg, args.seed, partitioned=partitioned, device=device,
+                                  axis=axis)
     opt = adam_init(storage, moment_dtype=opt_cfg.moment_dtype)
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch, n_microbatches=args.microbatches,
@@ -86,7 +123,8 @@ def main(argv=None) -> dict:
     history, records = [], []
     t_start = time.time()
     for i in range(args.steps):
-        batch = batch_for(cfg, data, i)
+        batch = batch_for(cfg, data, i, axis)
+        axis.reset_counts()
         t0 = time.perf_counter()
         storage, opt, metrics = step(storage, opt, batch)
         loss = float(metrics["loss"])          # device sync: ends the step
@@ -95,21 +133,27 @@ def main(argv=None) -> dict:
         rec = {"step": i, "loss": loss, "lr": float(metrics["lr"]),
                "grad_norm": float(metrics["grad_norm"]), "step_time_s": dt,
                "tokens_per_s": tok_s,
+               # per card: the grid's D*M cards share the step's flops
                "mfu": obs_metrics.mfu_estimate(cfg, global_batch=args.global_batch,
-                                               seq_len=args.seq_len, step_time_s=dt),
+                                               seq_len=args.seq_len, step_time_s=dt)
+                      / (axis.ndata * axis.tp),
                "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
-                               if device.type == "cuda" else None)}
+                               if device.type == "cuda" else None),
+               # this rank's collectives of the step: "group op" -> [calls, bytes]
+               "collectives": {f"{g} {op}": list(c) for (g, op), c in axis.counts.items()}}
         records.append(rec)
         history.append(loss)
-        if i % args.log_every == 0:
+        if rank0 and i % args.log_every == 0:
             print(f"step {i:5d}  loss {loss:8.4f}"
                   f"  lr {rec['lr']:.2e}"
                   f"  gnorm {rec['grad_norm']:7.3f}"
                   f"  {tok_s:9.0f} tok/s"
                   f"  {time.time()-t_start:6.1f}s", flush=True)
-    result = {"arch": args.arch, "first_loss": history[0], "last_loss": history[-1],
-              "steps": len(history), "seconds": round(time.time() - t_start, 1)}
-    print(json.dumps(result))
+    result = {"arch": args.arch, "mesh": args.mesh, "first_loss": history[0],
+              "last_loss": history[-1], "steps": len(history),
+              "seconds": round(time.time() - t_start, 1)}
+    if rank0:
+        print(json.dumps(result), flush=True)
     return dict(result, records=records, device=str(device))
 
 

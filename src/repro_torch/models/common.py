@@ -1,8 +1,9 @@
-"""Shared model components: config, norms, RoPE, activations, embeddings and
-the LM head (counterpart of ``repro/models/common.py``).
+"""Shared model components: config, norms, RoPE, activations, the Megatron
+tensor-parallel functions, embeddings and the LM head (counterpart of
+``repro/models/common.py``).
 
-Single-process only: the port has no tensor parallelism yet, so the JAX
-``AxisCtx`` and its collectives have no counterpart here.
+Layer code takes an ``AxisCtx`` (``core/dist.py``): its model group is the
+tensor-parallel axis.  With no model group (``LOCAL``) no collective runs.
 """
 from __future__ import annotations
 
@@ -12,6 +13,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.kernels import ops as kops
 
 
@@ -192,12 +194,73 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Embedding / LM head
+# Megatron's f and g over the model group
 # ---------------------------------------------------------------------------
-def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
-                 tokens: torch.Tensor) -> torch.Tensor:
-    """embed: [V, D]; tokens: [..., S] -> [..., S, D] in ``cfg.dtype``."""
-    x = embed[tokens.long()].to(cfg.torch_dtype)
+class _CopyToModel(torch.autograd.Function):
+    """f: identity forward, all-reduce over the model group backward (the
+    JAX package's ``compat.tp_entry_mark``).  It marks where a replicated
+    activation enters a model-sharded block, whose per-rank input gradients
+    are partial."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        ctx.axis = axis
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        ctx.axis.all_reduce(g, "model")
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """g: all-reduce over the model group forward (in place), identity
+    backward (the JAX package's ``axis.psum_model``)."""
+
+    @staticmethod
+    def forward(ctx, x, axis):
+        axis.all_reduce(x, "model")
+        ctx.mark_dirty(x)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor, axis: AxisCtx) -> torch.Tensor:
+    return x if axis.model is None else _CopyToModel.apply(x, axis)
+
+
+def reduce_from_model(x: torch.Tensor, axis: AxisCtx) -> torch.Tensor:
+    """Sum over the model group; ``x`` must be a fresh tensor (it is
+    reduced in place)."""
+    return x if axis.model is None else _ReduceFromModel.apply(x.contiguous(), axis)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / LM head (vocab sharded over the model group)
+# ---------------------------------------------------------------------------
+def _vocab_slice(ids: torch.Tensor, vocab_local: int, axis: AxisCtx):
+    """Global ids -> (clamped local ids, in-this-shard mask) for the vocab
+    rows ``[m * vocab_local, (m + 1) * vocab_local)`` this rank holds."""
+    local = ids.long() - axis.model_index * vocab_local
+    inside = (local >= 0) & (local < vocab_local)
+    return local.clamp(0, vocab_local - 1), inside
+
+
+def embed_tokens(cfg: ModelConfig, embed: torch.Tensor, tokens: torch.Tensor,
+                 axis: AxisCtx = LOCAL) -> torch.Tensor:
+    """embed: [V_local, D] (vocab-sharded over the model group); tokens:
+    [..., S] -> [..., S, D] in ``cfg.dtype``.  Each rank looks up the tokens
+    in its rows, zeroes the rest, and the model group sums."""
+    if axis.model is not None:
+        ids, inside = _vocab_slice(tokens, embed.shape[0], axis)
+        x = reduce_from_model(embed[ids] * inside[..., None].to(embed.dtype), axis)
+    else:
+        x = embed[tokens.long()]
+    x = x.to(cfg.torch_dtype)
     if cfg.embed_scale:
         # the factor is rounded to x's dtype first, as the JAX package does
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype, device=x.device)
@@ -205,17 +268,30 @@ def embed_tokens(cfg: ModelConfig, embed: torch.Tensor,
 
 
 def lm_head_loss(cfg: ModelConfig, head: torch.Tensor, x: torch.Tensor,
-                 labels: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-    """Summed (not averaged) softmax cross-entropy, single process: head
-    [V, D]; x [B, S, D]; labels/mask [B, S].  The logits are a product in
-    x's dtype, then fp32 and the final softcap; per token the loss is
-    ``m + log(sum(exp(logits - m))) - logits[label]``.  The stabiliser m is
-    detached: its gradient cancels exactly, so the value and the gradient are
-    the JAX package's."""
+                 labels: torch.Tensor, mask: torch.Tensor,
+                 axis: AxisCtx = LOCAL) -> torch.Tensor:
+    """Summed (not averaged) softmax cross-entropy over a vocab-sharded
+    head: head [V_local, D]; x [B, S, D]; labels/mask [B, S].  The logits
+    are a product in x's dtype, then fp32 and the final softcap; per token
+    the loss is ``m + log(sum(exp(logits - m))) - logits[label]``.  The
+    stabiliser m is detached (its gradient cancels exactly) and, over a
+    model group, the max of the ranks' maxima; the sum of exponentials and
+    the picked logit are summed over the group.  Every rank of the group
+    returns the same value."""
+    sharded = axis.model is not None
+    if sharded:
+        x = copy_to_model(x, axis)
     logits = lm_logits(cfg, head, x)
     m = logits.detach().amax(-1)
-    se = torch.exp(logits - m[..., None]).sum(-1)
-    picked = logits.gather(-1, labels.long()[..., None])[..., 0]
+    if sharded:
+        axis.all_reduce(m, "model", op="max")
+        ids, inside = _vocab_slice(labels, head.shape[0], axis)
+        se = reduce_from_model(torch.exp(logits - m[..., None]).sum(-1), axis)
+        picked = logits.gather(-1, ids[..., None])[..., 0]
+        picked = reduce_from_model(picked * inside.float(), axis)
+    else:
+        se = torch.exp(logits - m[..., None]).sum(-1)
+        picked = logits.gather(-1, labels.long()[..., None])[..., 0]
     nll = (m + torch.log(se) - picked) * mask.float()
     return nll.sum()
 

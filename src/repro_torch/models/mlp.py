@@ -1,10 +1,14 @@
 """Dense feed-forward blocks: SwiGLU / GeGLU / plain (counterpart of
-``repro/models/mlp.py``)."""
+``repro/models/mlp.py``).  Tensor parallel over the model group: column-
+parallel up/gate projections (the hidden dim sharded), a row-parallel down
+projection and one all-reduce."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.models.common import ModelConfig, activation, dense_init
+from repro_torch.core.dist import LOCAL, AxisCtx
+from repro_torch.models.common import (ModelConfig, activation, copy_to_model, dense_init,
+                                       reduce_from_model)
 
 
 def init_mlp(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
@@ -16,8 +20,10 @@ def init_mlp(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     return p
 
 
-def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
+def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor,
+              axis: AxisCtx = LOCAL) -> torch.Tensor:
+    x = copy_to_model(x, axis)
     act = activation(cfg.hidden_act)
     up = x @ p["w_up"].to(x.dtype)
     h = act(x @ p["w_gate"].to(x.dtype)) * up if cfg.glu else act(up)
-    return h @ p["w_down"].to(x.dtype)
+    return reduce_from_model(h @ p["w_down"].to(x.dtype), axis)

@@ -12,6 +12,8 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import tree
+from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
@@ -46,15 +48,63 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
     return params
 
 
+# ---------------------------------------------------------------------------
+# Partition specs: the model-sharded dim of every leaf (the data/ZeRO
+# partition is orthogonal).  Dense attention stacks only.
+# ---------------------------------------------------------------------------
+def _norm_specs(cfg: ModelConfig) -> dict:
+    if cfg.norm == "layernorm":
+        return {"scale": (None,), "bias": (None,)}
+    return {"scale": (None,)}
+
+
+def _strip_model(specs: dict) -> dict:
+    """Drop the model axis (a mesh without tensor parallelism)."""
+    return tree.tree_map(lambda sp: tuple(None if a == "model" else a for a in sp), specs)
+
+
+def layer_specs(cfg: ModelConfig, tp: int) -> dict:
+    """Specs of ONE layer (the caller prepends the stacking dim)."""
+    if cfg.block_kind != "attn" or cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: the port shards dense attention "
+                                  f"stacks only so far")
+    kv = (None, None) if attn_mod.local_counts(cfg, tp)[2] else (None, "model")
+    mlp = {"w_up": (None, "model"), "w_down": ("model", None)}
+    if cfg.glu:
+        mlp["w_gate"] = (None, "model")
+    s = {"ln1": _norm_specs(cfg), "ln2": _norm_specs(cfg), "mlp": mlp,
+         "attn": {"wq": (None, "model"), "wk": kv, "wv": kv, "wo": ("model", None)}}
+    return _strip_model(s) if tp == 1 else s
+
+
+def param_specs(cfg: ModelConfig, tp: int) -> dict:
+    """Specs of the parameter tree (layer leaves stacked on a leading dim);
+    the vocabulary of the embedding and the head is sharded."""
+    specs = {"embed": ("model", None), "final_norm": _norm_specs(cfg),
+             "layers": tree.tree_map(lambda sp: (None, *sp), layer_specs(cfg, tp))}
+    if not cfg.tie_embeddings:
+        specs["head"] = ("model", None)
+    return _strip_model(specs) if tp == 1 else specs
+
+
+def model_partial_leaves(cfg: ModelConfig, tp: int) -> frozenset:
+    """Paths of the layer leaves that are replicated over the model group
+    but used on one rank's share only, so that each rank's gradient is
+    partial: ``wk`` and ``wv`` when the KV heads are replicated."""
+    if tp > 1 and attn_mod.local_counts(cfg, tp)[2]:
+        return frozenset({("attn", "wk"), ("attn", "wv")})
+    return frozenset()
+
+
 def head_weight(cfg: ModelConfig, params: dict) -> torch.Tensor:
     return params["embed"] if cfg.tie_embeddings else params["head"]
 
 
-def embed_inputs(cfg: ModelConfig, params: dict, batch: dict):
+def embed_inputs(cfg: ModelConfig, params: dict, batch: dict, axis: AxisCtx = LOCAL):
     """Returns (x [B, S, D], positions [B, S]) for token inputs."""
     if cfg.input_mode != "tokens":
         raise NotImplementedError(f"input mode {cfg.input_mode!r} is not ported yet")
-    x = embed_tokens(cfg, params["embed"], batch["tokens"])
+    x = embed_tokens(cfg, params["embed"], batch["tokens"], axis)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     return x, positions
@@ -69,41 +119,45 @@ def layer_tables(cfg: ModelConfig):
 # Training forward and loss (dense attention stacks)
 # ---------------------------------------------------------------------------
 def apply_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
-                positions: torch.Tensor, window: int) -> torch.Tensor:
+                positions: torch.Tensor, window: int,
+                axis: AxisCtx = LOCAL) -> torch.Tensor:
     """One layer, training mode: norm -> attention -> norm -> MLP, each with
-    its residual.  (The JAX layer also returns an MoE aux loss, which is 0
-    for the dense stacks the port runs.)"""
+    its residual.  ``lp`` holds this rank's model shards.  (The JAX layer
+    also returns an MoE aux loss, which is 0 for the dense stacks the port
+    runs.)"""
     h = apply_norm(cfg, lp["ln1"], x)
     x = x + attn_mod.attention_train(cfg, lp["attn"], h, positions=positions,
-                                     window=window)
+                                     window=window, axis=axis)
     h = apply_norm(cfg, lp["ln2"], x)
-    return x + mlp_mod.apply_mlp(cfg, lp["mlp"], h)
+    return x + mlp_mod.apply_mlp(cfg, lp["mlp"], h, axis)
 
 
-def forward(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True):
+def forward(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True,
+            axis: AxisCtx = LOCAL):
     """Embed, the layer stack (each layer recomputed in the backward when
     ``remat``), the final norm -> x [B, S, D]."""
-    x, positions = embed_inputs(cfg, params, batch)
+    x, positions = embed_inputs(cfg, params, batch, axis)
     for lp, w in zip(params["layers"], cfg.layer_windows()):
         if remat:
             x = checkpoint(apply_layer, cfg, lp, x, positions=positions, window=w,
-                           use_reentrant=False)
+                           axis=axis, use_reentrant=False)
         else:
-            x = apply_layer(cfg, lp, x, positions=positions, window=w)
+            x = apply_layer(cfg, lp, x, positions=positions, window=w, axis=axis)
     return apply_norm(cfg, params["final_norm"], x)
 
 
 def head_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
-              batch: dict) -> torch.Tensor:
+              batch: dict, axis: AxisCtx = LOCAL) -> torch.Tensor:
     return lm_head_loss(cfg, head_weight(cfg, params), x, batch["labels"],
-                        batch["mask"])
+                        batch["mask"], axis)
 
 
-def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True):
+def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True,
+            axis: AxisCtx = LOCAL):
     """Summed token loss (and, as the JAX package returns, (nll, n_tok)).
     The caller divides by the global token count."""
-    x = forward(cfg, params, batch, remat=remat)
-    nll = head_loss(cfg, params, x, batch)
+    x = forward(cfg, params, batch, remat=remat, axis=axis)
+    nll = head_loss(cfg, params, x, batch, axis)
     return nll, (nll, batch["mask"].float().sum())
 
 

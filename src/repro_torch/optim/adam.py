@@ -52,6 +52,25 @@ def adam_init(storage: dict, *, moment_dtype: str = "float32") -> dict:
             "step": torch.zeros((), dtype=torch.int32, device=device)}
 
 
+def step_scalars(c: AdamConfig, step: torch.Tensor):
+    """(lr, 1 - b1^t, 1 - b2^t) for step count ``step`` (a device int)."""
+    t = step.float()
+    return schedule(c, step), 1 - c.b1 ** t, 1 - c.b2 ** t
+
+
+def leaf_update(c: AdamConfig, p, m, v, g, scalars: torch.Tensor) -> None:
+    """The update of one leaf (or one layer's slice of a stacked leaf) the
+    moment its gradient is known, in place, through the one-pass kernel:
+    the fused step's (§C.3) ``upd``.  ``scalars`` fp32 [4] = (lr, 1 - b1^t,
+    1 - b2^t, 1), made once per step.  The global norm is not known yet, so
+    ``grad_clip`` clips by this gradient's own norm, as the JAX package's
+    fused step does."""
+    if c.grad_clip > 0:
+        n = torch.sqrt(g.float().square().sum() + 1e-16)
+        scalars = torch.cat([scalars[:3], torch.clamp(c.grad_clip / n, max=1.0)[None]])
+    kops.fused_adamw(p, m, v, g, scalars, b1=c.b1, b2=c.b2, eps=c.eps, wd=c.weight_decay)
+
+
 def adam_step(c: AdamConfig, storage: dict, opt: dict, grads: dict, *,
               sq_reduce: Callable[[dict], torch.Tensor] | None = None,
               fused: bool = False) -> tuple[dict, dict, dict]:
@@ -63,16 +82,13 @@ def adam_step(c: AdamConfig, storage: dict, opt: dict, grads: dict, *,
     of being applied to the gradient tree.  Returns (storage, opt, {"lr",
     "grad_norm"})."""
     step = opt["step"] + 1
-    lr = schedule(c, step)
+    lr, b1c, b2c = step_scalars(c, step)
     if c.grad_clip > 0 and sq_reduce is not None:
         gnorm = torch.sqrt(sq_reduce(grads) + 1e-16)
         gscale = torch.clamp(c.grad_clip / gnorm, max=1.0)
     else:
         gnorm = torch.zeros((), device=lr.device)
         gscale = torch.ones((), device=lr.device)
-    t = step.float()
-    b1c = 1 - c.b1 ** t
-    b2c = 1 - c.b2 ** t
     flat = zip(tree.leaves(storage), tree.leaves(opt["mu"]), tree.leaves(opt["nu"]),
                tree.leaves(grads))
     if fused:

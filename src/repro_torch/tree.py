@@ -25,3 +25,11 @@ def tree_map(fn: Callable, tree, *rest):
     if isinstance(tree, dict):
         return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     return fn(tree, *rest)
+
+
+def tree_map_with_path(fn: Callable, tree, *rest, path: tuple = ()):
+    """``fn(key path, leaf, *matching leaves)`` over the leaves of ``tree``."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, *(r[k] for r in rest), path=path + (k,))
+                for k, v in tree.items()}
+    return fn(path, tree, *rest)

@@ -67,6 +67,36 @@ def test_train_without_device_refuses_the_cpu(monkeypatch):
         train.main(["--arch", "yi-6b", "--smoke", "--steps", "1"])
 
 
+def test_import_checks_cover_the_dist_module():
+    """The AST scan and the fresh-interpreter import both reach
+    ``core/dist.py`` (the process groups), which imports torch.distributed."""
+    assert PORT / "core" / "dist.py" in _port_files()
+    code = ("import pkgutil, repro_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert "repro_torch.core.dist" in out.stdout.split(), out.stderr
+
+
+@pytest.mark.parametrize("world,want", [
+    (None, "--mesh 2x2 needs 4 processes: run it under python -m torch.distributed.run "
+           "--nproc_per_node 4"),
+    ("2", "--mesh 2x2 needs 4 processes, the launcher started 2")])
+def test_train_refuses_a_mesh_that_is_not_the_world(monkeypatch, capsys, world, want):
+    """A mesh of D x M ranks needs D x M processes: outside the launcher
+    only 1x1 runs, and under it the world size must match."""
+    if world is None:
+        monkeypatch.delenv("WORLD_SIZE", raising=False)
+    else:
+        monkeypatch.setenv("WORLD_SIZE", world)
+        monkeypatch.setenv("RANK", "0")
+    with pytest.raises(SystemExit):
+        train.main(["--arch", "yi-6b", "--smoke", "--device", "cpu", "--mesh", "2x2"])
+    assert want in capsys.readouterr().err
+
+
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
     """It exits nonzero and prints no result, here and beside nothing of the repo."""
     lone = tmp_path / "chip_smoke.py"

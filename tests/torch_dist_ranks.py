@@ -1,0 +1,112 @@
+"""One rank of a data x model grid of processes on gloo, for
+``tests/test_torch_dist.py``.  It imports torch and the port only.
+
+    PYTHONPATH=src python tests/torch_dist_ranks.py JOB RANK
+
+``JOB`` is a pickle the test wrote: the mesh, a file-store path, the model
+config, the JAX parameter tree as numpy, a batch, and a list of cases.  The
+rank runs every case in order and pickles its results to ``JOB.RANK``.
+"""
+from __future__ import annotations
+
+import pickle
+import sys
+
+import torch
+import torch.distributed as tdist
+
+from repro_torch import tree
+from repro_torch.convert import storage_from_numpy
+from repro_torch.core import dist, stepfn
+from repro_torch.core.accumulation import AccumConfig, make_grad_fn
+from repro_torch.data.synthetic import DataConfig, local_rows, make_batch
+from repro_torch.models.common import ModelConfig
+from repro_torch.optim.adam import AdamConfig, adam_init
+
+
+def _numpy(t: dict) -> dict:
+    return tree.tree_map(lambda x: x.detach().numpy().copy(), t)
+
+
+def _counts(axis: dist.AxisCtx) -> dict:
+    return {k: tuple(v) for k, v in axis.counts.items()}
+
+
+def run_grads(job, case, axis):
+    """One ``grad_fn`` call: this rank's gradients in its storage layout."""
+    cfg = ModelConfig(**job["cfg"])
+    part = case["part"]
+    storage = storage_from_numpy(cfg, job["params"], partitioned=part, axis=axis)
+    batch = local_rows({k: torch.from_numpy(v) for k, v in job["batch"].items()}, axis)
+    acc = AccumConfig(method=case["method"], partitioned=part,
+                      n_microbatches=batch["tokens"].shape[0],
+                      reduce_dtype=case.get("reduce_dtype", "float32"))
+    grad_fn = make_grad_fn(cfg, acc, stepfn.full_template(cfg), axis=axis)
+    axis.reset_counts()
+    grads, m = grad_fn(storage, batch)
+    return {"grads": _numpy(grads), "loss": m["loss"].item(), "ntok": m["ntok"].item(),
+            "counts": _counts(axis)}
+
+
+def run_train(job, case, axis):
+    """``case["steps"]`` steps of the classic or the fused train step."""
+    cfg = ModelConfig(**job["cfg"])
+    data = DataConfig(**case["data"])
+    acc = AccumConfig("layered", True, data.n_microbatches)
+    build = stepfn.build_fused_train_step if case["fused"] else stepfn.build_train_step
+    step = build(cfg, acc, AdamConfig(**case["opt"]), axis=axis)
+    storage = storage_from_numpy(cfg, job["params"], partitioned=True, axis=axis)
+    opt = adam_init(storage)
+    recs = []
+    for i in range(case["steps"]):
+        axis.reset_counts()
+        storage, opt, m = step(storage, opt, local_rows(make_batch(data, i), axis))
+        recs.append({k: m[k].item() for k in ("loss", "grad_norm", "lr")}
+                    | {"counts": _counts(axis)})
+    return {"records": recs, "storage": _numpy(storage)}
+
+
+def run_layout(job, case, axis):
+    """This rank's storage made two ways, from the numpy tree
+    (``host_partition_leaf``) and from torch tensors (``storage_from_params``,
+    the path ``init_storage`` takes), in both layouts; and ``gather_params``
+    of the partitioned one: this rank's model shards."""
+    cfg = ModelConfig(**job["cfg"])
+    full = {k: tree.tree_map(lambda a: torch.tensor(a), v)
+            for k, v in job["params"].items() if k != "shared"}
+    out = {}
+    for part in (False, True):
+        a = storage_from_numpy(cfg, job["params"], partitioned=part, axis=axis)
+        b = stepfn.storage_from_params(cfg, full, partitioned=part, axis=axis)
+        out[part] = (_numpy(a), _numpy(b))
+    storage = storage_from_numpy(cfg, job["params"], partitioned=True, axis=axis)
+    params = stepfn.gather_params(cfg, storage, partitioned=True, axis=axis)
+    return {"storage": out,
+            "params": dict({k: _numpy(v) for k, v in params.items() if k != "layers"},
+                           layers=[_numpy(lp) for lp in params["layers"]])}
+
+
+RUNNERS = {"grads": run_grads, "train": run_train, "layout": run_layout}
+
+
+def main(job_path: str, rank: int) -> None:
+    torch.set_num_threads(1)
+    with open(job_path, "rb") as f:
+        job = pickle.load(f)
+    ndata, tp = job["mesh"]
+    tdist.init_process_group("gloo", init_method=f"file://{job['store']}", rank=rank,
+                             world_size=ndata * tp)
+    try:
+        axis = dist.make_axis(ndata, tp)
+        out = [RUNNERS[c["kind"]](job, c, dist.LOCAL if c.get("local") else axis)
+               for c in job["cases"]]
+        out = {"rank": rank, "data_index": axis.data_index,
+               "model_index": axis.model_index, "results": out}
+    finally:
+        tdist.destroy_process_group()
+    with open(f"{job_path}.{rank}", "wb") as f:
+        pickle.dump(out, f)
+
+
+if __name__ == "__main__":
+    main(sys.argv[1], int(sys.argv[2]))
