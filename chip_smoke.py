@@ -100,12 +100,15 @@ def cuda_ms(torch, fn, iters: int) -> float:
 def in_turns(torch, fns: dict, iters: int, rounds: int) -> dict:
     """``cuda_ms`` of each function, taken in turns: each round runs them in
     order and then in reverse (a, b, b, a), so that a drifting clock weighs
-    on each alike.  Returns every reading, by name."""
+    on each alike.  ``fns`` maps a name to ``(fn, calls)``: ``fn`` makes
+    ``calls`` calls (a graph's replay), and a reading is the time of one of
+    ``iters`` calls.  Returns every reading, by name."""
     out = {k: [] for k in fns}
     order = list(fns) + list(reversed(fns))
     for _ in range(rounds):
         for k in order:
-            out[k].append(cuda_ms(torch, fns[k], iters))
+            fn, calls = fns[k]
+            out[k].append(cuda_ms(torch, fn, max(1, iters // calls)) / calls)
     return out
 
 
@@ -121,20 +124,28 @@ def smi_clocks() -> str:
         return f"not read ({type(e).__name__})"
 
 
-def graph_ms(torch, fn, n: int = 50) -> float:
-    """Device time of one call of ``fn``: a CUDA graph of ``n`` calls,
-    replayed and timed with CUDA events, so the host's cost of launching
-    (the wrapper's Python) is out of the measurement."""
+def graphed(torch, fn, n: int = 50):
+    """A CUDA graph of ``n`` calls of ``fn``, captured after three calls on a
+    side stream (allocations and autograd's set-up before capture); returns
+    its replay, which launches them with no host cost (the wrapper's
+    Python) between them."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        fn()                                          # allocations before capture
+        for _ in range(3):
+            fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         for _ in range(n):
             fn()
-    return cuda_ms(torch, graph.replay, 10) / n
+    return graph.replay
+
+
+def graph_ms(torch, fn, n: int = 50) -> float:
+    """Device time of one call of ``fn``: a CUDA graph of ``n`` calls,
+    replayed and timed with CUDA events."""
+    return cuda_ms(torch, graphed(torch, fn, n), 10) / n
 
 
 def bf16_ulp(scale: float) -> float:
@@ -438,19 +449,33 @@ def phase_kernels(torch, F):
     def lib_fwd_bwd():
         torch.autograd.grad(lib_fwd(), [xr, sr], dy)
 
+    def k2():
+        rn.rmsnorm_bwd_cuda(x, s, dy)
+
     es = x.element_size()
-    # K2 and its library call timed in turns (K2, library, library, K2, ...),
-    # each reading a mean over 200 calls; the medians are kept
-    turns = in_turns(torch, {"k2": lambda: rn.rmsnorm_bwd_cuda(x, s, dy),
-                             "lib_fwd_bwd": lib_fwd_bwd, "lib_fwd": lib_fwd}, 200, rounds=5)
+    # K2 and its library call timed in turns (K2, library, ..., library, K2),
+    # each reading the mean of 200 calls, the medians kept: launched back to
+    # back from Python, and as CUDA graphs of 50 calls, whose replays carry
+    # no host cost, so that the device's time is told from the host's
+    # (K2's graph holds its wrapper's two launches: K2 and the sum of its
+    # dscale partials)
+    turns = in_turns(torch, {
+        "k2": (k2, 1), "lib_fwd_bwd": (lib_fwd_bwd, 1), "lib_fwd": (lib_fwd, 1),
+        "k2_graph": (graphed(torch, k2), 50),
+        "lib_fwd_bwd_graph": (graphed(torch, lib_fwd_bwd), 50),
+        "lib_fwd_graph": (graphed(torch, lib_fwd), 50)}, 200, rounds=5)
     med = {k: sorted(v)[len(v) // 2] for k, v in turns.items()}
     k2_bound = bound(3 * x.numel() * es + 8 * x.shape[1], 10 * x.numel(), "bfloat16")
-    say(f"  K2 in turns with its library call, {len(turns['k2'])} readings each: K2 ms "
-        f"min {min(turns['k2']):.4f} median {med['k2']:.4f} max {max(turns['k2']):.4f} "
-        f"({100 * k2_bound[0] / med['k2']:.0f}% of its bound {k2_bound[0]:.4f}); library "
-        f"(backward less forward) median {med['lib_fwd_bwd'] - med['lib_fwd']:.4f}")
+    for what, sfx in (("back to back", ""), ("device time (graphs)", "_graph")):
+        k2_ms = turns["k2" + sfx]
+        say(f"  K2 in turns with its library call, {what}, {len(k2_ms)} readings each: K2 ms "
+            f"min {min(k2_ms):.4f} median {med['k2' + sfx]:.4f} max {max(k2_ms):.4f} "
+            f"({100 * k2_bound[0] / med['k2' + sfx]:.0f}% of its bound {k2_bound[0]:.4f}); "
+            f"library (backward less forward) median "
+            f"{med['lib_fwd_bwd' + sfx] - med['lib_fwd' + sfx]:.4f}")
     rows["rmsnorm_bwd"] = dict(
         shape=f"x, dy [{x.shape[0]}, {x.shape[1]}] bf16", max_abs_err=err, ms=med["k2"],
+        device_ms=med["k2_graph"],
         plain_ms=cuda_ms(torch, lambda: rn.plain_bwd(x, s, dy), 20),
         library_ms=med["lib_fwd_bwd"] - med["lib_fwd"], bound=k2_bound)
 

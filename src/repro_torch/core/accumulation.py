@@ -25,8 +25,8 @@ Parameters arrive in the storage layout of ``core/partition.py`` (this
 rank's chunks) and are gathered to ``cfg.dtype`` model-local copies (every
 leaf, norm scales included, as the JAX package's ``gather_layer`` casts
 them); the batch arrives as this rank's rows, ``[M, mb_local, S]``.
-Without groups (``dist.LOCAL``) a gather is a cast and the gradients are
-added straight into the fp32 storage-layout buffers.
+Without groups (``dist.LOCAL``) a gather is a cast and a reduction hands
+back the fp32 accumulators in the storage layout.
 """
 from __future__ import annotations
 
@@ -49,11 +49,6 @@ class AccumConfig:
     partitioned: bool = True       # ZeRO-3 partition over the data group
     n_microbatches: int = 1
     remat: bool = True             # standard: recompute each layer in the backward
-    # layered: keep each (layer, micro-batch) checkpoint sharded over the
-    # model group along the sequence, all-gathered back in the backward
-    seq_shard_ckpt: bool = True
-    span_pods: bool = False        # not ported (multi-pod meshes)
-    expert_parallel: bool = False  # not ported (MoE)
     reduce_dtype: str = "float32"  # the reduce-scatter's wire dtype
 
 
@@ -79,10 +74,6 @@ class Adapters:
     outer_shapes: dict
     layer_shapes: dict
     partial: frozenset
-
-    @property
-    def grouped(self) -> bool:
-        return self.axis.data is not None or self.axis.model is not None
 
     def _chunk(self, leaf: torch.Tensor, shape, dtype) -> torch.Tensor:
         if self.partitioned:
@@ -110,44 +101,34 @@ class Adapters:
             lambda path, s, shp: zp.GatherLocal.apply(
                 s, self.axis, shp, dt, rdt, layer and path in self.partial), chunks, shapes)
 
-    def accumulators(self, like: dict, shapes: dict, dest: dict | None = None):
-        """(accumulators, dest): fp32 buffers in the model-local shapes that
-        gradients are summed into over the micro-batches, and the tree in the
-        storage layout of ``like`` that ``reduce`` fills from them.  Where no
-        reduce-scatter follows, the accumulators are views of ``dest`` (zeros
-        when not given); where one does, they are fresh zeros, and a ``dest``
-        not given is made only by ``reduce`` (None until then), so that the
-        two never live at once longer than needed."""
-        if self.partitioned and self.grouped:
-            accs = tree.tree_map(lambda t, shp: torch.zeros(shp, dtype=torch.float32,
-                                                            device=t.device), like, shapes)
-            return accs, dest
-        if dest is None:
-            dest = tree.tree_map(torch.zeros_like, like)
-        if not self.partitioned:
-            return dest, dest
-        return tree.tree_map(zp.full_view, dest, shapes), dest
+    def accumulators(self, shapes: dict, device) -> dict:
+        """fp32 zeros in the model-local ``shapes``, that the gradients of
+        the micro-batches are summed into."""
+        return tree.tree_map(lambda shp: torch.zeros(shp, dtype=torch.float32, device=device),
+                             shapes)
 
-    def reduce(self, accs: dict, like: dict, dest: dict | None, layer: bool) -> dict:
-        """Sum the accumulated gradients over the groups into ``dest`` (this
-        rank's fp32 chunks, or replicated leaves; made like ``like`` when
-        None) and return it: a reduce-scatter over the data group per leaf
-        when partitioned, an all-reduce of ``dest`` in place otherwise."""
-        if not self.grouped:
-            return dest
-        if dest is None:        # the reduce-scatter writes every element
-            dest = tree.tree_map(torch.empty_like, like)
-        for (path, a), d in zip(tree.leaves_with_path(accs), tree.leaves(dest)):
+    def reduce(self, accs: dict, layer: bool, out: dict | None = None) -> dict:
+        """The accumulated gradients summed over the groups, in the storage
+        layout: this rank's fp32 chunks ``[1, 1, chunk]`` (one reduce-scatter
+        over the data group per leaf), or replicated leaves (``accs``
+        all-reduced in place).  Written into ``out`` when given; without
+        groups, and replicated, ``accs`` themselves otherwise."""
+        def one(path, a, o):
             partial = layer and path in self.partial
             if self.partitioned:
-                zp.scatter_grad_local(a, self.axis, reduce_dtype=self.reduce_dtype,
-                                      model_partial=partial, out=d.reshape(-1))
-                continue
+                g = zp.scatter_grad_local(a, self.axis, reduce_dtype=self.reduce_dtype,
+                                          model_partial=partial,
+                                          out=None if o is None else o.view(-1))
+                return g.view(1, 1, -1) if o is None else o
             if partial and self.axis.model is not None:
-                self.axis.all_reduce(d, "model")
+                self.axis.all_reduce(a, "model")
             if self.axis.data is not None:
-                self.axis.all_reduce(d, "data")
-        return dest
+                self.axis.all_reduce(a, "data")
+            return a if o is None else o.copy_(a)
+
+        if out is None:
+            return tree.tree_map_with_path(lambda path, a: one(path, a, None), accs)
+        return tree.tree_map_with_path(one, accs, out)
 
 
 def make_adapters(cfg: ModelConfig, axis: AxisCtx, acc: AccumConfig,
@@ -185,8 +166,6 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
     if cfg.block_kind != "attn" or cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: the port trains dense attention "
                                   f"stacks only so far")
-    if acc.span_pods or acc.expert_parallel:
-        raise NotImplementedError("span_pods and expert_parallel are not ported yet")
     if acc.method not in ("layered", "standard"):
         raise ValueError(f"unknown accumulation method {acc.method!r}")
     if layer_update is not None and acc.method != "layered":
@@ -261,17 +240,17 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
             _accumulate(dests, torch.autograd.grad(loss, wrt))
             nlls.append(nll.detach())
         if not part:   # one sum per leaf over the data group, at the end
-            outer_g = {k: grads[k] for k in okeys}
-            ad.reduce(outer_g, outer_g, outer_g, layer=False)
-            ad.reduce(grads["layers"], grads["layers"], grads["layers"], layer=True)
+            grads = dict(ad.reduce({k: grads[k] for k in okeys}, layer=False),
+                         layers=ad.reduce(grads["layers"], layer=True))
         return grads, metrics(nlls, batch)
 
     # ------------------------------------------------------------------
     # layered (layer-major) gradient accumulation — the paper's §3
     # ------------------------------------------------------------------
     def shard_ckpt(S: int) -> bool:
-        return (acc.seq_shard_ckpt and axis.model is not None and axis.tp > 1
-                and S % axis.tp == 0)
+        """Keep each (layer, micro-batch) checkpoint sharded over the model
+        group along the sequence, all-gathered back in the backward."""
+        return axis.model is not None and axis.tp > 1 and S % axis.tp == 0
 
     def ckpt_slice(x):
         """Keep this rank's share of the sequence of a checkpoint."""
@@ -292,13 +271,12 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
         mbs, inv_n = setup(batch)
         okeys = outer_keys(storage)
         outer = ad.gather_outer(storage)            # gathered once per step
-        a_outer, g_outer = {}, {}
-        for k in okeys:
-            a_outer[k], g_outer[k] = ad.accumulators(storage[k], ad.outer_shapes[k])
-        # the stacked layer gradients (none with the per-layer update); a
-        # reduce-scatter writes every element, so it need not be zeroed
-        fill = torch.empty_like if part and ad.grouped else torch.zeros_like
-        grads_l = None if layer_update is not None else tree.tree_map(fill, storage["layers"])
+        device = storage["embed"].device
+        a_outer = ad.accumulators(ad.outer_shapes, device)
+        # the stacked layer gradients (none with the per-layer update), each
+        # element written by a layer's reduction
+        grads_l = (None if layer_update is not None
+                   else tree.tree_map(torch.empty_like, storage["layers"]))
 
         # forward: embed each micro-batch, then layer-major, keeping the
         # (layer, micro-batch) boundary activations
@@ -338,9 +316,7 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
             ckpt[l] = None
             lp = ad.gather_layer(storage, l)
             wrt = tree.leaves(lp)
-            like = layer_dest(storage["layers"], l)
-            a_layer, dest = ad.accumulators(
-                like, ad.layer_shapes, None if grads_l is None else layer_dest(grads_l, l))
+            a_layer = ad.accumulators(ad.layer_shapes, device)
             accs = tree.leaves(a_layer)
             for m in range(M):
                 xm = x_in[m].requires_grad_()
@@ -351,7 +327,8 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
                 _accumulate(accs, g)
                 dxs[m] = dx
             del lp, x_in, accs
-            dest = ad.reduce(a_layer, like, dest, layer=True)
+            dest = ad.reduce(a_layer, layer=True,
+                             out=None if grads_l is None else layer_dest(grads_l, l))
             del a_layer
             if layer_update is not None:
                 layer_update(l, dest)
@@ -363,8 +340,7 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
                 x, _ = T.embed_inputs(cfg, outer, mb, axis)
             (de,) = torch.autograd.grad(x, [outer["embed"]], dx)
             a_outer["embed"].add_(de)
-        g_outer = {k: ad.reduce(a_outer[k], storage[k], g_outer[k], layer=False)
-                   for k in okeys}
+        g_outer = ad.reduce(a_outer, layer=False)
         del a_outer
         grads = g_outer if grads_l is None else dict(g_outer, layers=grads_l)
         return grads, metrics(nlls, batch)

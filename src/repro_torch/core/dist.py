@@ -17,7 +17,9 @@ collective, so the process-group path runs on one card as it would on many.
 Every collective goes through the wrappers below, which count calls and
 bytes per (group, op) in ``AxisCtx.counts``.  Bytes are those of the full
 buffer: the gathered output, the reduce-scatter's input, the all-reduced
-tensor.
+tensor.  They call ``all_gather_into_tensor`` and ``reduce_scatter_tensor``,
+which every supported torch has (2.11 has no ``*_single`` forms; 2.13 has
+both, and warns that these are deprecated), on flat buffers, as gloo wants.
 """
 from __future__ import annotations
 
@@ -26,10 +28,6 @@ import os
 
 import torch
 import torch.distributed as dist
-
-# torch releases that have them deprecate the *_tensor forms in favour of these
-_ALL_GATHER = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
-_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -54,13 +52,13 @@ class AxisCtx:
     def all_gather(self, out: torch.Tensor, inp: torch.Tensor, group: str) -> None:
         """``out`` (contiguous, ``size * inp.numel()`` elements) <- every
         rank's ``inp`` of the group, in rank order."""
-        _ALL_GATHER(out.view(-1), inp.reshape(-1), group=getattr(self, group))
+        dist.all_gather_into_tensor(out.view(-1), inp.reshape(-1), group=getattr(self, group))
         self._count(group, "all_gather", out)
 
     def reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor, group: str) -> None:
         """``out`` (contiguous) <- this rank's block of the sum over the
         group of ``inp``, flat."""
-        _REDUCE_SCATTER(out.view(-1), inp.reshape(-1), group=getattr(self, group))
+        dist.reduce_scatter_tensor(out.view(-1), inp.reshape(-1), group=getattr(self, group))
         self._count(group, "reduce_scatter", inp)
 
     def all_reduce(self, t: torch.Tensor, group: str, op: str = "sum") -> None:
