@@ -5,8 +5,8 @@ a leading ``[L, ...]`` dim; pass it with numpy leaves (for example
 ``jax.tree.map(np.asarray, params)``).  ``params_from_numpy`` makes the
 serving parameters: matrices in ``cfg.dtype``, norm parameters fp32, as
 ``transformer.init_params`` makes them.  ``storage_from_numpy`` makes the
-fp32 training storage.  The tests use these to give both packages the same
-weights.
+fp32 training storage, ``pipeline_storage_from_numpy`` a pipeline stage's.
+The tests use these to give both packages the same weights.
 """
 from __future__ import annotations
 
@@ -73,3 +73,41 @@ def storage_from_numpy(cfg: ModelConfig, tree: dict, *, partitioned: bool,
 
     return ptree.tree_map_with_path(conv, {k: v for k, v in tree.items() if k != "shared"},
                                     T.param_specs(cfg, axis.tp))
+
+
+def pipeline_storage_from_numpy(cfg: ModelConfig, tree: dict, spec, *, partitioned: bool,
+                                axis: AxisCtx = LOCAL, device="cpu") -> dict:
+    """The JAX parameter tree -> this rank's fp32 pipeline storage
+    (``spec`` a ``core.schedules.PipeSpec``): the layers of its stage, as
+    ``[K, chunk]`` block ``[s, :, m, d, :]`` of
+    ``partition.to_partitioned_stage_stack`` when ``partitioned``, else its
+    model shard of ``[s]`` of ``partition.to_stage_stack``, ``[K, ...]``; the
+    outer leaves in full (their model shards), never chunked, as the JAX
+    package's ``partitioned_stage_param_specs`` keeps them."""
+    if tree.get("shared"):
+        raise NotImplementedError("hybrid shared-attention blocks are not ported yet")
+    specs = T.param_specs(cfg, axis.tp)
+    lspecs = T.layer_specs(cfg, axis.tp)
+    s, d = axis.stage_index, axis.data_index
+
+    def shard(a, dim):
+        return a if dim is None else np.split(a, axis.tp, dim)[axis.model_index]
+
+    if partitioned:
+        chunks = zp.to_partitioned_stage_stack(tree["layers"], spec, axis.ndata,
+                                               lspecs=lspecs, tp=axis.tp)
+
+        def layer(c):
+            m = axis.model_index if c.shape[2] > 1 else 0
+            return _tensor(c[s, :, m, d], torch.float32, device)
+        layers = ptree.tree_map(layer, chunks)
+    else:
+        staged = zp.to_stage_stack(tree["layers"], spec)
+        layers = ptree.tree_map(
+            lambda a, sp: _tensor(shard(a[s], zp.model_dim(sp)), torch.float32, device),
+            staged, specs["layers"])
+    outer = {k: ptree.tree_map(lambda a, sp: _tensor(shard(np.asarray(a, np.float32),
+                                                           zp.model_dim(sp)),
+                                                     torch.float32, device), v, specs[k])
+             for k, v in tree.items() if k not in ("layers", "shared")}
+    return dict(outer, layers=layers)

@@ -1,14 +1,16 @@
-"""Process groups for data and tensor parallelism (counterpart of the JAX
-package's ``AxisCtx`` in ``repro/models/common.py``, ``axis_ctx`` in
+"""Process groups for pipeline, data and tensor parallelism (counterpart of
+the JAX package's ``AxisCtx`` in ``repro/models/common.py``, ``axis_ctx`` in
 ``repro/core/stepfn.py`` and ``make_train_mesh`` in ``repro/launch/mesh.py``).
 
-The JAX package runs one program over a ``(data, model)`` device mesh under
-``shard_map``; the port runs one process per mesh position.  Rank order is
-the mesh's, ``rank = d * tp + m``, so chunk ``[..., m, d, :]`` of
-``partition.host_partition_leaf`` belongs to rank ``d * tp + m``.  Each rank
-belongs to one data group (the ranks of its model column: the ZeRO partition
-and the gradient sum) and one model group (the ranks of its data row: the
-Megatron shards).
+The JAX package runs one program over a ``(stage, data, model)`` device mesh
+under ``shard_map``; the port runs one process per mesh position.  Rank order
+is the mesh's, ``rank = (s * D + d) * M + m`` for D data and M model ranks
+(``d * tp + m`` without stages), so chunk ``[..., m, d, :]`` of
+``partition.host_partition_leaf`` belongs to rank ``d * tp + m`` of its
+stage.  Each rank belongs to one data group (the ranks of its stage and model
+column: the ZeRO partition and the gradient sum), one model group (the ranks
+of its stage and data row: the Megatron shards) and one stage group (the
+ranks at its data and model position in every stage: the pipeline's rings).
 
 ``AxisCtx()``, with no groups, is the one-process path: no collective is
 issued and every "gather" is a cast.  A group of size 1 still issues every
@@ -20,6 +22,8 @@ buffer: the gathered output, the reduce-scatter's input, the all-reduced
 tensor.  They call ``all_gather_into_tensor`` and ``reduce_scatter_tensor``,
 which every supported torch has (2.11 has no ``*_single`` forms; 2.13 has
 both, and warns that these are deprecated), on flat buffers, as gloo wants.
+Point-to-point transfers on the stage group (``p2p``) count each send and
+each receive, with its bytes.
 """
 from __future__ import annotations
 
@@ -32,15 +36,19 @@ import torch.distributed as dist
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class AxisCtx:
-    """The data and model process groups visible to layer code (None: the
-    axis is absent), their sizes and this rank's coordinates."""
+    """The stage, data and model process groups visible to layer code (None:
+    the axis is absent), their sizes and this rank's coordinates."""
 
     data: dist.ProcessGroup | None = None    # ZeRO partition / gradient sum
     model: dist.ProcessGroup | None = None   # tensor parallel (Megatron)
+    stage: dist.ProcessGroup | None = None   # pipeline stages (the rings)
     tp: int = 1                              # size of the model group
     ndata: int = 1                           # size of the data group
+    nstage: int = 1                          # size of the stage group
     data_index: int = 0                      # d
     model_index: int = 0                     # m
+    stage_index: int = 0                     # s
+    stage_ranks: tuple = ()                  # global ranks of the stage group, by s
     # (group name, op) -> [calls, bytes]
     counts: dict = dataclasses.field(default_factory=dict)
 
@@ -67,6 +75,45 @@ class AxisCtx:
         dist.all_reduce(t, op=red, group=getattr(self, group))
         self._count(group, "all_reduce", t)
 
+    def broadcast(self, t: torch.Tensor, group: str, src: int) -> None:
+        """In place, from global rank ``src`` of the group."""
+        dist.broadcast(t, src=src, group=getattr(self, group))
+        self._count(group, "broadcast", t)
+
+    def stage_peer(self, offset: int) -> int:
+        """The global rank of stage ``(s + offset) % nstage`` in this rank's
+        stage group (peers are passed as global ranks: the card's torch has
+        no ``group_peer``)."""
+        return self.stage_ranks[(self.stage_index + offset) % self.nstage]
+
+    def p2p(self, sends: list, recvs: list) -> None:
+        """One exchange on the stage group: ``sends`` and ``recvs`` are
+        ``(tensor, global peer rank)`` pairs, posted in one
+        ``batch_isend_irecv`` and waited for before returning.  Between two
+        ranks the k-th send meets the k-th receive.  gloo cannot pair a rank
+        with itself, so there a transfer to self (a ring of one stage) is a
+        copy into the k-th receive from self; it is counted all the same."""
+        me = dist.get_rank()
+        local = dist.get_backend(self.stage) == "gloo"
+        to_self = [t for t, p in sends if p == me] if local else []
+        from_self = [t for t, p in recvs if p == me] if local else []
+        ops = [dist.P2POp(dist.isend, t, p, self.stage) for t, p in sends
+               if not (local and p == me)]
+        ops += [dist.P2POp(dist.irecv, t, p, self.stage) for t, p in recvs
+                if not (local and p == me)]
+        if len(to_self) != len(from_self):
+            raise ValueError(f"{len(to_self)} sends to self against {len(from_self)} "
+                             f"receives from self")
+        works = dist.batch_isend_irecv(ops) if ops else []
+        for src, dst in zip(to_self, from_self):
+            dst.copy_(src)
+        for w in works:
+            w.wait()
+        for t, _ in sends:
+            self._count("stage", "send", t)
+        for t, _ in recvs:
+            self._count("stage", "recv", t)
+
     def reset_counts(self) -> None:
         self.counts.clear()
 
@@ -74,24 +121,33 @@ class AxisCtx:
 LOCAL = AxisCtx()   # one process, no groups: issues no collective
 
 
-def make_axis(ndata: int, tp: int) -> AxisCtx:
+def make_axis(ndata: int, tp: int, nstage: int = 1) -> AxisCtx:
     """This rank's ``AxisCtx`` over an initialised default group of
-    ``ndata * tp`` ranks.  Every rank creates every group, in one order, as
-    ``dist.new_group`` requires."""
+    ``nstage * ndata * tp`` ranks.  Every rank creates every group, in one
+    order, as ``dist.new_group`` requires."""
     world, rank = dist.get_world_size(), dist.get_rank()
-    if world != ndata * tp:
-        raise ValueError(f"a {ndata}x{tp} (data x model) mesh needs {ndata * tp} "
-                         f"processes, the group has {world}")
-    d, m = divmod(rank, tp)
-    data = model = None
-    for mm in range(tp):
-        g = dist.new_group([dd * tp + mm for dd in range(ndata)])
-        data = g if mm == m else data
+    if world != nstage * ndata * tp:
+        raise ValueError(f"a {nstage}x{ndata}x{tp} (stage x data x model) mesh needs "
+                         f"{nstage * ndata * tp} processes, the group has {world}")
+    s, rest = divmod(rank, ndata * tp)
+    d, m = divmod(rest, tp)
+    at = lambda ss, dd, mm: (ss * ndata + dd) * tp + mm  # noqa: E731
+    data = model = stage = None
+    for ss in range(nstage):
+        for mm in range(tp):
+            g = dist.new_group([at(ss, dd, mm) for dd in range(ndata)])
+            data = g if (ss, mm) == (s, m) else data
+    for ss in range(nstage):
+        for dd in range(ndata):
+            g = dist.new_group([at(ss, dd, mm) for mm in range(tp)])
+            model = g if (ss, dd) == (s, d) else model
     for dd in range(ndata):
-        g = dist.new_group([dd * tp + mm for mm in range(tp)])
-        model = g if dd == d else model
-    return AxisCtx(data=data, model=model, tp=tp, ndata=ndata, data_index=d,
-                   model_index=m)
+        for mm in range(tp):
+            g = dist.new_group([at(ss, dd, mm) for ss in range(nstage)])
+            stage = g if (dd, mm) == (d, m) else stage
+    return AxisCtx(data=data, model=model, stage=stage, tp=tp, ndata=ndata, nstage=nstage,
+                   data_index=d, model_index=m, stage_index=s,
+                   stage_ranks=tuple(at(ss, d, m) for ss in range(nstage)))
 
 
 def under_launcher() -> bool:
@@ -99,19 +155,19 @@ def under_launcher() -> bool:
     return "WORLD_SIZE" in os.environ
 
 
-def from_env(ndata: int, tp: int, device: torch.device) -> AxisCtx:
+def from_env(ndata: int, tp: int, device: torch.device, nstage: int = 1) -> AxisCtx:
     """Join the group ``torch.distributed.run`` describes in the environment
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL on the
     card, each rank on card LOCAL_RANK, gloo on the CPU.  The caller ends it
     with ``dist.destroy_process_group()``."""
     world = int(os.environ["WORLD_SIZE"])
-    if world != ndata * tp:
-        raise ValueError(f"--mesh {ndata}x{tp} needs {ndata * tp} processes, "
-                         f"WORLD_SIZE is {world}")
+    if world != nstage * ndata * tp:
+        raise ValueError(f"{nstage} stages of --mesh {ndata}x{tp} need "
+                         f"{nstage * ndata * tp} processes, WORLD_SIZE is {world}")
     if device.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
         backend = "nccl"
     else:
         backend = "gloo"
     dist.init_process_group(backend, rank=int(os.environ["RANK"]), world_size=world)
-    return make_axis(ndata, tp)
+    return make_axis(ndata, tp, nstage)

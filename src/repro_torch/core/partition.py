@@ -17,7 +17,8 @@ A spec names the mesh axis of each dim of a leaf, as a ``PartitionSpec``
 does in the JAX package: a tuple of ``"model"``, ``"data"`` or None.
 
 ``host_partition_leaf`` / ``host_unpartition_leaf`` are the numpy forms for
-all ranks at once, bit-compatible with the JAX package's.
+all ranks at once, bit-compatible with the JAX package's; the stage-stack
+functions at the end are the pipeline's layouts built on them.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch import tree
 from repro_torch.core.dist import AxisCtx
 
 
@@ -213,3 +215,81 @@ def host_unpartition_leaf(chunks: np.ndarray, global_shape: tuple[int, ...], tp:
     if n_model > 1 and model_dim is not None:
         return np.moveaxis(loc, len(lead), model_dim).reshape(global_shape)
     return loc.reshape(global_shape)
+
+
+# ---------------------------------------------------------------------------
+# Pipeline stage stacks (numpy; counterparts of the JAX package's
+# ``core/pipeline.py`` layout functions)
+# ---------------------------------------------------------------------------
+def to_stage_stack(layers: dict, spec) -> dict:
+    """Global ``[L, ...]`` layer stacks -> ``[S, K, ...]``: slot ``[s, v*k_c
+    + j]`` holds global layer ``(v*S + s)*k_c + j``, the tick tables' chunk
+    placement (the contiguous blocks for V = 1, round-robin columns for
+    modular).  ``spec`` is a ``schedules.PipeSpec``."""
+    S, K = spec.n_stages, spec.layers_per_stage
+    V, k_c = spec.n_chunks, spec.layers_per_chunk
+
+    def conv(x):
+        x = np.asarray(x)
+        rest = x.shape[1:]
+        return x.reshape(V, S, k_c, *rest).swapaxes(0, 1).reshape(S, K, *rest)
+
+    return tree.tree_map(conv, layers)
+
+
+def from_stage_stack(stages: dict, spec) -> dict:
+    """The inverse of ``to_stage_stack``."""
+    S, K = spec.n_stages, spec.layers_per_stage
+    V, k_c = spec.n_chunks, spec.layers_per_chunk
+
+    def conv(x):
+        x = np.asarray(x)
+        rest = x.shape[2:]
+        return x.reshape(S, V, k_c, *rest).swapaxes(0, 1).reshape(S * K, *rest)
+
+    return tree.tree_map(conv, stages)
+
+
+def _stage_model_dim(lspec) -> int | None:
+    """The model dim of a stacked ``[N, ...]`` leaf from its one-layer spec."""
+    dim = None if lspec is None else model_dim(lspec)
+    return None if dim is None else dim + 1
+
+
+def to_partitioned_stage_stack(layers: dict, spec, n_data: int, *,
+                               lspecs: dict | None = None, tp: int = 1) -> dict:
+    """Global ``[L, ...]`` layer stacks -> ``[S, K, n_model, n_data, chunk]``
+    fp32 ZeRO chunks: slot ``[s, k, m, d, :]`` holds data chunk ``d`` of model
+    shard ``m`` of the layer ``to_stage_stack`` puts at ``[s, k]``.
+    ``lspecs`` (``transformer.layer_specs(cfg, tp)``) names each leaf's model
+    dim; without it every leaf is replicated over the model group."""
+    S, K = spec.n_stages, spec.layers_per_stage
+    staged = to_stage_stack(layers, spec)
+
+    def conv(x, lspec):
+        flat = host_partition_leaf(x.reshape(S * K, *x.shape[2:]), tp, n_data,
+                                   stacked=True, model_dim=_stage_model_dim(lspec))
+        return flat.reshape(S, K, *flat.shape[1:])
+
+    if lspecs is None:
+        return tree.tree_map(lambda x: conv(x, None), staged)
+    return tree.tree_map(conv, staged, lspecs)
+
+
+def from_partitioned_stage_stack(chunks: dict, spec, layer_shapes: dict, *,
+                                 lspecs: dict | None = None, tp: int = 1) -> dict:
+    """The exact inverse of ``to_partitioned_stage_stack`` (drops the chunk
+    padding).  ``layer_shapes`` holds one layer's global shape per leaf."""
+    S, K = spec.n_stages, spec.layers_per_stage
+
+    def conv(c, shape, lspec):
+        c = np.asarray(c)
+        x = host_unpartition_leaf(c.reshape(S * K, *c.shape[2:]), (S * K, *shape), tp,
+                                  stacked=True, model_dim=_stage_model_dim(lspec))
+        return x.reshape(S, K, *shape)
+
+    if lspecs is None:
+        staged = tree.tree_map(lambda c, shp: conv(c, shp, None), chunks, layer_shapes)
+    else:
+        staged = tree.tree_map(conv, chunks, layer_shapes, lspecs)
+    return from_stage_stack(staged, spec)

@@ -1,9 +1,10 @@
 """The train steps and the training-state construction (counterpart of
-``repro/core/stepfn.py``), for one rank of a data x model grid of processes
-(``core/dist.py``): no mesh, no ``shard_map`` and no ``jit`` — each ``build_*``
-returns a plain function that runs eagerly on the storage's device, on this
-rank's chunks and this rank's rows of the batch.  With ``axis=dist.LOCAL``
-(the default) it is the one-process step.
+``repro/core/stepfn.py``), for one rank of a (stage x) data x model grid of
+processes (``core/dist.py``): no mesh, no ``shard_map`` and no ``jit`` — each
+``build_*`` returns a plain function that runs eagerly on the storage's
+device, on this rank's chunks and this rank's rows of the batch.  With
+``axis=dist.LOCAL`` (the default) it is the one-process step.  The
+``*pipeline*`` functions are the pipelined path's (``core/pipeline.py``).
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 
 from repro_torch import tree
 from repro_torch.core import partition as zp
+from repro_torch.core import pipeline as pp
 from repro_torch.core.accumulation import AccumConfig, make_grad_fn, outer_keys
 from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models import transformer as T
@@ -202,5 +204,138 @@ def build_fused_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConf
                 upd(p, m, v, gg)
         metrics = dict(metrics, lr=lr, grad_norm=torch.zeros((), device=lr.device))
         return storage, dict(opt, step=stp), metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# The pipelined path
+# ---------------------------------------------------------------------------
+def _stage_slot(spec, l: int) -> tuple[int, int]:
+    """Global layer ``l`` -> (owning stage, slot in its ``[K]`` stack)."""
+    S, k_c = spec.n_stages, spec.layers_per_chunk
+    g = l // k_c
+    return g % S, (g // S) * k_c + l % k_c
+
+
+def init_pipeline_storage(cfg: ModelConfig, seed: int, spec, *, partitioned: bool,
+                          device="cuda", axis: AxisCtx = LOCAL) -> dict:
+    """Random fp32 master weights from ``seed`` in this rank's pipeline
+    storage (``spec`` a ``schedules.PipeSpec``): its stage's layers as
+    ``[K, chunk]`` ZeRO chunks when ``partitioned`` (its block ``[s, :, m,
+    d, :]`` of ``partition.to_partitioned_stage_stack``), else ``[K, ...]``
+    model shards; the outer leaves whole (model shards), never chunked.  The
+    weights are ``init_storage``'s for the same seed: every rank draws every
+    layer, in order, and keeps its own."""
+    fcfg = dataclasses.replace(cfg, dtype=cfg.param_dtype)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    specs = T.param_specs(cfg, axis.tp)
+    outer = T.init_params(dataclasses.replace(fcfg, num_layers=0), gen, device)
+    outer = tree.tree_map(lambda t, sp: zp.model_shard(t, sp, axis.tp, axis.model_index),
+                          {k: v for k, v in outer.items() if k != "layers"},
+                          {k: v for k, v in specs.items() if k != "layers"})
+    lspecs = T.layer_specs(cfg, axis.tp)
+    K = spec.layers_per_stage
+    layers = None
+    for l in range(cfg.num_layers):
+        one = T.init_layer(fcfg, gen, device)
+        stage, k = _stage_slot(spec, l)
+        if stage != axis.stage_index:
+            continue
+        one = tree.tree_map(lambda t, sp: zp.model_shard(t, sp, axis.tp, axis.model_index),
+                            one, lspecs)
+        if partitioned:
+            one = tree.tree_map(lambda t: zp.partition_local(
+                t[None], axis.ndata, axis.data_index, stacked=True).reshape(-1), one)
+        if layers is None:
+            layers = tree.tree_map(lambda t: torch.empty((K, *t.shape), dtype=torch.float32,
+                                                         device=device), one)
+        tree.tree_map(lambda buf, t: buf[k].copy_(t), layers, one)
+    return dict(outer, layers=layers)
+
+
+def gather_pipeline_params(cfg: ModelConfig, storage: dict, spec, *, partitioned: bool,
+                           axis: AxisCtx) -> dict:
+    """Pipeline storage -> the model's parameter dict on every rank (its
+    model shards, every layer in order, every leaf in ``cfg.dtype``), for
+    eval or serving: each layer gathered over the data group on its stage,
+    then broadcast over the stage group."""
+    specs = T.param_specs(cfg, axis.tp)
+    shapes = tree.tree_map(lambda shp, sp: zp.local_shape(shp, sp, axis.tp),
+                           full_template(cfg), specs)
+    lshapes = tree.tree_map(lambda s: s[1:], shapes["layers"])
+    dt = cfg.torch_dtype
+    outer = {k: tree.tree_map(lambda t: t.to(dt, copy=True), storage[k])
+             for k in outer_keys(storage)}
+    layers = []
+    for l in range(cfg.num_layers):
+        stage, k = _stage_slot(spec, l)
+
+        def one(st, shp):
+            if stage != axis.stage_index:
+                x = torch.empty(shp, dtype=dt, device=st.device)
+            elif partitioned:
+                x = zp.gather_local(st[k], axis, shp, dt)
+            else:
+                x = st[k].to(dt, copy=True)
+            axis.broadcast(x, "stage", axis.stage_ranks[stage])
+            return x
+        layers.append(tree.tree_map(one, storage["layers"], lshapes))
+    return dict(outer, layers=layers)
+
+
+def make_pipeline_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool):
+    """The global norm's square over a pipeline gradient tree: model-sharded
+    leaves summed over the model group; the layer leaves' share summed over
+    the data group (when partitioned) and the stage group; the outer leaves,
+    which every stage holds whole and equal, counted once."""
+    specs = T.param_specs(cfg, axis.tp)
+
+    def split(grads: dict, specs: dict):
+        shard = repl = torch.zeros((), device=tree.leaves(grads)[0].device)
+        for g, sp in zip(tree.leaves(grads), tree.leaves(specs)):
+            sq = g.float().square().sum()
+            if axis.model is None or zp.model_replicated(sp):
+                repl = repl + sq
+            else:
+                shard = shard + sq
+        return shard, repl
+
+    def reduce(grads: dict) -> torch.Tensor:
+        o_shard, o_repl = split({k: v for k, v in grads.items() if k != "layers"},
+                                {k: v for k, v in specs.items() if k != "layers"})
+        l_shard, l_repl = split(grads["layers"], specs["layers"])
+        shard = torch.stack([o_shard, l_shard])
+        if axis.model is not None:
+            axis.all_reduce(shard, "model")
+        layers = shard[1] + l_repl
+        if partitioned:
+            axis.all_reduce(layers, "data")
+        axis.all_reduce(layers, "stage")
+        return shard[0] + o_repl + layers
+
+    return reduce
+
+
+def build_pipeline_train_step(cfg: ModelConfig, spec, opt_cfg: AdamConfig, *,
+                              partitioned: bool, axis: AxisCtx, table=None):
+    """Returns ``step(storage, opt, batch) -> (storage, opt, metrics)`` of the
+    pipelined path (the paper's full method when ``partitioned``) for this
+    rank of a stage x data x model grid: any executable schedule, the tick
+    table ``table`` or ``spec``'s own.  Storage from ``init_pipeline_storage``;
+    ``batch`` leaves are this rank's rows, ``[M, B/(M * n_data), S]``, the
+    same on every stage.  The one-pass AdamW (K6 on the card) updates the
+    partitioned layer chunks; the outer leaves, and replicated layers, take
+    the tree-map update, as in the JAX package."""
+    grad_fn = pp.make_pipeline_grad_fn(cfg, spec, full_template(cfg), partitioned=partitioned,
+                                       axis=axis, table=table)
+    reduce = make_pipeline_sq_reduce(cfg, axis, partitioned)
+    fused = (lambda path: path[0] == "layers") if partitioned else False
+
+    def step(storage, opt, batch):
+        grads, metrics = grad_fn(storage, _on_device(storage, batch))
+        storage, opt, om = adam_step(opt_cfg, storage, opt, grads, sq_reduce=reduce,
+                                     fused=fused)
+        return storage, opt, dict(metrics, **om)
 
     return step

@@ -73,14 +73,16 @@ def leaf_update(c: AdamConfig, p, m, v, g, scalars: torch.Tensor) -> None:
 
 def adam_step(c: AdamConfig, storage: dict, opt: dict, grads: dict, *,
               sq_reduce: Callable[[dict], torch.Tensor] | None = None,
-              fused: bool = False) -> tuple[dict, dict, dict]:
+              fused: bool | Callable[[tuple], bool] = False) -> tuple[dict, dict, dict]:
     """One AdamW update, in place.  All trees share the storage layout.
 
     ``fused=True`` sends each leaf to the one-pass kernel (K6 on the card,
     its plain version on the CPU): the clip scale goes into the kernel's
     scalars ``(lr, 1 - b1^t, 1 - b2^t, gscale)``, a device fp32 [4], instead
-    of being applied to the gradient tree.  Returns (storage, opt, {"lr",
-    "grad_norm"})."""
+    of being applied to the gradient tree.  ``fused`` may also be a
+    predicate on a leaf's key path, for mixed storage (the pipeline's
+    chunked layer stacks beside whole outer leaves), as in the JAX
+    package.  Returns (storage, opt, {"lr", "grad_norm"})."""
     step = opt["step"] + 1
     lr, b1c, b2c = step_scalars(c, step)
     if c.grad_clip > 0 and sq_reduce is not None:
@@ -89,21 +91,21 @@ def adam_step(c: AdamConfig, storage: dict, opt: dict, grads: dict, *,
     else:
         gnorm = torch.zeros((), device=lr.device)
         gscale = torch.ones((), device=lr.device)
-    flat = zip(tree.leaves(storage), tree.leaves(opt["mu"]), tree.leaves(opt["nu"]),
+    paths = [path for path, _ in tree.leaves_with_path(storage)]
+    flat = zip(paths, tree.leaves(storage), tree.leaves(opt["mu"]), tree.leaves(opt["nu"]),
                tree.leaves(grads))
-    if fused:
-        scalars = torch.stack([lr, b1c, b2c, gscale]).float()
-        for p, m, v, g in flat:
+    scalars = torch.stack([lr, b1c, b2c, gscale]).float() if fused else None
+    for path, p, m, v, g in flat:
+        if fused if isinstance(fused, bool) else fused(path):
             kops.fused_adamw(p, m, v, g, scalars, b1=c.b1, b2=c.b2, eps=c.eps,
                              wd=c.weight_decay)
-    else:
-        for p, m, v, g in flat:
-            g = g * gscale
-            m32 = c.b1 * m.float() + (1 - c.b1) * g
-            v32 = c.b2 * v.float() + (1 - c.b2) * g.square()
-            mh = m32 / b1c
-            vh = v32 / b2c
-            p.copy_(p - lr * (mh / (torch.sqrt(vh) + c.eps) + c.weight_decay * p))
-            m.copy_(m32)
-            v.copy_(v32)
+            continue
+        g = g * gscale
+        m32 = c.b1 * m.float() + (1 - c.b1) * g
+        v32 = c.b2 * v.float() + (1 - c.b2) * g.square()
+        mh = m32 / b1c
+        vh = v32 / b2c
+        p.copy_(p - lr * (mh / (torch.sqrt(vh) + c.eps) + c.weight_decay * p))
+        m.copy_(m32)
+        v.copy_(v32)
     return storage, dict(opt, step=step), {"lr": lr, "grad_norm": gnorm}

@@ -1,9 +1,10 @@
 """The port over a data x model grid of processes (gloo, on the CPU) against
 the JAX package: gradients of both schedules in both layouts at meshes 2x1,
-1x2, 2x2 and 1x4 (the last replicates the KV heads); at 2x2 the exact
-collective schedule, a bf16 reduce wire, the storage layout, a 3-step
-trajectory and the §C.3 fused step; a group of one against no group; and
-``launch.train --mesh 2x1`` under ``torch.distributed.run``.
+1x2, 2x2 and 1x4 (the last replicates the KV heads); at 1x2 and 2x2 the
+partitioned gradients of the other dense configs' smoke variants; at 2x2
+the exact collective schedule, a bf16 reduce wire, the storage layout, a
+3-step trajectory and the §C.3 fused step; a group of one against no group;
+and ``launch.train --mesh 2x1`` under ``torch.distributed.run``.
 
 Every rank of one mesh runs all its cases in one spawn
 (``tests/torch_dist_ranks.py``, one thread each, a file store); all spawns
@@ -12,6 +13,7 @@ timeout.  The JAX side runs in this process meanwhile.
 """
 import dataclasses
 import json
+import math
 import os
 import pathlib
 import pickle
@@ -24,6 +26,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from repro import configs as jconfigs
 from repro.core import stepfn as jstepfn
 from repro.core.accumulation import AccumConfig as JAccumConfig
 from repro.data.synthetic import DataConfig as JDataConfig
@@ -33,7 +36,7 @@ from repro.models.common import AxisCtx as JAxisCtx
 from repro.models.common import ModelConfig as JModelConfig
 from repro.optim.adam import AdamConfig as JAdamConfig
 from repro.optim.adam import adam_init as jadam_init
-from repro_torch import tree
+from repro_torch import configs, tree
 from repro_torch.core import partition as zp
 from repro_torch.core import stepfn
 from repro_torch.launch import train
@@ -68,6 +71,15 @@ TRAIN_CASES = [
 # the storage layout both ways with gather_params
 BF16_REDUCE = dict(kind="grads", method="layered", part=True, reduce_dtype="bfloat16")
 EXTRA_CASES = [BF16_REDUCE, dict(kind="layout")]
+# 1x2 and 2x2, last: both schedules, partitioned, on the smoke variants of
+# the other dense configs (MQA replicated over the model group, tied and
+# scaled embedding, rmsnorm_p1, window and softcaps, LayerNorm, plain GELU);
+# each case brings its config, weights and batch
+OTHER_ARCHS = ("gemma-2b", "gemma2-9b", "granite-20b", "paper-x32")
+OTHER_CASES = [dict(kind="grads", method=m, part=True, arch=a)
+               for a in OTHER_ARCHS for m in ("standard", "layered")]
+CASES = {"2x1": GRAD_CASES, "1x2": GRAD_CASES + OTHER_CASES,
+         "2x2": GRAD_CASES + TRAIN_CASES + EXTRA_CASES + OTHER_CASES, "1x4": GRAD_CASES}
 
 
 def _env() -> dict:
@@ -116,15 +128,17 @@ class Procs:
 
 
 class Spawn(Procs):
-    """The ranks of one mesh (``tests/torch_dist_ranks.py``), started now."""
+    """The ranks of one mesh (``worker``: ``tests/torch_dist_ranks.py``, or
+    another worker that reads its job), started now."""
 
-    def __init__(self, tmp: pathlib.Path, name: str, mesh, cases, params, batch):
+    def __init__(self, tmp: pathlib.Path, name: str, mesh, cases, params, batch, *,
+                 worker: pathlib.Path = WORKER, cfg: dict = ACC):
         self.job = tmp / f"{name}.job"
         with open(self.job, "wb") as f:
-            pickle.dump({"mesh": mesh, "store": str(tmp / f"{name}.store"), "cfg": ACC,
+            pickle.dump({"mesh": mesh, "store": str(tmp / f"{name}.store"), "cfg": cfg,
                          "params": params, "batch": batch, "cases": cases}, f)
-        self.world = mesh[0] * mesh[1]
-        super().__init__(tmp, name, [[sys.executable, str(WORKER), str(self.job), str(r)]
+        self.world = math.prod(mesh)
+        super().__init__(tmp, name, [[sys.executable, str(worker), str(self.job), str(r)]
                                      for r in range(self.world)])
         self._out = None
 
@@ -158,13 +172,35 @@ def weights(mesh22):
 
 
 @pytest.fixture(scope="module")
-def spawns(tmp_path_factory, weights):
+def other_configs():
+    """arch -> (the JAX config with its kernels off, the port's, the JAX
+    weights as numpy, a micro-batched batch) for the smoke variants."""
+    out = {}
+    for i, arch in enumerate(OTHER_ARCHS):
+        jcfg = dataclasses.replace(jconfigs.get_config(arch, smoke=True), kernels=False)
+        tcfg = configs.get_config(arch, smoke=True)
+        assert dataclasses.asdict(tcfg) == dataclasses.asdict(jconfigs.get_config(arch, smoke=True))
+        params = jax.tree.map(np.asarray, JT.init_params(jcfg, jax.random.PRNGKey(10 + i)))
+        toks = np.asarray(jax.random.randint(jax.random.PRNGKey(20 + i), (M, 2, 16), 0,
+                                             tcfg.vocab_size), np.int32)
+        out[arch] = (jcfg, tcfg, params, {"tokens": toks, "labels": np.roll(toks, -1, axis=-1),
+                                          "mask": np.ones_like(toks)})
+    return out
+
+
+@pytest.fixture(scope="module")
+def spawns(tmp_path_factory, weights, other_configs):
     """Every mesh's ranks, started together."""
     tmp = tmp_path_factory.mktemp("dist")
     params, batch = weights
-    out = {name: Spawn(tmp, name, mesh,
-                       GRAD_CASES + (TRAIN_CASES + EXTRA_CASES if name == "2x2" else []),
-                       params, batch)
+
+    def expand(c):
+        if "arch" not in c:
+            return c
+        _, tcfg, p, b = other_configs[c["arch"]]
+        return dict(c, cfg=dataclasses.asdict(tcfg), params=p, batch=b)
+
+    out = {name: Spawn(tmp, name, mesh, [expand(c) for c in CASES[name]], params, batch)
            for name, mesh in MESHES.items()}
     local = [dict(c, local=True) for c in GRAD_CASES + TRAIN_CASES[:1]]
     out["1x1"] = Spawn(tmp, "1x1", (1, 1), GRAD_CASES + TRAIN_CASES[:1] + local, params,
@@ -198,11 +234,11 @@ def test_specs_match_jax(tp, part):
 # ---------------------------------------------------------------------------
 # Reassembling the ranks' shares into global leaves
 # ---------------------------------------------------------------------------
-def _global(outs: list[dict], leaves_of, tp: int, partitioned: bool) -> dict:
+def _global(outs: list[dict], leaves_of, tp: int, partitioned: bool, cfg=TCFG) -> dict:
     """The ranks' storage-layout trees -> global numpy leaves in the JAX
     tree's layout.  Ranks that must hold equal shares are checked equal."""
-    specs = T.param_specs(TCFG, tp)
-    tmpl = stepfn.full_template(TCFG)
+    specs = T.param_specs(cfg, tp)
+    tmpl = stepfn.full_template(cfg)
     ndata = max(o["data_index"] for o in outs) + 1
     by = {(o["data_index"], o["model_index"]): leaves_of(o) for o in outs}
 
@@ -274,6 +310,44 @@ def test_grads_match_reference(spawns, reference, mesh, case):
     losses = {o["results"][case]["loss"] for o in outs}
     assert len(losses) == 1 and np.isfinite(losses.pop())
     assert all(o["results"][case]["ntok"] == M * 2 * 16 for o in outs)
+
+
+@pytest.fixture(scope="module")
+def other_references(other_configs):
+    """arch -> (loss, ``jax.grad``) of the JAX mean token loss, one device,
+    kernels off."""
+    out = {}
+    for arch, (jcfg, _, params, batch) in other_configs.items():
+        flat = {k: jnp.asarray(v).reshape(M * 2, 16) for k, v in batch.items()}
+
+        def loss(p, jcfg=jcfg, flat=flat):
+            _, (nll, n) = JT.loss_fn(jcfg, p, flat, JAxisCtx(), remat=False)
+            return nll / n
+
+        p = jax.tree.map(jnp.asarray, params)
+        out[arch] = float(loss(p)), {k: v for k, v in jax.grad(loss)(p).items()
+                                     if k != "shared"}
+    return out
+
+
+@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
+@pytest.mark.parametrize("case", OTHER_CASES, ids=[f"{c['arch']}-{c['method']}"
+                                                   for c in OTHER_CASES])
+def test_other_configs_grads_match_reference(spawns, other_configs, other_references, mesh,
+                                             case):
+    """The other dense configs' smoke variants at 1x2 and 2x2, partitioned:
+    gradients against ``jax.grad`` of the JAX loss with its kernels off, at
+    tests/test_accumulation.py's tolerance (rtol 3e-4, atol 3e-5); the loss
+    to 1e-5."""
+    tcfg = other_configs[case["arch"]][1]
+    want_loss, want = other_references[case["arch"]]
+    outs = spawns[mesh].result()
+    i = CASES[mesh].index(case)
+    got = _global(outs, lambda o: o["results"][i]["grads"], MESHES[mesh][1], True, tcfg)
+    _compare(got, want, rtol=3e-4, atol=3e-5)
+    losses = {o["results"][i]["loss"] for o in outs}
+    assert len(losses) == 1
+    np.testing.assert_allclose(losses.pop(), want_loss, rtol=1e-5)
 
 
 # ---------------------------------------------------------------------------

@@ -80,6 +80,22 @@ def test_import_checks_cover_the_dist_module():
     assert "repro_torch.core.dist" in out.stdout.split(), out.stderr
 
 
+@pytest.mark.parametrize("module", ["core.pipeline", "core.schedules", "planner.simulator"])
+def test_import_checks_cover_the_pipeline_modules(module):
+    """The pipeline's modules are in both checks: the AST scan reads their
+    files, and the fresh interpreter, which imports every module and finds
+    no JAX, walks them."""
+    path = PORT.joinpath(*module.split(".")).with_suffix(".py")
+    assert path in _port_files()
+    code = ("import pkgutil, repro_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert f"repro_torch.{module}" in out.stdout.split(), out.stderr
+
+
 @pytest.mark.parametrize("world,want", [
     (None, "--mesh 2x2 needs 4 processes: run it under python -m torch.distributed.run "
            "--nproc_per_node 4"),

@@ -275,7 +275,7 @@ def test_train_cli_smoke_on_cpu(capsys):
     assert '"first_loss"' in lines[-1]
 
 
-@pytest.mark.parametrize("flags", [["--stages", "2"], ["--metrics", "m.jsonl"],
+@pytest.mark.parametrize("flags", [["--trace", "t.json"], ["--metrics", "m.jsonl"],
                                    ["--checkpoint-dir", "ck"], ["--plan", "p.json"]])
 def test_train_cli_refuses_what_is_not_ported(flags, capsys):
     with pytest.raises(SystemExit):

@@ -6,6 +6,8 @@
 ``JOB`` is a pickle the test wrote: the mesh, a file-store path, the model
 config, the JAX parameter tree as numpy, a batch, and a list of cases.  The
 rank runs every case in order and pickles its results to ``JOB.RANK``.
+``tests/torch_pipeline_ranks.py`` runs the pipeline's cases through
+``main`` with its own runners.
 """
 from __future__ import annotations
 
@@ -33,11 +35,14 @@ def _counts(axis: dist.AxisCtx) -> dict:
 
 
 def run_grads(job, case, axis):
-    """One ``grad_fn`` call: this rank's gradients in its storage layout."""
-    cfg = ModelConfig(**job["cfg"])
+    """One ``grad_fn`` call: this rank's gradients in its storage layout.  A
+    case may bring its own config, weights and batch."""
+    cfg = ModelConfig(**case.get("cfg", job["cfg"]))
     part = case["part"]
-    storage = storage_from_numpy(cfg, job["params"], partitioned=part, axis=axis)
-    batch = local_rows({k: torch.from_numpy(v) for k, v in job["batch"].items()}, axis)
+    storage = storage_from_numpy(cfg, case.get("params", job["params"]), partitioned=part,
+                                 axis=axis)
+    batch = local_rows({k: torch.from_numpy(v) for k, v in case.get("batch", job["batch"]).items()},
+                       axis)
     acc = AccumConfig(method=case["method"], partitioned=part,
                       n_microbatches=batch["tokens"].shape[0],
                       reduce_dtype=case.get("reduce_dtype", "float32"))
@@ -89,19 +94,21 @@ def run_layout(job, case, axis):
 RUNNERS = {"grads": run_grads, "train": run_train, "layout": run_layout}
 
 
-def main(job_path: str, rank: int) -> None:
+def main(job_path: str, rank: int, runners: dict = RUNNERS) -> None:
+    """``JOB``'s mesh is ``(data, model)`` or ``(stage, data, model)``."""
     torch.set_num_threads(1)
     with open(job_path, "rb") as f:
         job = pickle.load(f)
-    ndata, tp = job["mesh"]
+    nstage, ndata, tp = (1, *job["mesh"]) if len(job["mesh"]) == 2 else job["mesh"]
     tdist.init_process_group("gloo", init_method=f"file://{job['store']}", rank=rank,
-                             world_size=ndata * tp)
+                             world_size=nstage * ndata * tp)
     try:
-        axis = dist.make_axis(ndata, tp)
-        out = [RUNNERS[c["kind"]](job, c, dist.LOCAL if c.get("local") else axis)
+        axis = dist.make_axis(ndata, tp, nstage)
+        out = [runners[c["kind"]](job, c, dist.LOCAL if c.get("local") else axis)
                for c in job["cases"]]
         out = {"rank": rank, "data_index": axis.data_index,
-               "model_index": axis.model_index, "results": out}
+               "model_index": axis.model_index, "stage_index": axis.stage_index,
+               "results": out}
     finally:
         tdist.destroy_process_group()
     with open(f"{job_path}.{rank}", "wb") as f:
