@@ -106,50 +106,63 @@ def full_view(chunk: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
 
 
 def gather_local(chunk: torch.Tensor, axis: AxisCtx, shape: tuple[int, ...],
-                 dtype) -> torch.Tensor:
+                 dtype, *, rows: int | None = None) -> torch.Tensor:
     """This rank's chunk (``[1, 1, chunk]``: an outer leaf, or one layer of a
     stacked one) -> the model-local leaf in ``dtype``, all-gathered over the
-    data group after the cast.  Always a fresh tensor, so the optimizer's
-    in-place update never aliases it."""
-    x = chunk.reshape(-1)
+    data group after the cast.  With ``rows``, ``chunk`` holds that many
+    stacked layers (``[rows, ..., chunk]``) and one all-gather brings back
+    ``[rows, *shape]``.  Always a fresh tensor, so the optimizer's in-place
+    update never aliases it."""
+    k = 1 if rows is None else rows
+    lead = () if rows is None else (rows,)
+    x = chunk.reshape(k, -1)
     n = math.prod(shape)
     if axis.data is None:
-        return x[:n].to(dtype, copy=True).view(shape)
+        return x[:, :n].to(dtype, copy=True).reshape(*lead, *shape)
     x = x.to(dtype)
-    out = torch.empty(axis.ndata * x.numel(), dtype=dtype, device=x.device)
+    c = x.shape[1]
+    out = torch.empty(axis.ndata * k * c, dtype=dtype, device=x.device)
     axis.all_gather(out, x, "data")
-    return out[:n].view(shape)
+    # rank-major [n_data, k, c] -> layer-major [k, n_data * c]
+    full = out.view(axis.ndata, k, c).transpose(0, 1).reshape(k, -1)
+    return full[:, :n].reshape(*lead, *shape)
 
 
 def scatter_grad_local(grad: torch.Tensor, axis: AxisCtx, *,
                        reduce_dtype=torch.float32, model_partial: bool = False,
-                       out: torch.Tensor | None = None) -> torch.Tensor:
+                       out: torch.Tensor | None = None,
+                       rows: int | None = None) -> torch.Tensor:
     """A model-local gradient (the leaf's shape, or flat and already padded
     to ``n_data * chunk``) -> this rank's reduced fp32 chunk, flat
-    ``[chunk]``, written into ``out`` when given.
+    ``[chunk]``, written into ``out`` when given.  With ``rows``, ``grad``
+    holds that many stacked layers and one reduce-scatter gives ``[rows,
+    chunk]``.
 
     Cast to ``reduce_dtype`` (the wire dtype), summed over the model group
     first when ``model_partial`` (a leaf replicated over the model group
     whose per-rank gradients are partial), then padded and reduce-scattered
     over the data group.  ``grad`` itself is not changed."""
-    g = grad.reshape(-1).to(reduce_dtype)
+    k = 1 if rows is None else rows
+    g = grad.reshape(k, -1).to(reduce_dtype)
     if model_partial and axis.model is not None:
         if g.data_ptr() == grad.data_ptr():
             g = g.clone()
         axis.all_reduce(g, "model")
-    c = chunk_size(g.numel(), axis.ndata)
-    if g.numel() < c * axis.ndata:
-        g = F.pad(g, (0, c * axis.ndata - g.numel()))
+    c = chunk_size(g.shape[1], axis.ndata)
+    if g.shape[1] < c * axis.ndata:
+        g = F.pad(g, (0, c * axis.ndata - g.shape[1]))
     if axis.data is None:
         res = g
     else:
+        if k > 1:   # layer-major [k, n_data * c] -> rank-major [n_data, k, c]
+            g = g.view(k, axis.ndata, c).transpose(0, 1).contiguous()
         direct = out is not None and out.dtype == reduce_dtype
-        res = out if direct else torch.empty(c, dtype=reduce_dtype, device=g.device)
+        res = out if direct else torch.empty(k * c, dtype=reduce_dtype, device=g.device)
         axis.reduce_scatter(res, g, "data")
     if out is None:
-        return res.float()
+        return res.float().reshape(*(() if rows is None else (rows,)), c)
     if res is not out:
-        out.copy_(res)
+        out.copy_(res.reshape(out.shape))
     return out
 
 

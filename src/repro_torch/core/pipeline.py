@@ -35,12 +35,11 @@ weights are freed then.  The counts are the JAX executor's
 (``TickTable.predicted_collectives``).  Replicated storage (``[K, ...]``)
 all-reduces each layer leaf over the data group at the end of the pass.  The
 outer leaves (embedding, head, final norm) are held whole on every stage and
-never chunked; their gradients are summed over the stage group and then the
-data group.
+never chunked; only stage 0, which runs the embedding and the head, makes
+their compute copies.  Their gradients are summed over the stage group and
+then the data group.
 """
 from __future__ import annotations
-
-import math
 
 import torch
 
@@ -63,13 +62,12 @@ def _last_weight_ticks(table, s: int) -> dict:
 
 
 def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned: bool,
-                          axis: AxisCtx, table=None):
+                          axis: AxisCtx):
     """Returns ``grad_fn(storage, batch) -> (grads like storage, metrics)``
     for this rank of an ``nstage x ndata x tp`` grid (``axis`` from
     ``dist.make_axis``).  ``storage`` is this rank's pipeline storage
     (``stepfn.init_pipeline_storage``); ``batch`` leaves are its rows,
-    ``[M, mb_local, S]``, the same on every stage.  ``table`` is a prebuilt
-    ``TickTable`` (default: ``spec.tick_table()``); ``template`` is
+    ``[M, mb_local, S]``, the same on every stage; ``template`` is
     ``stepfn.full_template(cfg)``."""
     if cfg.block_kind != "attn" or cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: the port trains dense attention "
@@ -77,13 +75,10 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
     if axis.stage is None or axis.data is None:
         raise ValueError("the pipeline runs on the stage and data groups of "
                          "dist.make_axis")
-    table = table or spec.tick_table()
+    table = spec.tick_table()
     table.validate_executable()
     S, M = spec.n_stages, spec.n_microbatches
     V, k_c = table.n_chunks, table.layers_per_chunk
-    if (table.n_stages, table.n_microbatches) != (S, M) or V * k_c != spec.layers_per_stage:
-        raise ValueError(f"tick table (S={table.n_stages}, M={table.n_microbatches}, "
-                         f"V={V}, k_c={k_c}) does not match {spec}")
     if axis.nstage != S:
         raise ValueError(f"{S} stages on a stage group of {axis.nstage}")
     if spec.num_layers != cfg.num_layers:
@@ -128,14 +123,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
         group per leaf when partitioned, a cast otherwise."""
         per_leaf = []
         for path in paths:
-            shape, st = leaf_at(lshapes, path), leaf_at(storage["layers"], path)
-            rows = st[v * k_c:(v + 1) * k_c]
+            rows = leaf_at(storage["layers"], path)[v * k_c:(v + 1) * k_c]
             if partitioned:
-                c = rows.shape[-1]
-                out = torch.empty(axis.ndata * k_c * c, dtype=dt, device=rows.device)
-                axis.all_gather(out, rows.to(dt), "data")
-                full = out.view(axis.ndata, k_c, c).transpose(0, 1).reshape(k_c, -1)
-                full = full[:, :math.prod(shape)].reshape(k_c, *shape)
+                full = zp.gather_local(rows, axis, leaf_at(lshapes, path), dt, rows=k_c)
             else:
                 full = rows.to(dt, copy=True)
             per_leaf.append([full[j].detach().requires_grad_() for j in range(k_c)])
@@ -143,18 +133,12 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
 
     def reduce_chunk(acc: list, grads_l: dict, v: int) -> None:
         """Chunk v's accumulated fp32 gradient -> this rank's reduced chunk
-        rows ``[v*k_c, (v+1)*k_c)``: summed over the model group first for a
-        partial leaf, then one reduce-scatter over the data group a leaf."""
+        rows ``[v*k_c, (v+1)*k_c)``: one reduce-scatter over the data group
+        a leaf, after the model-group sum of a partial leaf."""
         for path, a in zip(paths, acc):
-            if path in partial:
-                axis.all_reduce(a, "model")
             dest = leaf_at(grads_l, path)[v * k_c:(v + 1) * k_c]
-            c = dest.shape[-1]
-            flat = a.reshape(k_c, -1)
-            if flat.shape[1] < axis.ndata * c:
-                flat = torch.nn.functional.pad(flat, (0, axis.ndata * c - flat.shape[1]))
-            send = flat.view(k_c, axis.ndata, c).transpose(0, 1).contiguous()
-            axis.reduce_scatter(dest, send, "data")
+            zp.scatter_grad_local(a, axis, model_partial=path in partial, out=dest.view(-1),
+                                  rows=k_c)
 
     def grad_fn(storage: dict, batch: dict):
         device = storage["embed"].device
@@ -166,8 +150,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
         axis.all_reduce(ntok, "data")                 # the global token count
         inv_n = 1.0 / ntok
         okeys = [k for k in storage if k != "layers"]
+        # only stage 0 runs the embedding and the head
         outer = {k: tree.tree_map(lambda t: t.to(dt, copy=True).requires_grad_(), storage[k])
-                 for k in okeys}
+                 for k in okeys} if s == 0 else {}
         a_outer = {k: tree.tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
                                                           device=device), storage[k])
                    for k in okeys}

@@ -318,17 +318,17 @@ def make_pipeline_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool):
 
 
 def build_pipeline_train_step(cfg: ModelConfig, spec, opt_cfg: AdamConfig, *,
-                              partitioned: bool, axis: AxisCtx, table=None):
+                              partitioned: bool, axis: AxisCtx):
     """Returns ``step(storage, opt, batch) -> (storage, opt, metrics)`` of the
     pipelined path (the paper's full method when ``partitioned``) for this
-    rank of a stage x data x model grid: any executable schedule, the tick
-    table ``table`` or ``spec``'s own.  Storage from ``init_pipeline_storage``;
+    rank of a stage x data x model grid: any executable schedule, run by
+    ``spec``'s tick table.  Storage from ``init_pipeline_storage``;
     ``batch`` leaves are this rank's rows, ``[M, B/(M * n_data), S]``, the
     same on every stage.  The one-pass AdamW (K6 on the card) updates the
     partitioned layer chunks; the outer leaves, and replicated layers, take
     the tree-map update, as in the JAX package."""
     grad_fn = pp.make_pipeline_grad_fn(cfg, spec, full_template(cfg), partitioned=partitioned,
-                                       axis=axis, table=table)
+                                       axis=axis)
     reduce = make_pipeline_sq_reduce(cfg, axis, partitioned)
     fused = (lambda path: path[0] == "layers") if partitioned else False
 

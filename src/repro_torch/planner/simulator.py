@@ -47,7 +47,6 @@ class SimConfig:
     n_microbatches: int
     schedule: str = "modular"       # gpipe | modular | 1f1b | interleaved
     n_chunks: int = 0               # V (interleaved only; 0 = auto)
-    include_backward: bool = True
 
     def __post_init__(self):
         object.__setattr__(self, "schedule", canonical_schedule(self.schedule))
@@ -84,24 +83,18 @@ def stage_order(sim: SimConfig, s: int) -> list[tuple[str, int, int]]:
     if sched == "gpipe":
         f = [("F", 0, mb) for mb in range(M)]
         b = [("B", 0, mb) for mb in reversed(range(M))]
-        return f + b if sim.include_backward else f
+        return f + b
     if sched == "modular":
         f = [("F", v, mb) for v in range(V) for mb in range(M)]
-        if not sim.include_backward:
-            return f
         return f + [("B", v, mb) for (_, v, mb) in reversed(f)]
     if sched == "1f1b":
         f = [("F", 0, mb) for mb in range(M)]
         b = [("B", 0, mb) for mb in range(M)]
-        if not sim.include_backward:
-            return f
         return _one_f_one_b(f, b, warmup=min(S - 1 - s, M))
     # interleaved: micro-batch groups of G, chunk-major within a group
     G = min(S, M)
     groups = [range(g, min(g + G, M)) for g in range(0, M, G)]
     f = [("F", v, mb) for grp in groups for v in range(V) for mb in grp]
-    if not sim.include_backward:
-        return f
     b = [("B", v, mb) for grp in groups for v in reversed(range(V))
          for mb in grp]
     warmup = min((S - 1 - s) * 2 + (V - 1) * G, V * M)
@@ -389,7 +382,6 @@ def build_tick_table(sim: SimConfig, *, split_backward: bool = False
     strictly after its BDGRAD and never displaces a ready unit.
     ``DeadlockError`` fires if no stage can progress.
     """
-    assert sim.include_backward, "tick tables describe full grad passes"
     S, M, V = sim.n_stages, sim.n_microbatches, sim.n_chunks
     n_g = V * S
     orders = [deque(stage_order(sim, s)) for s in range(S)]
