@@ -51,7 +51,22 @@ nonzero and prints no result:
      tolerance (``PIPE_RUNS``); the data-group gathers and reduce-scatters,
      the stage-group sends and receives and the K1-K6 launches must be the
      counts the tick table gives, every step; then one profiled step;
-  8. the ``kernels`` line, and as the last line
+  8. the supervised run (checkpoints, faults, telemetry) on Yi-6B at full
+     width cut to 2 layers, phase 5's batch, 6 steps, a checkpoint every 2
+     (params + Adam moments, 10.4 GB; it fails when the filesystem has
+     less than 3 bundles free): (a) ``launch.train`` with ``--metrics`` and
+     ``--trace``, the reference history; (f) a flat params checkpoint of its
+     final weights served by ``launch.serve --checkpoint-dir`` (4 requests),
+     whose greedy tokens must equal the same engine's on the weights in
+     memory; (b)-(d) ``--resume auto --faults``: a crash before step 3
+     restarts from step 2 (one lost step), the step-4 checkpoint corrupted
+     and a crash before step 4 give ``restore_rejected`` and a restart from
+     step 2, step 5's NaN gradient is skipped with the state's digest
+     unchanged, and every step taken equals (a)'s bit for bit; the write and
+     read-and-verify rates and the recovery times are printed; (e) the tick
+     profiler on phase 7's pipeline (modular, 64 ticks): every table unit
+     timed, none missing or extra;
+  9. the ``kernels`` line (launches over phases 4-8), and as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -1504,6 +1519,180 @@ def phase_pipeline(torch, smi, phase5, t_group):
 
 
 # ---------------------------------------------------------------------------
+# Phase 8: the supervised run on the card (checkpoints, faults, telemetry)
+# ---------------------------------------------------------------------------
+# full-width Yi-6B cut to 2 layers (870 M parameters: a params + mu + nu
+# bundle is 10.4 GB a save, 8 layers' would be 22.9 GB), phase 5's batch
+SUP_LAYERS, SUP_STEPS = 2, 6
+SUP_ARGV = ["--arch", "yi-6b", "--layers", str(SUP_LAYERS), "--global-batch", "8",
+            "--seq-len", "2048", "--microbatches", str(TRAIN_MB), "--steps", str(SUP_STEPS),
+            "--lr", "3e-3", "--seed", str(SEED), "--checkpoint-every", "2",
+            "--keep-checkpoints", "2", "--log-every", "100"]
+# a crash before step 3 (restart from step_00000002, one lost step); after
+# step 3's save the step-4 checkpoint corrupted, then a crash before step 4
+# (restore_rejected, back to step_00000002); step 5's gradient NaN (skipped)
+SUP_FAULTS = [{"kind": "crash", "step": 3},
+              {"kind": "corrupt_checkpoint", "step": 3, "file_index": 0, "byte_offset": 4096},
+              {"kind": "crash", "step": 4}, {"kind": "nan_grad", "step": 5}]
+SERVE_ARGV = ["--arch", "yi-6b", "--layers", str(SUP_LAYERS), "--requests", "4",
+              "--prompt-lens", "64,200,512", "--max-new", "16,32", "--block-size", "16",
+              "--num-blocks", "512", "--seed", str(SEED)]
+CKPT_ROOT = os.path.join(ROOT, "build", "phase8")
+
+
+def phase_supervised(torch, smi):
+    """(a) ``launch.train`` with ``--metrics`` and ``--trace``: the
+    reference history; (f) a flat params checkpoint of its final
+    weights, served by ``launch.serve --checkpoint-dir``, against the same
+    engine on the weights in memory; (b)-(d) the supervised run under a
+    fault plan: restarts from the right steps, a rejected corrupt
+    checkpoint, a skipped NaN step that leaves the state unchanged, and
+    every step bit for bit (a)'s; (e) the tick profiler of phase 7's
+    pipeline and its drift against the table.  Returns the launches."""
+    import shutil
+
+    import torch.distributed as tdist
+
+    from repro_torch import configs, tree
+    from repro_torch.checkpointing import store
+    from repro_torch.convert import params_from_numpy
+    from repro_torch.core import dist, stepfn
+    from repro_torch.core.schedules import PipeSpec
+    from repro_torch.data.synthetic import DataConfig
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import serve, train
+    from repro_torch.obs import drift as obs_drift
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.obs import trace as obs_trace
+    from repro_torch.resilience import faults as flt
+    from repro_torch.resilience import reshard
+
+    cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=SUP_LAYERS)
+    layout = reshard.MeshLayout(n_microbatches=TRAIN_MB)
+    bundle = 3 * 4 * cfg.param_count()
+    shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    os.makedirs(CKPT_ROOT)
+    free = shutil.disk_usage(CKPT_ROOT).free
+    say(f"  checkpoint directory build/phase8: {free} bytes free on its filesystem; one "
+        f"bundle (params, mu, nu in fp32, {cfg.param_count() / 1e9:.3f} B parameters) "
+        f"{bundle} bytes")
+    if free < 3 * bundle:
+        raise AssertionError(f"{free} bytes free for checkpoints, under 3 bundles "
+                             f"({3 * bundle} bytes)")
+    counters = dict(train_counters(), paged_attention_decode=(pa, "launches"))
+    problems = []
+    path = lambda *p: os.path.join(CKPT_ROOT, *p)  # noqa: E731
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    try:
+        # (a) the reference run through the entry point
+        res = train.main(SUP_ARGV + ["--metrics", path("a.jsonl"), "--trace",
+                                     path("a.trace.json")], keep_state=True)
+        state = res.pop("state")
+        recs = obs_metrics.read_jsonl(path("a.jsonl"))
+        steps = [r for r in recs if r["event"] == "step"]
+        ref = {r["step"]: (r["loss"], r["grad_norm"]) for r in steps}
+        trace_bad = obs_trace.validate_chrome(obs_trace.load_chrome(path("a.trace.json")))
+        say(f"  (a) {len(steps)} steps, losses {[round(r['loss'], 6) for r in steps]}, step "
+            f"times {[round(r['step_time_s'], 4) for r in steps]} s; JSONL events "
+            f"{[r['event'] for r in recs]}; trace problems {trace_bad}")
+        if (sorted(ref) != list(range(SUP_STEPS)) or recs[0]["event"] != "meta"
+                or recs[-1]["event"] != "summary" or trace_bad
+                or not all(math.isfinite(x) for v in ref.values() for x in v)):
+            problems.append("(a) the reference run's JSONL or trace is not as it should be")
+        full_mem = reshard.to_full_state(tree.tree_map(lambda t: t.detach().cpu(),
+                                                       state["storage"]), cfg, layout)
+        del state, res
+        torch.cuda.empty_cache()
+
+        # (f) a flat params checkpoint of (a)'s final weights, served
+        store.save_state(path("flat"), full_mem, step=SUP_STEPS)
+        out_disk = serve.main(SERVE_ARGV + ["--checkpoint-dir", path("flat")])["outputs"]
+        out_mem = serve.main(SERVE_ARGV, params=params_from_numpy(cfg, full_mem, "cuda"))[
+            "outputs"]
+        del full_mem
+        torch.cuda.empty_cache()
+        say(f"  (f) served from the flat checkpoint and from memory: {len(out_disk)} "
+            f"requests, tokens equal: {out_disk == out_mem}; request 0 {out_disk[0][:8]}")
+        if out_disk != out_mem or len(out_disk) != 4:
+            problems.append("(f) tokens from the checkpoint differ from the in-memory ones")
+
+        # (b)-(d) the supervised run under the fault plan
+        flt.FaultPlan.from_json({"faults": SUP_FAULTS}).save(path("faults.json"))
+        t0 = time.perf_counter()
+        sup = train.main(SUP_ARGV + ["--checkpoint-dir", path("b"), "--resume", "auto",
+                                     "--faults", path("faults.json"), "--metrics",
+                                     path("b.jsonl")])
+        t_sup = time.perf_counter() - t0
+        ev = [r for r in obs_metrics.read_jsonl(path("b.jsonl"))
+              if r["event"] not in ("meta", "step", "summary")]
+        restarts = [(e["crash_step"], e["resume_step"], e["lost_steps"]) for e in ev
+                    if e["event"] == "restart"]
+        rejected = [os.path.basename(e["dir"]) for e in ev if e["event"] == "restore_rejected"]
+        anomalies = [e["step"] for e in ev if e["event"] == "anomaly"]
+        off = [(h["step"], h["loss"], h["grad_norm"], ref[h["step"]]) for h in sup["history"]
+               if (h["loss"], h["grad_norm"]) != ref[h["step"]]]
+        say(f"  (b)-(d) events {[e['event'] for e in ev]}; restarts (crash step, resume "
+            f"step, lost steps) {restarts}; rejected {rejected}; anomalies {anomalies}; "
+            f"{len(sup['history'])} steps taken, {len(off)} off (a)'s; skipped-step state "
+            f"digests {sup['skipped_state']}")
+        if restarts != [(3, 2, 1), (4, 2, 2)]:
+            problems.append(f"(b) restarts {restarts}")
+        if rejected != [store.step_dir_name(4)]:
+            problems.append(f"(c) rejected {rejected}")
+        if anomalies != [5] or [s["step"] for s in sup["skipped_state"]] != [5] or any(
+                s["digest_before"] != s["digest_after"] for s in sup["skipped_state"]):
+            problems.append(f"(d) anomalies {anomalies}, skipped {sup['skipped_state']}")
+        if off or sorted({h["step"] for h in sup["history"]}) != list(range(5)):
+            problems.append(f"(b)-(c) history off (a)'s: {off[:3]}")
+        io = sup["checkpoint_io"]
+        rates = {op: [round(x["bytes"] / x["seconds"] / 1e9, 3) for x in io if x["op"] == op]
+                 for op in ("save", "restore")}
+        rec_s = [round(e["recovery_time_s"], 3) for e in ev if e["event"] == "restart"]
+        say(f"  checkpoints on {smi}: {io[0]['bytes']} bytes a bundle; write GB/s "
+            f"{rates['save']} (device to host, .npy and sha256 streamed); read-and-verify GB/s "
+            f"{rates['restore']} (checksums, read, copy into the card's tensors); "
+            f"recovery_time_s {rec_s}; the supervised run {t_sup:.1f} s")
+        shutil.rmtree(path("b"))
+
+        # (e) the tick profiler on phase 7's pipeline: one stage, modular
+        L, M = TRAIN_LAYERS, TRAIN_MB
+        cfg8 = dataclasses.replace(configs.get_config("yi-6b"), num_layers=L)
+        spec = PipeSpec(n_stages=1, layers_per_stage=L, n_microbatches=M)
+        with one_rank_launch():
+            axis = dist.from_env(1, 1, torch.device("cuda"), nstage=1)
+            try:
+                storage = stepfn.init_pipeline_storage(cfg8, SEED, spec, partitioned=True,
+                                                       device="cuda", axis=axis)
+                events = train.profile_ticks(cfg8, spec, True, axis, storage,
+                                             DataConfig(cfg8.vocab_size, 2048, 8, M, seed=SEED),
+                                             torch.device("cuda"), None)
+                del storage
+            finally:
+                tdist.destroy_process_group()
+        table = spec.tick_table()
+        rep = obs_drift.drift_report(events, table.timeline())
+        kinds = {k: round(sum(e[5] - e[4] for e in events if e[1] == k) * 1e3, 2)
+                 for k in ("F", "B")}
+        say(f"  (e) {table.n_ticks} ticks, {len(events)} units timed on the card, makespan "
+            f"{1e3 * max(e[5] for e in events):.1f} ms, unit ms by kind {kinds}")
+        for line in obs_drift.format_report(rep).splitlines():
+            say(f"    {line}")
+        if rep["overall"]["missing"] or rep["overall"]["extra"] or \
+                rep["overall"]["matched"] != len(table.timeline()):
+            problems.append(f"(e) drift report {rep['overall']}")
+    finally:
+        shutil.rmtree(CKPT_ROOT, ignore_errors=True)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    say(f"  phase 8 launches {counts}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -1580,13 +1769,19 @@ def main() -> int:
         t0 = time.perf_counter()
         pipe_counts = phase_pipeline(torch, smi, phase5, t_group)
         say(f"[phase 7] the pipeline ok; {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        sup_counts = phase_supervised(torch, smi)
+        say(f"[phase 8] checkpoints, faults and telemetry on the card ok; "
+            f"{time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
 
-    # launches: the serving run's, the training run's, phase 6's and phase 7's
+    # launches: the serving run's, the training run's, phases 6's, 7's and 8's
     counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0)
-              + group_counts.get(name, 0) + pipe_counts.get(name, 0) for name in KERNELS}
+              + group_counts.get(name, 0) + pipe_counts.get(name, 0)
+              + sup_counts.get(name, 0) for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],
@@ -1595,7 +1790,7 @@ def main() -> int:
          "library_ms": rows[name]["library_ms"],
          **({"device_ms": rows[name]["device_ms"]} if "device_ms" in rows[name] else {})}
         for name, (src, rep) in KERNELS.items()]}
-    say(f"[phase 8] total {time.perf_counter() - t_all:.1f} s")
+    say(f"[phase 9] total {time.perf_counter() - t_all:.1f} s")
     say(smi)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -62,13 +62,16 @@ def _last_weight_ticks(table, s: int) -> dict:
 
 
 def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned: bool,
-                          axis: AxisCtx):
+                          axis: AxisCtx, recorder=None):
     """Returns ``grad_fn(storage, batch) -> (grads like storage, metrics)``
     for this rank of an ``nstage x ndata x tp`` grid (``axis`` from
     ``dist.make_axis``).  ``storage`` is this rank's pipeline storage
     (``stepfn.init_pipeline_storage``); ``batch`` leaves are its rows,
     ``[M, mb_local, S]``, the same on every stage; ``template`` is
-    ``stepfn.full_template(cfg)``."""
+    ``stepfn.full_template(cfg)``.  ``recorder`` (an
+    ``obs.trace.TickRecorder``) times this stage's unit of each tick, its
+    compute only (the tick profiler, ``obs.trace.measure_tick_timeline``);
+    without one the pass records nothing and adds no sync."""
     if cfg.block_kind != "attn" or cfg.is_moe:
         raise NotImplementedError(f"{cfg.name}: the port trains dense attention "
                                   f"stacks only so far")
@@ -206,6 +209,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
             kind, v, mb = table.kind[t][s], table.unit_v[t][s], table.unit_mb[t][s]
             g = v * S + s
             sends, recvs = [], []
+            timed = recorder is not None and kind != simlib.TICK_IDLE
+            if timed:
+                recorder.begin(kind, v, mb)
             if kind == simlib.TICK_F:
                 with torch.no_grad():
                     y = run_chunk(v, act[v, mb])
@@ -232,6 +238,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
                     y = run_chunk(v, x)
                 add_weight_grads(v, torch.autograd.grad(y, weights(v), dy))
                 del y
+            if timed:
+                recorder.end()
             if last_w.get(v) == t:
                 if partitioned:
                     reduce_chunk(accs.pop(v), grads_l, v)

@@ -19,7 +19,7 @@ from repro_torch.core.accumulation import AccumConfig, make_grad_fn, outer_keys
 from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
-from repro_torch.optim.adam import AdamConfig, adam_step, leaf_update, step_scalars
+from repro_torch.optim.adam import AdamConfig, adam_update, global_norm, leaf_update, step_scalars
 
 
 def full_template(cfg: ModelConfig) -> dict:
@@ -145,23 +145,41 @@ def _on_device(storage: dict, batch: dict) -> dict:
     return {k: v.to(device) for k, v in batch.items()}
 
 
+def _gated_update(c: AdamConfig, storage: dict, opt: dict, grads: dict, metrics: dict, *,
+                  reduce, fused, gate):
+    """The global norm, then ``gate(loss, grad_norm)`` (when given), then
+    the update: a step the gate refuses writes nothing, neither the
+    storage, nor the moments, nor the step count, and its metrics say
+    ``skipped``.  The JAX package's functional step keeps the pre-step state
+    instead; the port updates in place, so the gate sits before the first
+    write."""
+    gnorm, gscale = global_norm(c, grads, sq_reduce=reduce, device=opt["step"].device)
+    if gate is not None and not gate(metrics["loss"], gnorm):
+        lr, _, _ = step_scalars(c, opt["step"] + 1)
+        return storage, opt, dict(metrics, lr=lr, grad_norm=gnorm, skipped=True)
+    storage, opt, om = adam_update(c, storage, opt, grads, gscale, fused=fused)
+    return storage, opt, dict(metrics, **om, grad_norm=gnorm)
+
+
 def build_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
-                     axis: AxisCtx = LOCAL):
+                     axis: AxisCtx = LOCAL, gate=None):
     """Returns ``step(storage, opt, batch) -> (storage, opt, metrics)``.
     ``batch`` leaves are this rank's rows, ``[M, B/(M * n_data), S]``
     (``data.synthetic.local_rows``), on any device: they are moved to the
     storage's.  The storage and the optimizer state are updated in place.
     The fused one-pass AdamW (K6 on the card) updates the flat fp32 chunks of
     the partitioned layout; the full-leaf layout keeps the tree-map update,
-    as the JAX package does."""
+    as the JAX package does.  ``gate(loss, grad_norm) -> bool``, when given,
+    is asked after the global norm and before the update (the supervisor's
+    anomaly gate, ``_gated_update``); without it the step makes no extra
+    host sync."""
     grad_fn = make_grad_fn(cfg, acc, full_template(cfg), axis=axis)
     reduce = make_sq_reduce(cfg, axis, acc.partitioned)
 
     def step(storage, opt, batch):
         grads, metrics = grad_fn(storage, _on_device(storage, batch))
-        storage, opt, om = adam_step(opt_cfg, storage, opt, grads,
-                                     sq_reduce=reduce, fused=acc.partitioned)
-        return storage, opt, dict(metrics, **om)
+        return _gated_update(opt_cfg, storage, opt, grads, metrics, reduce=reduce,
+                             fused=acc.partitioned, gate=gate)
 
     return step
 
@@ -318,7 +336,7 @@ def make_pipeline_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool):
 
 
 def build_pipeline_train_step(cfg: ModelConfig, spec, opt_cfg: AdamConfig, *,
-                              partitioned: bool, axis: AxisCtx):
+                              partitioned: bool, axis: AxisCtx, gate=None):
     """Returns ``step(storage, opt, batch) -> (storage, opt, metrics)`` of the
     pipelined path (the paper's full method when ``partitioned``) for this
     rank of a stage x data x model grid: any executable schedule, run by
@@ -326,7 +344,8 @@ def build_pipeline_train_step(cfg: ModelConfig, spec, opt_cfg: AdamConfig, *,
     ``batch`` leaves are this rank's rows, ``[M, B/(M * n_data), S]``, the
     same on every stage.  The one-pass AdamW (K6 on the card) updates the
     partitioned layer chunks; the outer leaves, and replicated layers, take
-    the tree-map update, as in the JAX package."""
+    the tree-map update, as in the JAX package.  ``gate`` as in
+    ``build_train_step``."""
     grad_fn = pp.make_pipeline_grad_fn(cfg, spec, full_template(cfg), partitioned=partitioned,
                                        axis=axis)
     reduce = make_pipeline_sq_reduce(cfg, axis, partitioned)
@@ -334,8 +353,7 @@ def build_pipeline_train_step(cfg: ModelConfig, spec, opt_cfg: AdamConfig, *,
 
     def step(storage, opt, batch):
         grads, metrics = grad_fn(storage, _on_device(storage, batch))
-        storage, opt, om = adam_step(opt_cfg, storage, opt, grads, sq_reduce=reduce,
-                                     fused=fused)
-        return storage, opt, dict(metrics, **om)
+        return _gated_update(opt_cfg, storage, opt, grads, metrics, reduce=reduce,
+                             fused=fused, gate=gate)
 
     return step

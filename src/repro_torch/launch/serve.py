@@ -1,7 +1,11 @@
 """Serving entry point: the continuous-batching engine over a synthetic trace
 (counterpart of ``repro/launch/serve.py``).
 
-Weights are random, drawn from ``--seed``; the run goes on the card unless
+Weights are random, drawn from ``--seed``, or read from ``--checkpoint-dir``:
+a flat full-layout parameter checkpoint (``checkpointing/store.py``'s files,
+the JAX package's ``layers__...`` leaves stacked ``[L, ...]``, one file per
+layer), as the JAX server loads.  ``--trace`` writes a Chrome trace of the
+engine's prefill and decode spans.  The run goes on the card unless
 ``--device cpu`` is given (the plain PyTorch versions of the kernels).
 
 Examples:
@@ -9,10 +13,13 @@ Examples:
       --requests 16 --prompt-lens 64,128,256,512 --max-new 32,64 \\
       --block-size 16 --num-blocks 2048
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu \\
+      --checkpoint-dir /tmp/params --trace serve_trace.json
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -20,21 +27,36 @@ import numpy as np
 import torch
 
 from repro_torch import configs
+from repro_torch.checkpointing import store
+from repro_torch.convert import params_from_numpy
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.obs.trace import Tracer
+from repro_torch.resilience.reshard import MeshLayout, storage_template
 from repro_torch.serving.cache import PagedCacheConfig
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import SchedulerConfig, poisson_trace
+
+
+# the full parameter tree's layout (flat, replicated, one rank)
+_FLAT_FULL = MeshLayout(partitioned=False)
 
 
 def _ints(s: str) -> list[int]:
     return [int(p) for p in s.split(",")]
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, params: dict | None = None) -> dict:
+    """The serving run; ``params`` (the model's parameter dict, on the card
+    or the CPU), when a caller passes it, replaces the weights the flags
+    name.  Returns the result line's keys and ``outputs`` (request id ->
+    tokens)."""
     ap = argparse.ArgumentParser(allow_abbrev=False)
     ap.add_argument("--arch", default="yi-6b", choices=configs.list_archs())
     ap.add_argument("--smoke", action="store_true", help="use the reduced config")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers at full width (0: the "
+                         "config's depth)")
     ap.add_argument("--device", default="cuda",
                     help="cuda (the kernels) or cpu (their plain versions)")
     ap.add_argument("--requests", type=int, default=8)
@@ -47,19 +69,31 @@ def main(argv=None) -> dict:
     ap.add_argument("--max-batch", type=int, default=8)
     ap.add_argument("--mode", default="continuous", choices=["continuous", "static"])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="a flat full-layout parameter checkpoint (the JAX tree's leaves)")
+    ap.add_argument("--trace", default=None,
+                    help="write a Chrome-trace JSON of the engine's prefill/decode spans here")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     cfg = configs.get_config(args.arch, smoke=args.smoke)
-    gen = torch.Generator(device=device).manual_seed(args.seed)
-    params = T.init_params(cfg, gen, device)
+    if args.layers:
+        cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if params is None and args.checkpoint_dir:
+        full, step = store.load_state(args.checkpoint_dir, storage_template(cfg, _FLAT_FULL))
+        params = params_from_numpy(cfg, full, device)
+        print(f"loaded checkpoint at step {step} from {args.checkpoint_dir}", flush=True)
+    elif params is None:
+        gen = torch.Generator(device=device).manual_seed(args.seed)
+        params = T.init_params(cfg, gen, device)
 
     prompt_lens, max_new = _ints(args.prompt_lens), _ints(args.max_new)
     max_tok = max(prompt_lens) + max(max_new)
     pcfg = PagedCacheConfig(num_blocks=args.num_blocks, block_size=args.block_size,
                             max_blocks_per_seq=-(-max_tok // args.block_size))
+    tracer = Tracer() if args.trace else None
     engine = ServingEngine(cfg, params, SchedulerConfig(
-        cache=pcfg, max_batch=args.max_batch, mode=args.mode))
+        cache=pcfg, max_batch=args.max_batch, mode=args.mode), tracer=tracer)
     reqs = poisson_trace(np.random.default_rng(args.seed), n_requests=args.requests,
                          rate=args.rate, vocab=cfg.vocab_size,
                          prompt_lens=prompt_lens, max_new=max_new)
@@ -87,10 +121,13 @@ def main(argv=None) -> dict:
         "ttft_ms": lsum["ttft_ms"], "itl_ms": lsum["itl_ms"],
         "seconds": dt,
     }
+    if tracer is not None:
+        tracer.save(args.trace)
+        print(f"engine trace written to {args.trace}")
     for rid in sorted(outputs)[:4]:
         print(f"  req{rid}: {outputs[rid]}")
     print(json.dumps(result))
-    return result
+    return dict(result, outputs=outputs)
 
 
 if __name__ == "__main__":

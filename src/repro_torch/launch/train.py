@@ -20,6 +20,21 @@ split) over S stages of the D x M mesh, S*D*M processes in rank order
 ``(s*D + d)*M + m``, through ``stepfn.build_pipeline_train_step``.
 ``--stages 1`` keeps the unpipelined path.
 
+The run-time services are the JAX trainer's, reading and writing the same
+files: ``--checkpoint-dir`` with ``--checkpoint-every N`` saves a params +
+Adam-moments bundle every N steps (``checkpointing/store.py``'s format, the
+global arrays of the layout, assembled on rank 0), ``--keep-checkpoints``
+keeps the newest valid ones, ``--resume`` (``latest``) restores the newest
+valid checkpoint once and trains ``--steps`` more; ``--faults PLAN.json``
+or ``--resume auto`` hand the run to the supervisor
+(``resilience/supervisor.py``: auto-resume after crashes, the anomaly gate),
+where ``--steps`` is the total target.  ``--metrics`` streams JSONL records,
+``--trace`` writes a Chrome trace, and with ``--stages > 1`` both ``--trace``
+and ``--drift-report`` add a profiled grad-only pass on batch 0 after
+training: the measured tick timeline, and its drift against the table's.
+The ranks share one filesystem: rank 0 writes, every rank reads.  Only
+``--plan`` is not ported yet.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \\
       --device cpu --steps 3
@@ -43,21 +58,30 @@ import torch
 import torch.distributed
 
 from repro_torch import configs
+from repro_torch.checkpointing import store
 from repro_torch.core import dist, stepfn
+from repro_torch.core import pipeline as pp
 from repro_torch.core.accumulation import AccumConfig
 from repro_torch.core.schedules import KNOWN_SCHEDULES, PipeSpec
 from repro_torch.data.synthetic import DataConfig, batch_for
 from repro_torch.device import resolve_device
+from repro_torch.obs import drift as obs_drift
 from repro_torch.obs import metrics as obs_metrics
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adam import AdamConfig, adam_init
 from repro_torch.planner.simulator import EXECUTABLE_SCHEDULES
+from repro_torch.resilience import faults as flt
+from repro_torch.resilience import reshard
+from repro_torch.resilience.supervisor import Supervisor, SupervisorConfig
 
 # the JAX trainer's flags for what the port has not yet: each is refused
-NOT_PORTED = ("--plan", "--checkpoint-dir", "--resume", "--faults", "--metrics", "--trace",
-              "--drift-report")
+NOT_PORTED = ("--plan",)
 
 
-def main(argv=None) -> dict:
+def main(argv=None, *, keep_state: bool = False) -> dict:
+    """The training run.  Returns the result line's keys, the per-step
+    records and the device; with ``keep_state`` (callers in Python) also
+    ``state``, this rank's final storage and optimizer state."""
     ap = argparse.ArgumentParser(allow_abbrev=False)
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true", help="use the reduced config")
@@ -85,15 +109,42 @@ def main(argv=None) -> dict:
     ap.add_argument("--split-backward", action="store_true",
                     help="with --stages > 1: split each backward unit into dgrad and "
                          "wgrad ticks (same gradients, another order)")
+    ap.add_argument("--checkpoint-dir", default=None)
+    ap.add_argument("--checkpoint-every", type=int, default=0)
+    ap.add_argument("--resume", nargs="?", const="latest", default=None,
+                    choices=["latest", "auto"],
+                    help="latest: restore the newest valid checkpoint once and continue; "
+                         "auto: run under the supervisor, which auto-resumes after crashes "
+                         "(bounded retries, checksum fallback)")
+    ap.add_argument("--faults", default=None,
+                    help="JSON fault plan (resilience/faults.py) to inject "
+                         "deterministically; implies the supervised loop and requires "
+                         "--checkpoint-dir")
+    ap.add_argument("--keep-checkpoints", type=int, default=3,
+                    help="garbage-collect all but the newest N valid checkpoints after "
+                         "each save")
     ap.add_argument("--log-every", type=int, default=1)
+    ap.add_argument("--metrics", default=None,
+                    help="stream per-step metrics (loss, step time, tokens/s, MFU) to this "
+                         "JSONL file, flushed per record")
+    ap.add_argument("--trace", default=None,
+                    help="write a Chrome-trace JSON of the run's phases here; with "
+                         "--stages > 1 it also holds the measured and the planned tick "
+                         "timelines")
+    ap.add_argument("--drift-report", default=None,
+                    help="with --stages > 1: profile one grad-only pass tick by tick and "
+                         "write the measured-vs-planned tick drift report (obs/drift.py) "
+                         "to this JSON file")
     for flag in NOT_PORTED:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help="not ported yet")
     args = ap.parse_args(argv)
     refused = [f for f in NOT_PORTED if getattr(args, f[2:].replace("-", "_")) is not None]
     if refused:
-        ap.error(f"not ported yet: {', '.join(refused)} (the port trains without "
-                 f"plans, checkpoints or telemetry so far)")
+        ap.error(f"not ported yet: {', '.join(refused)} (plan-driven launch is a later "
+                 f"slice of the port)")
+    if (args.faults or args.resume == "auto") and not args.checkpoint_dir:
+        ap.error("--faults / --resume auto require --checkpoint-dir")
     try:
         ndata, tp = (int(n) for n in args.mesh.lower().split("x"))
     except ValueError:
@@ -135,72 +186,214 @@ def main(argv=None) -> dict:
         if device.type == "cuda":
             device = torch.device("cuda", torch.cuda.current_device())
     try:
-        return _train(args, cfg, spec, device, axis)
+        if args.faults or args.resume == "auto":
+            return _run_supervised(args, cfg, device, axis, keep_state)
+        return _train(args, cfg, spec, device, axis, keep_state)
     finally:
         if axis is not dist.LOCAL:
             torch.distributed.destroy_process_group()
 
 
-def _train(args, cfg, spec: PipeSpec | None, device: torch.device,
-           axis: dist.AxisCtx) -> dict:
-    rank0 = axis.data_index == 0 and axis.model_index == 0 and axis.stage_index == 0
-    partitioned = not args.no_partition
-    opt_cfg = AdamConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1),
-                         decay_steps=args.steps)
-    if spec is not None:
-        step = stepfn.build_pipeline_train_step(cfg, spec, opt_cfg, partitioned=partitioned,
-                                                axis=axis)
-        storage = stepfn.init_pipeline_storage(cfg, args.seed, spec, partitioned=partitioned,
-                                               device=device, axis=axis)
-    else:
-        acc = AccumConfig(method=args.method, partitioned=partitioned,
-                          n_microbatches=args.microbatches)
-        step = stepfn.build_train_step(cfg, acc, opt_cfg, axis=axis)
-        storage = stepfn.init_storage(cfg, args.seed, partitioned=partitioned, device=device,
-                                      axis=axis)
-    opt = adam_init(storage, moment_dtype=opt_cfg.moment_dtype)
-    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
+def _is_rank0(axis: dist.AxisCtx) -> bool:
+    return axis.data_index == 0 and axis.model_index == 0 and axis.stage_index == 0
+
+
+def _opt_cfg(args) -> AdamConfig:
+    return AdamConfig(lr=args.lr, warmup_steps=max(args.steps // 10, 1), decay_steps=args.steps)
+
+
+def _data_cfg(args, cfg) -> DataConfig:
+    return DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq_len,
                       global_batch=args.global_batch, n_microbatches=args.microbatches,
                       seed=args.seed)
-    tokens_per_step = args.global_batch * args.seq_len
 
-    history, records = [], []
-    t_start = time.time()
-    for i in range(args.steps):
-        batch = batch_for(cfg, data, i, axis)
-        axis.reset_counts()
-        t0 = time.perf_counter()
-        storage, opt, metrics = step(storage, opt, batch)
-        loss = float(metrics["loss"])          # device sync: ends the step
-        dt = time.perf_counter() - t0
-        tok_s = tokens_per_step / dt
-        rec = {"step": i, "loss": loss, "lr": float(metrics["lr"]),
-               "grad_norm": float(metrics["grad_norm"]), "step_time_s": dt,
-               "tokens_per_s": tok_s,
-               # per card: the grid's S*D*M cards share the step's flops
-               "mfu": obs_metrics.mfu_estimate(cfg, global_batch=args.global_batch,
-                                               seq_len=args.seq_len, step_time_s=dt)
-                      / (axis.nstage * axis.ndata * axis.tp),
-               "peak_mem_gb": (torch.cuda.max_memory_allocated(device) / 1e9
-                               if device.type == "cuda" else None),
-               # this rank's collectives of the step: "group op" -> [calls, bytes]
-               "collectives": {f"{g} {op}": list(c) for (g, op), c in axis.counts.items()}}
-        records.append(rec)
-        history.append(loss)
-        if rank0 and i % args.log_every == 0:
-            print(f"step {i:5d}  loss {loss:8.4f}"
-                  f"  lr {rec['lr']:.2e}"
-                  f"  gnorm {rec['grad_norm']:7.3f}"
-                  f"  {tok_s:9.0f} tok/s"
-                  f"  {time.time()-t_start:6.1f}s", flush=True)
-    result = {"arch": args.arch, "mesh": args.mesh, "stages": args.stages,
-              "schedule": args.schedule if spec is not None else None,
-              "first_loss": history[0],
-              "last_loss": history[-1], "steps": len(history),
-              "seconds": round(time.time() - t_start, 1)}
-    if rank0:
-        print(json.dumps(result), flush=True)
-    return dict(result, records=records, device=str(device))
+
+def _layout(args, axis: dist.AxisCtx) -> reshard.MeshLayout:
+    return reshard.layout_of(axis, partitioned=not args.no_partition, schedule=args.schedule,
+                             n_microbatches=args.microbatches)
+
+
+def _run_supervised(args, cfg, device: torch.device, axis: dist.AxisCtx,
+                    keep_state: bool = False) -> dict:
+    """Run under the supervisor (``--faults`` / ``--resume auto``).  ``--steps``
+    is the *total* completed-step target: a killed-and-resumed run finishes
+    at the same step as an unkilled one."""
+    rank0 = _is_rank0(axis)
+    fault_plan = flt.FaultPlan.load(args.faults) if args.faults else None
+    sup = SupervisorConfig(checkpoint_every=args.checkpoint_every or 1,
+                           keep_checkpoints=args.keep_checkpoints, seed=args.seed)
+    sink = obs_metrics.MetricsSink(
+        args.metrics if rank0 else None,
+        meta={"arch": args.arch, "smoke": args.smoke, "mesh": args.mesh,
+              "stages": args.stages, "supervised": True,
+              "global_batch": args.global_batch, "seq_len": args.seq_len,
+              "partitioned": not args.no_partition,
+              "faults": fault_plan.to_json()["faults"] if fault_plan else []})
+    tracer = obs_trace.Tracer() if args.trace and rank0 else None
+    sv = Supervisor(cfg, _opt_cfg(args), _data_cfg(args, cfg), _layout(args, axis),
+                    ckpt_root=args.checkpoint_dir, method=args.method, sup=sup,
+                    fault_plan=fault_plan, sink=sink, tracer=tracer, axis=axis, device=device)
+    result: dict = {}
+    try:
+        result = sv.run(args.steps)
+        result.update(arch=args.arch, skipped_state=sv.skipped, checkpoint_io=sv.io)
+        if rank0:
+            print(json.dumps(result), flush=True)
+        return dict(result, state={"storage": sv.storage, "opt": sv.opt}) if keep_state \
+            else result
+    finally:
+        if tracer is not None:
+            tracer.save(args.trace)
+        sink.close(extra={k: v for k, v in result.items()
+                          if not isinstance(v, (list, dict))} or None)
+
+
+def _resume_latest(args, cfg, layout, axis, storage: dict, opt: dict) -> int:
+    """``--resume latest``: the newest valid checkpoint bundle into this
+    rank's tensors, else a params-only checkpoint at the directory's root
+    (moments restart from zero); its step."""
+    root = args.checkpoint_dir
+    step = reshard.restore_bundle(root, {"params": storage, "mu": opt["mu"], "nu": opt["nu"],
+                                         "opt_step": opt["step"]}, cfg, layout, axis,
+                                  moment_dtype=_opt_cfg(args).moment_dtype)
+    if step is not None:
+        return step
+    manifest = store.load_manifest(root)       # CheckpointError when there is none
+    saved = reshard.saved_layout(manifest, layout)
+    reshard.load_blocks(root, manifest, reshard.storage_template(cfg, saved), storage, cfg,
+                        saved, layout, axis)
+    return manifest["step"]
+
+
+def _train(args, cfg, spec: PipeSpec | None, device: torch.device,
+           axis: dist.AxisCtx, keep_state: bool = False) -> dict:
+    rank0 = _is_rank0(axis)
+    partitioned = not args.no_partition
+    opt_cfg = _opt_cfg(args)
+    n_devices = axis.nstage * axis.ndata * axis.tp
+    sink = obs_metrics.MetricsSink(
+        args.metrics if rank0 else None,
+        meta={"arch": args.arch, "smoke": args.smoke, "mesh": args.mesh,
+              "stages": args.stages, "schedule": args.schedule if spec is not None else None,
+              "global_batch": args.global_batch, "seq_len": args.seq_len,
+              "n_devices": n_devices, "partitioned": partitioned})
+    tracer = obs_trace.Tracer() if args.trace and rank0 else None
+    result: dict = {}
+    try:
+        if spec is not None:
+            with obs_trace.span(tracer, "build_step"):
+                step = stepfn.build_pipeline_train_step(cfg, spec, opt_cfg,
+                                                        partitioned=partitioned, axis=axis)
+            with obs_trace.span(tracer, "init_storage"):
+                storage = stepfn.init_pipeline_storage(cfg, args.seed, spec,
+                                                       partitioned=partitioned, device=device,
+                                                       axis=axis)
+        else:
+            acc = AccumConfig(method=args.method, partitioned=partitioned,
+                              n_microbatches=args.microbatches)
+            with obs_trace.span(tracer, "build_step"):
+                step = stepfn.build_train_step(cfg, acc, opt_cfg, axis=axis)
+            with obs_trace.span(tracer, "init_storage"):
+                storage = stepfn.init_storage(cfg, args.seed, partitioned=partitioned,
+                                              device=device, axis=axis)
+        opt = adam_init(storage, moment_dtype=opt_cfg.moment_dtype)
+        layout = _layout(args, axis)
+        start = 0
+        if args.resume and args.checkpoint_dir:
+            start = _resume_latest(args, cfg, layout, axis, storage, opt)
+            if rank0:
+                print(f"resumed from step {start}", flush=True)
+        data = _data_cfg(args, cfg)
+        tokens_per_step = args.global_batch * args.seq_len
+
+        history, records = [], []
+        t_start = time.time()
+        for i in range(start, start + args.steps):
+            batch = batch_for(cfg, data, i, axis)
+            axis.reset_counts()
+            t0 = time.perf_counter()
+            with obs_trace.span(tracer, "train step", cat="step", step=i):
+                storage, opt, metrics = step(storage, opt, batch)
+                loss = float(metrics["loss"])          # device sync: ends the step
+            dt = time.perf_counter() - t0
+            tok_s = tokens_per_step / dt
+            rec = {"step": i, "loss": loss, "lr": float(metrics["lr"]),
+                   "grad_norm": float(metrics["grad_norm"]), "step_time_s": dt,
+                   "tokens_per_s": tok_s,
+                   # per card: the grid's S*D*M cards share the step's flops
+                   "mfu": obs_metrics.mfu_estimate(cfg, global_batch=args.global_batch,
+                                                   seq_len=args.seq_len, step_time_s=dt,
+                                                   n_devices=n_devices)}
+            sink.log(rec)
+            rec.update(peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                                    if device.type == "cuda" else None),
+                       # this rank's collectives of the step: "group op" -> [calls, bytes]
+                       collectives={f"{g} {op}": list(c) for (g, op), c in axis.counts.items()})
+            records.append(rec)
+            history.append(loss)
+            if rank0 and i % args.log_every == 0:
+                print(f"step {i:5d}  loss {loss:8.4f}"
+                      f"  lr {rec['lr']:.2e}"
+                      f"  gnorm {rec['grad_norm']:7.3f}"
+                      f"  {tok_s:9.0f} tok/s"
+                      f"  {time.time()-t_start:6.1f}s", flush=True)
+            if (args.checkpoint_every and args.checkpoint_dir
+                    and (i + 1) % args.checkpoint_every == 0):
+                reshard.save_bundle(
+                    args.checkpoint_dir, {"params": storage, "mu": opt["mu"], "nu": opt["nu"],
+                                          "opt_step": opt["step"]}, cfg, layout, axis,
+                    step=i + 1, meta={"arch": args.arch, "loss": loss,
+                                      "layout": layout.to_meta(),
+                                      "moment_dtype": opt_cfg.moment_dtype},
+                    keep=args.keep_checkpoints)
+
+        # ---- the tick profiler: measured tick timeline + drift ----
+        if spec is not None and (args.trace or args.drift_report):
+            with obs_trace.span(tracer, "tick profiling"):
+                events = profile_ticks(cfg, spec, partitioned, axis, storage, data, device,
+                                        tracer)
+            table = spec.tick_table()
+            predicted = table.timeline()
+            if tracer is not None and events:
+                # the table's unit ticks at the measured mean tick length, so the
+                # lanes align side by side
+                mk = max(e[5] for e in events)
+                obs_trace.add_timeline(tracer, predicted, pid=2, name="planned ticks",
+                                       scale_us=mk * 1e6 / max(table.n_ticks, 1))
+            if args.drift_report and rank0:
+                rep = obs_drift.drift_report(events, predicted)
+                obs_drift.save_report(rep, args.drift_report)
+                print(obs_drift.format_report(rep), flush=True)
+                sink.log(event="drift", record={"max_abs_drift": rep["max_abs_drift"],
+                                                "matched": rep["overall"]["matched"],
+                                                "missing": rep["overall"]["missing"],
+                                                "extra": rep["overall"]["extra"]})
+                result["max_abs_drift"] = rep["max_abs_drift"]
+
+        result.update({"arch": args.arch, "mesh": args.mesh, "stages": args.stages,
+                       "schedule": args.schedule if spec is not None else None,
+                       "first_loss": history[0], "last_loss": history[-1],
+                       "steps": len(history), "seconds": round(time.time() - t_start, 1)})
+        if rank0:
+            print(json.dumps(result), flush=True)
+        out = dict(result, records=records, device=str(device))
+        return dict(out, state={"storage": storage, "opt": opt}) if keep_state else out
+    finally:
+        if tracer is not None:
+            tracer.save(args.trace)
+        sink.close(extra=result or None)
+
+
+def profile_ticks(cfg, spec: PipeSpec, partitioned: bool, axis: dist.AxisCtx, storage: dict,
+                   data: DataConfig, device: torch.device, tracer) -> list:
+    """One warm-up and one timed grad-only pass on batch 0 through the
+    executor with a tick recorder; the gradients are discarded."""
+    rec = obs_trace.TickRecorder(axis.stage_index, device)
+    grad_fn = pp.make_pipeline_grad_fn(cfg, spec, stepfn.full_template(cfg),
+                                       partitioned=partitioned, axis=axis, recorder=rec)
+    batch = {k: v.to(device) for k, v in batch_for(cfg, data, 0, axis).items()}
+    return obs_trace.measure_tick_timeline(grad_fn, rec, storage, batch, axis=axis,
+                                           warmup=1, tracer=tracer, pid=1)
 
 
 if __name__ == "__main__":

@@ -71,10 +71,21 @@ def leaf_update(c: AdamConfig, p, m, v, g, scalars: torch.Tensor) -> None:
     kops.fused_adamw(p, m, v, g, scalars, b1=c.b1, b2=c.b2, eps=c.eps, wd=c.weight_decay)
 
 
-def adam_step(c: AdamConfig, storage: dict, opt: dict, grads: dict, *,
-              sq_reduce: Callable[[dict], torch.Tensor] | None = None,
-              fused: bool | Callable[[tuple], bool] = False) -> tuple[dict, dict, dict]:
-    """One AdamW update, in place.  All trees share the storage layout.
+def global_norm(c: AdamConfig, grads: dict, *,
+                sq_reduce: Callable[[dict], torch.Tensor] | None = None,
+                device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The global gradient norm and the clip scale ``min(1, clip / norm)``,
+    device scalars (the norm is 0 and the scale 1 without clipping)."""
+    if c.grad_clip > 0 and sq_reduce is not None:
+        gnorm = torch.sqrt(sq_reduce(grads) + 1e-16)
+        return gnorm, torch.clamp(c.grad_clip / gnorm, max=1.0)
+    device = device if device is not None else tree.leaves(grads)[0].device
+    return torch.zeros((), device=device), torch.ones((), device=device)
+
+
+def adam_update(c: AdamConfig, storage: dict, opt: dict, grads: dict, gscale: torch.Tensor,
+                *, fused: bool | Callable[[tuple], bool] = False) -> tuple[dict, dict, dict]:
+    """The AdamW update itself, in place, with the clip scale ``gscale``.
 
     ``fused=True`` sends each leaf to the one-pass kernel (K6 on the card,
     its plain version on the CPU): the clip scale goes into the kernel's
@@ -82,15 +93,9 @@ def adam_step(c: AdamConfig, storage: dict, opt: dict, grads: dict, *,
     of being applied to the gradient tree.  ``fused`` may also be a
     predicate on a leaf's key path, for mixed storage (the pipeline's
     chunked layer stacks beside whole outer leaves), as in the JAX
-    package.  Returns (storage, opt, {"lr", "grad_norm"})."""
+    package.  Returns (storage, opt with the new step, {"lr"})."""
     step = opt["step"] + 1
     lr, b1c, b2c = step_scalars(c, step)
-    if c.grad_clip > 0 and sq_reduce is not None:
-        gnorm = torch.sqrt(sq_reduce(grads) + 1e-16)
-        gscale = torch.clamp(c.grad_clip / gnorm, max=1.0)
-    else:
-        gnorm = torch.zeros((), device=lr.device)
-        gscale = torch.ones((), device=lr.device)
     paths = [path for path, _ in tree.leaves_with_path(storage)]
     flat = zip(paths, tree.leaves(storage), tree.leaves(opt["mu"]), tree.leaves(opt["nu"]),
                tree.leaves(grads))
@@ -108,4 +113,16 @@ def adam_step(c: AdamConfig, storage: dict, opt: dict, grads: dict, *,
         p.copy_(p - lr * (mh / (torch.sqrt(vh) + c.eps) + c.weight_decay * p))
         m.copy_(m32)
         v.copy_(v32)
-    return storage, dict(opt, step=step), {"lr": lr, "grad_norm": gnorm}
+    return storage, dict(opt, step=step), {"lr": lr}
+
+
+def adam_step(c: AdamConfig, storage: dict, opt: dict, grads: dict, *,
+              sq_reduce: Callable[[dict], torch.Tensor] | None = None,
+              fused: bool | Callable[[tuple], bool] = False) -> tuple[dict, dict, dict]:
+    """One AdamW update, in place: ``global_norm`` then ``adam_update``.
+    All trees share the storage layout.  Returns (storage, opt, {"lr",
+    "grad_norm"})."""
+    gnorm, gscale = global_norm(c, grads, sq_reduce=sq_reduce,
+                                device=opt["step"].device)
+    storage, opt, om = adam_update(c, storage, opt, grads, gscale, fused=fused)
+    return storage, opt, dict(om, grad_norm=gnorm)

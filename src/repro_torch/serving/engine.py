@@ -39,8 +39,11 @@ def _next_pow2(n: int) -> int:
 
 
 class ServingEngine:
-    def __init__(self, cfg: ModelConfig, params: dict, scfg: SchedulerConfig):
-        """The device is the one ``params`` live on."""
+    def __init__(self, cfg: ModelConfig, params: dict, scfg: SchedulerConfig, *,
+                 tracer=None):
+        """The device is the one ``params`` live on.  ``tracer`` (an
+        ``obs.trace.Tracer``) records each prefill call and decode step as a
+        span, as the JAX engine does."""
         if cfg.input_mode != "tokens":
             raise ValueError(f"serving needs token inputs (got {cfg.input_mode!r})")
         self.cfg = cfg
@@ -53,6 +56,7 @@ class ServingEngine:
         self._tables = np.full((R, maxb), self.pcfg.trash_block, np.int32)
         self._lens = np.zeros((R,), np.int32)
         self._tokens = np.zeros((R,), np.int32)
+        self.tracer = tracer
         self.t = 0
         self.finished: dict[int, Request] = {}
         self.stats = {"engine_steps": 0, "decode_steps": 0,
@@ -127,7 +131,12 @@ class ServingEngine:
         pre_preempt = self.stats["preemptions"]
         admitted = self.sched.admit(now)
         if admitted:
-            self._run_prefill(admitted)
+            if self.tracer is not None:
+                with self.tracer.span("prefill", cat="serve", tid=0, step=now,
+                                      batch=len(admitted)):
+                    self._run_prefill(admitted)
+            else:
+                self._run_prefill(admitted)
         # capacity for every live request's next write, highest priority
         # first (ensure_block may preempt lower-priority tables)
         for r in sorted(self.sched.running, key=lambda r: (-r.priority, r.arrival)):
@@ -139,10 +148,15 @@ class ServingEngine:
         decoded = 0
         if self.sched.running:
             self._sync_slots()
+            t0 = self.tracer.now_us() if self.tracer is not None else 0.0
             logits, self.cache = steps.paged_decode_step(
                 self.cfg, self.params, self.cache, self._dev(self._tables),
                 self._dev(self._lens), self._dev(self._tokens))
             nxt = logits.argmax(-1).cpu().numpy()
+            if self.tracer is not None:
+                self.tracer.complete("decode", ts_us=t0, dur_us=self.tracer.now_us() - t0,
+                                     cat="serve", tid=1,
+                                     args={"step": now, "batch": len(self.sched.running)})
             for r in list(self.sched.running):
                 r.cached += 1
                 self._emit(r, int(nxt[r.slot]))

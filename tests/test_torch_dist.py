@@ -1,7 +1,7 @@
 """The port over a data x model grid of processes (gloo, on the CPU) against
 the JAX package: gradients of both schedules in both layouts at meshes 2x1,
-1x2, 2x2 and 1x4 (the last replicates the KV heads); at 1x2 and 2x2 the
-partitioned gradients of the other dense configs' smoke variants; at 2x2
+1x2, 2x2 and 1x4 (the last replicates the KV heads); at 1x2, 2x2 and 1x4
+the same for the other dense configs' smoke variants; at 2x2
 the exact collective schedule, a bf16 reduce wire, the storage layout, a
 3-step trajectory and the §C.3 fused step; a group of one against no group;
 and ``launch.train --mesh 2x1`` under ``torch.distributed.run``.
@@ -71,15 +71,18 @@ TRAIN_CASES = [
 # the storage layout both ways with gather_params
 BF16_REDUCE = dict(kind="grads", method="layered", part=True, reduce_dtype="bfloat16")
 EXTRA_CASES = [BF16_REDUCE, dict(kind="layout")]
-# 1x2 and 2x2, last: both schedules, partitioned, on the smoke variants of
-# the other dense configs (MQA replicated over the model group, tied and
-# scaled embedding, rmsnorm_p1, window and softcaps, LayerNorm, plain GELU);
-# each case brings its config, weights and batch
+# 1x2, 2x2 and 1x4, last: both schedules in both layouts on the smoke
+# variants of the other dense configs (MQA replicated over the model group,
+# tied and scaled embedding, rmsnorm_p1, window and softcaps, LayerNorm,
+# plain GELU; at 1x4 the KV heads of all but paper-x32 are replicated); each
+# case brings its config, weights and batch
 OTHER_ARCHS = ("gemma-2b", "gemma2-9b", "granite-20b", "paper-x32")
-OTHER_CASES = [dict(kind="grads", method=m, part=True, arch=a)
-               for a in OTHER_ARCHS for m in ("standard", "layered")]
+OTHER_CASES = [dict(kind="grads", method=m, part=p, arch=a)
+               for a in OTHER_ARCHS for m in ("standard", "layered") for p in (True, False)]
+OTHER_MESHES = ("1x2", "2x2", "1x4")
 CASES = {"2x1": GRAD_CASES, "1x2": GRAD_CASES + OTHER_CASES,
-         "2x2": GRAD_CASES + TRAIN_CASES + EXTRA_CASES + OTHER_CASES, "1x4": GRAD_CASES}
+         "2x2": GRAD_CASES + TRAIN_CASES + EXTRA_CASES + OTHER_CASES,
+         "1x4": GRAD_CASES + OTHER_CASES}
 
 
 def _env() -> dict:
@@ -330,20 +333,22 @@ def other_references(other_configs):
     return out
 
 
-@pytest.mark.parametrize("mesh", ["1x2", "2x2"])
-@pytest.mark.parametrize("case", OTHER_CASES, ids=[f"{c['arch']}-{c['method']}"
-                                                   for c in OTHER_CASES])
+@pytest.mark.parametrize("mesh", OTHER_MESHES)
+@pytest.mark.parametrize("case", OTHER_CASES,
+                         ids=[f"{c['arch']}-{c['method']}{'' if c['part'] else '-repl'}"
+                              for c in OTHER_CASES])
 def test_other_configs_grads_match_reference(spawns, other_configs, other_references, mesh,
                                              case):
-    """The other dense configs' smoke variants at 1x2 and 2x2, partitioned:
-    gradients against ``jax.grad`` of the JAX loss with its kernels off, at
-    tests/test_accumulation.py's tolerance (rtol 3e-4, atol 3e-5); the loss
-    to 1e-5."""
+    """The other dense configs' smoke variants at 1x2, 2x2 and 1x4, both
+    schedules, partitioned and replicated: gradients against ``jax.grad`` of
+    the JAX loss with its kernels off, at tests/test_accumulation.py's
+    tolerance (rtol 3e-4, atol 3e-5); the loss to 1e-5."""
     tcfg = other_configs[case["arch"]][1]
     want_loss, want = other_references[case["arch"]]
     outs = spawns[mesh].result()
     i = CASES[mesh].index(case)
-    got = _global(outs, lambda o: o["results"][i]["grads"], MESHES[mesh][1], True, tcfg)
+    got = _global(outs, lambda o: o["results"][i]["grads"], MESHES[mesh][1], case["part"],
+                  tcfg)
     _compare(got, want, rtol=3e-4, atol=3e-5)
     losses = {o["results"][i]["loss"] for o in outs}
     assert len(losses) == 1

@@ -80,11 +80,16 @@ def test_import_checks_cover_the_dist_module():
     assert "repro_torch.core.dist" in out.stdout.split(), out.stderr
 
 
-@pytest.mark.parametrize("module", ["core.pipeline", "core.schedules", "planner.simulator"])
+@pytest.mark.parametrize("module", ["core.pipeline", "core.schedules", "planner.simulator",
+                                    "checkpointing.store", "resilience.reshard",
+                                    "resilience.faults", "resilience.supervisor", "obs.metrics",
+                                    "obs.trace", "obs.drift"])
 def test_import_checks_cover_the_pipeline_modules(module):
-    """The pipeline's modules are in both checks: the AST scan reads their
-    files, and the fresh interpreter, which imports every module and finds
-    no JAX, walks them."""
+    """The pipeline's modules, and the run-time services' (the checkpoint
+    store, layouts, fault plans, the supervisor and telemetry, whose JAX
+    counterparts are partly jax-free: the port keeps its own copies), are in
+    both checks: the AST scan reads their files, and the fresh interpreter,
+    which imports every module and finds no JAX, walks them."""
     path = PORT.joinpath(*module.split(".")).with_suffix(".py")
     assert path in _port_files()
     code = ("import pkgutil, repro_torch\n"
