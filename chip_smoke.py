@@ -66,7 +66,19 @@ nonzero and prints no result:
      read-and-verify rates and the recovery times are printed; (e) the tick
      profiler on phase 7's pipeline (modular, 64 ticks): every table unit
      timed, none missing or extra;
-  9. the ``kernels`` line (launches over phases 4-8), and as the last line
+  9. plan-driven launch: ``python -m repro_torch.launch.plan`` ranks the
+     one-card executions of phase 5's configuration (Yi-6B cut to 8 layers,
+     8 x 2048 tokens, 1, 2, 4 or 8 micro-batches) at the H100's constants
+     (``--devices`` left at 0: this machine's cards), and ``launch.train
+     --plan`` runs the winner 5 steps: the resolved execution must be the
+     plan's, every step finite, the K1-K5 launches exactly the planned
+     method and micro-batch count's and K6 none (a one-card plan is
+     unpartitioned: the tree-map AdamW); the plan's predicted step time is
+     printed beside the measured one.  The same run given by flags must
+     equal it bit for bit; then one profiled step of the plan's
+     configuration, which reports and never fails the run.  On the host, the paper's X_160 document (the
+     paper's A100): Table 6.1's winner, 38640 GPUs, ~1.9x its 3d baseline;
+ 10. the ``kernels`` line (launches over phases 4-9), and as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -958,14 +970,20 @@ def read_counts(counters) -> dict:
     return {name: getattr(mod, attr) for name, (mod, attr) in counters.items()}
 
 
-# one layered step: the forward (2 norms, 1 attention per layer and
-# micro-batch), the head (final norm forward and backward per micro-batch),
-# the backward's recompute and its backward; AdamW once per storage leaf (9
-# stacked layer leaves, embed, head, final norm)
+def step_launches(L: int, M: int, adamw: int) -> dict:
+    """K1-K6 launches of one step at L layers and M micro-batches, either
+    accumulation method: the forward (2 norms, 1 attention per layer and
+    micro-batch), the head (final norm forward and backward per micro-batch),
+    the backward's recompute and its backward; ``adamw`` K6 launches."""
+    return {"rmsnorm": 4 * L * M + M, "rmsnorm_bwd": 2 * L * M + M,
+            "flash_attention_fwd": 2 * L * M, "flash_attention_bwd_dq": L * M,
+            "flash_attention_bwd_dkv": L * M, "adamw": adamw}
+
+
+# one layered step; AdamW (K6) once per storage leaf (9 stacked layer leaves,
+# embed, head, final norm)
 L_, M_ = TRAIN_LAYERS, TRAIN_MB
-TRAIN_PER_STEP = {"rmsnorm": 4 * L_ * M_ + M_, "rmsnorm_bwd": 2 * L_ * M_ + M_,
-                  "flash_attention_fwd": 2 * L_ * M_, "flash_attention_bwd_dq": L_ * M_,
-                  "flash_attention_bwd_dkv": L_ * M_, "adamw": 12}
+TRAIN_PER_STEP = step_launches(L_, M_, 12)
 
 
 def phase_train(torch, smi):
@@ -1012,9 +1030,10 @@ def phase_train(torch, smi):
     return counts, res
 
 
-def phase_train_profile(torch, axis=None, label="train step"):
+def phase_train_profile(torch, axis=None, label="train step", acc=None):
     """Device time by group over one steady train step (after one warm-up
-    step) at the phase's configuration, on ``axis``'s groups when given."""
+    step) at the phase's configuration (``acc``: phase 5's schedule unless
+    given), on ``axis``'s groups when given."""
     from repro_torch import configs
     from repro_torch.core import dist, stepfn
     from repro_torch.core.accumulation import AccumConfig
@@ -1022,13 +1041,14 @@ def phase_train_profile(torch, axis=None, label="train step"):
     from repro_torch.optim.adam import AdamConfig, adam_init
 
     axis = axis or dist.LOCAL
+    acc = acc or AccumConfig("layered", True, TRAIN_MB)
     cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=TRAIN_LAYERS)
-    step = stepfn.build_train_step(cfg, AccumConfig("layered", True, TRAIN_MB),
-                                   AdamConfig(lr=3e-3, warmup_steps=1, decay_steps=5),
+    step = stepfn.build_train_step(cfg, acc, AdamConfig(lr=3e-3, warmup_steps=1, decay_steps=5),
                                    axis=axis)
-    storage = stepfn.init_storage(cfg, SEED, partitioned=True, device="cuda", axis=axis)
+    storage = stepfn.init_storage(cfg, SEED, partitioned=acc.partitioned, device="cuda",
+                                  axis=axis)
     opt = adam_init(storage)
-    data = DataConfig(cfg.vocab_size, 2048, 8, TRAIN_MB, seed=SEED)
+    data = DataConfig(cfg.vocab_size, 2048, 8, acc.n_microbatches, seed=SEED)
     storage, opt, _ = step(storage, opt, batch_for(cfg, data, 0, axis))
     return profile_step(torch, step, storage, opt, batch_for(cfg, data, 1, axis), label)
 
@@ -1693,6 +1713,103 @@ def phase_supervised(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: plan-driven launch
+# ---------------------------------------------------------------------------
+PLAN_DIR = os.path.join(ROOT, "build", "phase9")
+PLAN_STEPS = 5
+PLAN_ARGV = ["--arch", "yi-6b", "--layers", str(TRAIN_LAYERS), "--global-batch", "8",
+             "--seq-len", "2048"]
+PAPER_ARGV = ["--arch", "paper-x", "--size", "160", "--grid", "reduced", "--simulate-top", "8",
+              "--max-sims", "24"]
+
+
+def phase_plan(torch, smi):
+    """(a) ``launch.plan`` ranks the one-card executions of 8-layer Yi-6B at
+    the H100's constants (``--devices`` left at 0: this machine's cards);
+    (b) ``launch.train --plan`` runs the winner: its resolved execution is
+    the plan's, every step finite, K1-K5 launches exactly the planned method
+    and M's, no K6 (a one-card plan is unpartitioned), the plan's score
+    beside the measured step; (c) the same run given by flags, bit for bit
+    (b)'s, then a profile of one step of it; (d) on the host, the paper's X_160 document: Table 6.1's winner
+    and the ~1.9x speedup."""
+    from repro_torch.launch import plan as plan_cli
+    from repro_torch.launch import train
+
+    os.makedirs(PLAN_DIR, exist_ok=True)
+    path = os.path.join(PLAN_DIR, "plan.json")
+    doc = plan_cli.main([*PLAN_ARGV, "--microbatches", "1,2,4,8", "--out", path])
+    ex = doc["execution"]
+    for r in doc["plans"]:
+        say(f"  planned (H100 constants): {r['method']} partitioned={r['partitioned']} "
+            f"M={r['microbatches']} score {r['score_step_s']:.4f} s (compute "
+            f"{r['compute_s']:.4f}, data {r['data_coll_s']:.4f})")
+    win = doc["plans"][0]
+    if ex["partitioned"] or doc["devices"] != 1:
+        raise AssertionError(f"a one-card plan should be unpartitioned on 1 device: {ex}")
+    counters = train_counters()
+
+    def run(argv):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        return res, read_counts(counters)
+
+    planned, counts = run(["--plan", path, "--steps", str(PLAN_STEPS)])
+    flags = [*PLAN_ARGV, "--microbatches", str(ex["microbatches"]), "--method", ex["method"],
+             "--no-partition", "--steps", str(PLAN_STEPS)]
+    given, counts_c = run(flags)
+    # the full-leaf layout of a one-card plan takes the tree-map AdamW: no K6
+    want = {k: v * PLAN_STEPS
+            for k, v in step_launches(TRAIN_LAYERS, ex["microbatches"], 0).items()}
+    steady = [r["step_time_s"] for r in planned["records"][1:]]
+    mean = sum(steady) / len(steady)
+    for r in planned["records"]:
+        say(f"  plan step {r['step']}: {r['step_time_s']:.3f} s, loss {r['loss']:.4f}, "
+            f"grad norm {r['grad_norm']:.4f}, max memory allocated {r['peak_mem_gb']:.2f} GB")
+    say(f"  planner on {smi}: predicted {win['score_step_s']:.4f} s a step "
+        f"({ex['method']}, M={ex['microbatches']}), measured steady mean {mean:.4f} s, "
+        f"predicted/measured {win['score_step_s'] / mean:.3f}; launches over "
+        f"{PLAN_STEPS} steps {counts}")
+    problems = []
+    if planned["execution"] != dict(ex, steps=PLAN_STEPS):
+        problems.append(f"resolved execution {planned['execution']} != the plan's {ex}")
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in planned["records"]):
+        problems.append("non-finite loss or grad norm")
+    for name, c in (("plan", counts), ("flags", counts_c)):
+        if c != want:
+            problems.append(f"{name} run launch counts {c} != {want}")
+    hist = [(r["loss"], r["grad_norm"]) for r in planned["records"]]
+    if hist != [(r["loss"], r["grad_norm"]) for r in given["records"]]:
+        problems.append(f"the flag-given run differs from the plan's: {hist} against "
+                        f"{[(r['loss'], r['grad_norm']) for r in given['records']]}")
+
+    try:
+        from repro_torch.core.accumulation import AccumConfig
+        phase_train_profile(torch, label="planned step", acc=AccumConfig(
+            ex["method"], ex["partitioned"], ex["microbatches"]))
+    except Exception as e:  # noqa: BLE001 — the breakdown is optional; say why it is missing
+        say(f"  profile: not measured ({type(e).__name__}: {e})")
+
+    t0 = time.perf_counter()
+    paper = plan_cli.main(PAPER_ARGV)
+    w = paper["winner"]
+    say(f"  paper X_160 (the paper's A100, table A.1): {w['family']} n_a={w['n_a']} "
+        f"n_l={w['n_l']} n_mu={w['n_mu']} {w['n_gpu']} GPUs, "
+        f"{w.get('sim_time_days', w['time_days'])} days, speedup over the 3d baseline "
+        f"{paper['speedup_vs_3d_baseline']}; {time.perf_counter() - t0:.1f} s on the host")
+    if w["n_gpu"] != 38640 or not 1.9 * 0.9 <= paper["speedup_vs_3d_baseline"] <= 1.9 * 1.1:
+        problems.append(f"paper X_160: {w['n_gpu']} GPUs, speedup "
+                        f"{paper['speedup_vs_3d_baseline']}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -1774,14 +1891,19 @@ def main() -> int:
         sup_counts = phase_supervised(torch, smi)
         say(f"[phase 8] checkpoints, faults and telemetry on the card ok; "
             f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        plan_counts = phase_plan(torch, smi)
+        say(f"[phase 9] plan-driven launch ok; {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
 
-    # launches: the serving run's, the training run's, phases 6's, 7's and 8's
+    # launches: the serving run's, the training run's, phases 6's, 7's, 8's
+    # and 9's (the plan-driven run's)
     counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0)
               + group_counts.get(name, 0) + pipe_counts.get(name, 0)
-              + sup_counts.get(name, 0) for name in KERNELS}
+              + sup_counts.get(name, 0) + plan_counts.get(name, 0) for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],
@@ -1790,7 +1912,7 @@ def main() -> int:
          "library_ms": rows[name]["library_ms"],
          **({"device_ms": rows[name]["device_ms"]} if "device_ms" in rows[name] else {})}
         for name, (src, rep) in KERNELS.items()]}
-    say(f"[phase 9] total {time.perf_counter() - t_all:.1f} s")
+    say(f"[phase 10] total {time.perf_counter() - t_all:.1f} s")
     say(smi)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -62,13 +62,14 @@ def _last_weight_ticks(table, s: int) -> dict:
 
 
 def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned: bool,
-                          axis: AxisCtx, recorder=None):
+                          axis: AxisCtx, recorder=None, table=None):
     """Returns ``grad_fn(storage, batch) -> (grads like storage, metrics)``
     for this rank of an ``nstage x ndata x tp`` grid (``axis`` from
     ``dist.make_axis``).  ``storage`` is this rank's pipeline storage
     (``stepfn.init_pipeline_storage``); ``batch`` leaves are its rows,
     ``[M, mb_local, S]``, the same on every stage; ``template`` is
-    ``stepfn.full_template(cfg)``.  ``recorder`` (an
+    ``stepfn.full_template(cfg)``.  ``table`` is the tick table to run
+    (a plan's), ``spec.tick_table()`` when not given.  ``recorder`` (an
     ``obs.trace.TickRecorder``) times this stage's unit of each tick, its
     compute only (the tick profiler, ``obs.trace.measure_tick_timeline``);
     without one the pass records nothing and adds no sync."""
@@ -78,7 +79,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
     if axis.stage is None or axis.data is None:
         raise ValueError("the pipeline runs on the stage and data groups of "
                          "dist.make_axis")
-    table = spec.tick_table()
+    table = spec.tick_table() if table is None else table
     table.validate_executable()
     S, M = spec.n_stages, spec.n_microbatches
     V, k_c = table.n_chunks, table.layers_per_chunk

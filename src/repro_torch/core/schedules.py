@@ -63,7 +63,8 @@ class PipeSpec:
         return simlib.SimConfig(
             n_stages=self.n_stages, layers_per_stage=self.layers_per_stage,
             n_microbatches=self.n_microbatches, schedule=self.schedule,
-            n_chunks=self.n_chunks if self.schedule == "interleaved" else 0)
+            n_chunks=self.n_chunks if self.schedule == "interleaved" else 0,
+            split_backward=self.split_backward)
 
     def tick_table(self):
         """The executable tick table of this spec (split when it says so)."""

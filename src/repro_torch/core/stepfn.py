@@ -336,7 +336,7 @@ def make_pipeline_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool):
 
 
 def build_pipeline_train_step(cfg: ModelConfig, spec, opt_cfg: AdamConfig, *,
-                              partitioned: bool, axis: AxisCtx, gate=None):
+                              partitioned: bool, axis: AxisCtx, gate=None, table=None):
     """Returns ``step(storage, opt, batch) -> (storage, opt, metrics)`` of the
     pipelined path (the paper's full method when ``partitioned``) for this
     rank of a stage x data x model grid: any executable schedule, run by
@@ -345,9 +345,10 @@ def build_pipeline_train_step(cfg: ModelConfig, spec, opt_cfg: AdamConfig, *,
     same on every stage.  The one-pass AdamW (K6 on the card) updates the
     partitioned layer chunks; the outer leaves, and replicated layers, take
     the tree-map update, as in the JAX package.  ``gate`` as in
-    ``build_train_step``."""
+    ``build_train_step``; ``table``, the tick table to run (a plan's),
+    ``spec.tick_table()`` when not given."""
     grad_fn = pp.make_pipeline_grad_fn(cfg, spec, full_template(cfg), partitioned=partitioned,
-                                       axis=axis)
+                                       axis=axis, table=table)
     reduce = make_pipeline_sq_reduce(cfg, axis, partitioned)
     fused = (lambda path: path[0] == "layers") if partitioned else False
 

@@ -8,8 +8,17 @@ raises.  There is no fallback from one to the other.
 backward is a kernel too (K2; K4 and K5), as the JAX package's custom VJPs
 are: a raw ctypes launch has no autograd rule, so without them a loss on the
 card would lose every gradient upstream of a norm or an attention.
+
+A ``meta`` tensor (shapes only) goes to the plain version too, which then
+computes nothing: the kernel's output shapes, as a ``pallas_call``'s
+abstract evaluation gives them.  Each kernel's work, launch or plain
+version, runs inside ``_kernel(name)``, so that the counter of
+``core/roofline.py`` can see a kernel as one opaque call.
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -19,10 +28,29 @@ from repro_torch.kernels import paged_attention as _pa
 from repro_torch.kernels import rmsnorm as _rn
 
 
+_scope = threading.local()
+
+
+@contextlib.contextmanager
+def _kernel(name: str):
+    """Marks the work of kernel ``name`` (on this thread) while it runs."""
+    outer = getattr(_scope, "name", None)
+    _scope.name = name
+    try:
+        yield
+    finally:
+        _scope.name = outer
+
+
+def current_kernel() -> str | None:
+    """The kernel whose work this thread is running, if any."""
+    return getattr(_scope, "name", None)
+
+
 def _on_cuda(t: torch.Tensor, name: str) -> bool:
     if t.is_cuda:
         return True
-    if t.device.type == "cpu":
+    if t.device.type in ("cpu", "meta"):
         return False
     raise ValueError(f"{name}: no kernel or plain version for device {t.device}")
 
@@ -36,10 +64,11 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, eps, plus_one):
         s32 = scale.float()
-        if _on_cuda(x, "rmsnorm"):
-            out = _rn.rmsnorm_cuda(x, s32, eps=eps, plus_one=plus_one)
-        else:
-            out = _rn.plain(x, s32, eps=eps, plus_one=plus_one)
+        with _kernel("rmsnorm"):
+            if _on_cuda(x, "rmsnorm"):
+                out = _rn.rmsnorm_cuda(x, s32, eps=eps, plus_one=plus_one)
+            else:
+                out = _rn.plain(x, s32, eps=eps, plus_one=plus_one)
         ctx.save_for_backward(x, s32)
         ctx.eps, ctx.plus_one, ctx.scale_dtype = eps, plus_one, scale.dtype
         return out
@@ -48,7 +77,8 @@ class _RMSNorm(torch.autograd.Function):
     def backward(ctx, g):
         x, s32 = ctx.saved_tensors
         fn = _rn.rmsnorm_bwd_cuda if x.is_cuda else _rn.plain_bwd
-        dx, ds = fn(x, s32, g.contiguous(), eps=ctx.eps, plus_one=ctx.plus_one)
+        with _kernel("rmsnorm"):
+            dx, ds = fn(x, s32, g.contiguous(), eps=ctx.eps, plus_one=ctx.plus_one)
         return dx, ds.to(ctx.scale_dtype), None, None
 
 
@@ -65,8 +95,9 @@ class _Flash(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, kv_len):
         fn = _fa.flash_attention_fwd_cuda if _on_cuda(q, "flash_attention") else _fa.plain
-        out, lse = fn(q, k, v, causal=causal, window=window, softcap=softcap,
-                      kv_len=kv_len)
+        with _kernel("flash_attention"):
+            out, lse = fn(q, k, v, causal=causal, window=window, softcap=softcap,
+                          kv_len=kv_len)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.spec = dict(causal=causal, window=window, softcap=softcap, kv_len=kv_len)
         return out
@@ -75,12 +106,13 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        if q.is_cuda:
-            dq, delta = _fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **ctx.spec)
-            dk, dv = _fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **ctx.spec)
-        else:
-            dq, delta = _fa.plain_bwd_dq(q, k, v, out, lse, do, **ctx.spec)
-            dk, dv = _fa.plain_bwd_dkv(q, k, v, do, lse, delta, **ctx.spec)
+        with _kernel("flash_attention"):
+            if q.is_cuda:
+                dq, delta = _fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **ctx.spec)
+                dk, dv = _fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **ctx.spec)
+            else:
+                dq, delta = _fa.plain_bwd_dq(q, k, v, out, lse, do, **ctx.spec)
+                dk, dv = _fa.plain_bwd_dkv(q, k, v, do, lse, delta, **ctx.spec)
         return dq, dk, dv, None, None, None, None
 
 
@@ -97,8 +129,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
     pools: [N, Hkv, bs, D]; block_tables: [R, max_blocks]; context_lens: [R].
     Rows with ``context_lens == 0`` return zeros (idle serving slots)."""
     fn = _pa.paged_attention_cuda if _on_cuda(q, "paged_attention") else _pa.plain
-    return fn(q, k_pool, v_pool, block_tables, context_lens, window=window,
-              softcap=softcap)
+    with _kernel("paged_attention"):
+        return fn(q, k_pool, v_pool, block_tables, context_lens, window=window,
+                  softcap=softcap)
 
 
 def fused_adamw(p, m, v, g, scalars, *, b1: float, b2: float, eps: float,
@@ -107,8 +140,9 @@ def fused_adamw(p, m, v, g, scalars, *, b1: float, b2: float, eps: float,
     overwritten).  ``scalars`` fp32 [4] = (lr, 1 - b1^t, 1 - b2^t, grad
     scale), on the leaf's device."""
     hyper = dict(b1=b1, b2=b2, eps=eps, wd=wd)
-    if _on_cuda(p, "fused_adamw"):
-        _aw.adamw_cuda(p, m, v, g, scalars, **hyper)
-        return
-    for dst, new in zip((p, m, v), _aw.plain(p, m, v, g, scalars, **hyper)):
-        dst.copy_(new)
+    with _kernel("adamw"):
+        if _on_cuda(p, "fused_adamw"):
+            _aw.adamw_cuda(p, m, v, g, scalars, **hyper)
+            return
+        for dst, new in zip((p, m, v), _aw.plain(p, m, v, g, scalars, **hyper)):
+            dst.copy_(new)

@@ -8,6 +8,12 @@ layer), as the JAX server loads.  ``--trace`` writes a Chrome trace of the
 engine's prefill and decode spans.  The run goes on the card unless
 ``--device cpu`` is given (the plain PyTorch versions of the kernels).
 
+``--plan`` runs no engine: it ranks serving configurations (tensor-parallel
+width x live batch x cache layout, at ``--plan-mean-ctx`` live tokens a
+request and a dense cache of ``--plan-max-seq``) by simulated decode tok/s
+with the planner's serving search, on the paper's A100 of its table A.1 as
+the JAX package's does, prints the top 12 and returns them.
+
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b \\
       --requests 16 --prompt-lens 64,128,256,512 --max-new 32,64 \\
@@ -15,6 +21,7 @@ Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch yi-6b --smoke --device cpu \\
       --checkpoint-dir /tmp/params --trace serve_trace.json
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b --plan
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.obs.trace import Tracer
+from repro_torch.planner.search import search_serving
 from repro_torch.resilience.reshard import MeshLayout, storage_template
 from repro_torch.serving.cache import PagedCacheConfig
 from repro_torch.serving.engine import ServingEngine
@@ -73,12 +81,25 @@ def main(argv=None, *, params: dict | None = None) -> dict:
                     help="a flat full-layout parameter checkpoint (the JAX tree's leaves)")
     ap.add_argument("--trace", default=None,
                     help="write a Chrome-trace JSON of the engine's prefill/decode spans here")
+    ap.add_argument("--plan", action="store_true",
+                    help="rank serving configurations with the planner's serving search "
+                         "and exit (no engine run)")
+    ap.add_argument("--plan-mean-ctx", type=int, default=2048)
+    ap.add_argument("--plan-max-seq", type=int, default=4096)
     args = ap.parse_args(argv)
 
-    device = resolve_device(args.device)
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
+    if args.plan:
+        plans = search_serving(cfg, mean_ctx=args.plan_mean_ctx, max_seq=args.plan_max_seq)
+        rows = [p.row() for p in plans[:12]]
+        for r in rows:
+            r.pop("sim")
+            print(json.dumps(r))
+        return {"plans": rows}
+
+    device = resolve_device(args.device)
     if params is None and args.checkpoint_dir:
         full, step = store.load_state(args.checkpoint_dir, storage_template(cfg, _FLAT_FULL))
         params = params_from_numpy(cfg, full, device)

@@ -32,8 +32,14 @@ where ``--steps`` is the total target.  ``--metrics`` streams JSONL records,
 ``--trace`` writes a Chrome trace, and with ``--stages > 1`` both ``--trace``
 and ``--drift-report`` add a profiled grad-only pass on batch 0 after
 training: the measured tick timeline, and its drift against the table's.
-The ranks share one filesystem: rank 0 writes, every rank reads.  Only
-``--plan`` is not ported yet.
+The ranks share one filesystem: rank 0 writes, every rank reads.
+
+``--plan PLAN.json`` (from either package's ``launch.plan``) fills every
+flag the command line leaves out from the plan's execution section (arch,
+smoke, layers, mesh, method, partition, micro-batches, batch, length, steps,
+stages, schedule, split); flags given win.  A pipelined plan's embedded
+tick table is the one the executor runs: it must name the resolved
+schedule, stage count and micro-batch count, and be executable.
 
 Examples:
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --smoke \\
@@ -45,6 +51,9 @@ Examples:
       --mesh 2x2 --steps 3
   PYTHONPATH=src python -m repro_torch.launch.train --arch yi-6b --layers 8 \\
       --global-batch 8 --seq-len 2048 --microbatches 4 --steps 5
+  PYTHONPATH=src python -m repro_torch.launch.plan --arch yi-6b --layers 8 \\
+      --global-batch 8 --seq-len 2048 --microbatches 1,2,4,8 --out plan.json
+  PYTHONPATH=src python -m repro_torch.launch.train --plan plan.json
 """
 from __future__ import annotations
 
@@ -52,6 +61,7 @@ import argparse
 import dataclasses
 import json
 import os
+import sys
 import time
 
 import torch
@@ -69,21 +79,67 @@ from repro_torch.obs import drift as obs_drift
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adam import AdamConfig, adam_init
-from repro_torch.planner.simulator import EXECUTABLE_SCHEDULES
+from repro_torch.planner import plan as planlib
+from repro_torch.planner import simulator as simlib
 from repro_torch.resilience import faults as flt
 from repro_torch.resilience import reshard
 from repro_torch.resilience.supervisor import Supervisor, SupervisorConfig
 
-# the JAX trainer's flags for what the port has not yet: each is refused
-NOT_PORTED = ("--plan",)
+
+def apply_plan(args, argv) -> None:
+    """Fill ``args`` from a plan's execution section (``launch.plan``'s
+    output, either package's): plan values replace the defaults, and flags
+    given in ``argv`` keep their value."""
+    ex = planlib.execution_of(planlib.load_plan(args.plan))
+    passed = {a.split("=")[0] for a in argv if a.startswith("--")}
+
+    def take(flag: str, attr: str, key: str):
+        if key in ex and flag not in passed:
+            setattr(args, attr, ex[key])
+
+    take("--arch", "arch", "arch")
+    take("--smoke", "smoke", "smoke")
+    take("--layers", "layers", "layers")
+    take("--mesh", "mesh", "mesh")
+    take("--method", "method", "method")
+    take("--microbatches", "microbatches", "microbatches")
+    take("--global-batch", "global_batch", "global_batch")
+    take("--seq-len", "seq_len", "seq_len")
+    take("--steps", "steps", "steps")
+    take("--stages", "stages", "stages")
+    take("--schedule", "schedule", "schedule")
+    take("--split-backward", "split_backward", "split_backward")
+    if "partitioned" in ex and "--no-partition" not in passed:
+        args.no_partition = not ex["partitioned"]
+    # a pipelined plan embeds the tick table it scored: the executor runs it
+    args.plan_tick_table = ex.get("tick_table")
+    args.plan_execution = ex
+
+
+def execution(args, table) -> dict:
+    """The resolved run as a plan's execution section (``table``: the tick
+    table a pipelined run executes)."""
+    ex = {"arch": args.arch, "smoke": args.smoke, "mesh": args.mesh, "method": args.method,
+          "partitioned": not args.no_partition, "microbatches": args.microbatches,
+          "global_batch": args.global_batch, "seq_len": args.seq_len, "steps": args.steps}
+    if args.layers:
+        ex["layers"] = args.layers
+    if table is not None:
+        ex.update(stages=args.stages, schedule=args.schedule,
+                  split_backward=table.is_split, tick_table=table.to_json())
+    return ex
 
 
 def main(argv=None, *, keep_state: bool = False) -> dict:
     """The training run.  Returns the result line's keys, the per-step
     records and the device; with ``keep_state`` (callers in Python) also
     ``state``, this rank's final storage and optimizer state."""
+    # allow_abbrev=False: apply_plan finds the flags given by their full spelling
     ap = argparse.ArgumentParser(allow_abbrev=False)
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--plan", default=None,
+                    help="JSON plan from launch.plan (either package's); its execution "
+                         "section fills the flags not given")
     ap.add_argument("--smoke", action="store_true", help="use the reduced config")
     ap.add_argument("--layers", type=int, default=0,
                     help="cut the depth to this many layers at full width (0: the "
@@ -135,14 +191,12 @@ def main(argv=None, *, keep_state: bool = False) -> dict:
                     help="with --stages > 1: profile one grad-only pass tick by tick and "
                          "write the measured-vs-planned tick drift report (obs/drift.py) "
                          "to this JSON file")
-    for flag in NOT_PORTED:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help="not ported yet")
     args = ap.parse_args(argv)
-    refused = [f for f in NOT_PORTED if getattr(args, f[2:].replace("-", "_")) is not None]
-    if refused:
-        ap.error(f"not ported yet: {', '.join(refused)} (plan-driven launch is a later "
-                 f"slice of the port)")
+    args.plan_tick_table = args.plan_execution = None
+    if args.plan:
+        apply_plan(args, argv if argv is not None else sys.argv[1:])
+    if not args.arch:
+        ap.error("--arch required (directly or through --plan)")
     if (args.faults or args.resume == "auto") and not args.checkpoint_dir:
         ap.error("--faults / --resume auto require --checkpoint-dir")
     try:
@@ -152,12 +206,12 @@ def main(argv=None, *, keep_state: bool = False) -> dict:
     cfg = configs.get_config(args.arch, smoke=args.smoke)
     if args.layers:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
-    spec = None
+    spec = table = None
     if args.stages > 1:
         if args.schedule not in KNOWN_SCHEDULES:
             ap.error(f"--schedule {args.schedule!r} is not executable; the tick-table "
-                     f"executor runs: {', '.join(EXECUTABLE_SCHEDULES)} (aliases: naive = "
-                     f"gpipe)")
+                     f"executor runs: {', '.join(simlib.EXECUTABLE_SCHEDULES)} (aliases: "
+                     f"naive = gpipe)")
         if cfg.num_layers % args.stages:
             ap.error(f"--stages {args.stages} does not divide num_layers={cfg.num_layers}")
         try:
@@ -167,6 +221,25 @@ def main(argv=None, *, keep_state: bool = False) -> dict:
                             split_backward=args.split_backward)
         except AssertionError as e:
             ap.error(f"infeasible pipeline shape for schedule {args.schedule!r}: {e}")
+        if args.plan_tick_table is not None:
+            table = simlib.TickTable.from_json(args.plan_tick_table)
+            if (table.schedule, table.n_stages, table.n_microbatches) != \
+                    (spec.schedule, spec.n_stages, spec.n_microbatches):
+                ap.error(
+                    f"plan tick table ({table.schedule}, S={table.n_stages}, "
+                    f"M={table.n_microbatches}) does not match the resolved "
+                    f"execution (schedule={spec.schedule}, S={spec.n_stages}, "
+                    f"M={spec.n_microbatches})")
+            if table.is_split != spec.split_backward:
+                # a plan whose split flag disagrees with its table: the table
+                # is the contract, follow it
+                spec = dataclasses.replace(spec, split_backward=table.is_split)
+            try:
+                table.validate_executable()
+            except (NotImplementedError, ValueError) as e:
+                ap.error(f"plan tick table is not executable: {e}")
+        else:
+            table = spec.tick_table()
     n = args.stages * ndata * tp
     what = (f"{args.stages} stages of --mesh {args.mesh} need" if args.stages > 1
             else f"--mesh {args.mesh} needs")
@@ -188,7 +261,7 @@ def main(argv=None, *, keep_state: bool = False) -> dict:
     try:
         if args.faults or args.resume == "auto":
             return _run_supervised(args, cfg, device, axis, keep_state)
-        return _train(args, cfg, spec, device, axis, keep_state)
+        return _train(args, cfg, spec, table, device, axis, keep_state)
     finally:
         if axis is not dist.LOCAL:
             torch.distributed.destroy_process_group()
@@ -232,7 +305,8 @@ def _run_supervised(args, cfg, device: torch.device, axis: dist.AxisCtx,
     tracer = obs_trace.Tracer() if args.trace and rank0 else None
     sv = Supervisor(cfg, _opt_cfg(args), _data_cfg(args, cfg), _layout(args, axis),
                     ckpt_root=args.checkpoint_dir, method=args.method, sup=sup,
-                    fault_plan=fault_plan, sink=sink, tracer=tracer, axis=axis, device=device)
+                    fault_plan=fault_plan, sink=sink, tracer=tracer, axis=axis, device=device,
+                    plan_execution=args.plan_execution)
     result: dict = {}
     try:
         result = sv.run(args.steps)
@@ -265,7 +339,7 @@ def _resume_latest(args, cfg, layout, axis, storage: dict, opt: dict) -> int:
     return manifest["step"]
 
 
-def _train(args, cfg, spec: PipeSpec | None, device: torch.device,
+def _train(args, cfg, spec: PipeSpec | None, table, device: torch.device,
            axis: dist.AxisCtx, keep_state: bool = False) -> dict:
     rank0 = _is_rank0(axis)
     partitioned = not args.no_partition
@@ -283,7 +357,8 @@ def _train(args, cfg, spec: PipeSpec | None, device: torch.device,
         if spec is not None:
             with obs_trace.span(tracer, "build_step"):
                 step = stepfn.build_pipeline_train_step(cfg, spec, opt_cfg,
-                                                        partitioned=partitioned, axis=axis)
+                                                        partitioned=partitioned, axis=axis,
+                                                        table=table)
             with obs_trace.span(tracer, "init_storage"):
                 storage = stepfn.init_pipeline_storage(cfg, args.seed, spec,
                                                        partitioned=partitioned, device=device,
@@ -351,8 +426,7 @@ def _train(args, cfg, spec: PipeSpec | None, device: torch.device,
         if spec is not None and (args.trace or args.drift_report):
             with obs_trace.span(tracer, "tick profiling"):
                 events = profile_ticks(cfg, spec, partitioned, axis, storage, data, device,
-                                        tracer)
-            table = spec.tick_table()
+                                        tracer, table)
             predicted = table.timeline()
             if tracer is not None and events:
                 # the table's unit ticks at the measured mean tick length, so the
@@ -376,7 +450,8 @@ def _train(args, cfg, spec: PipeSpec | None, device: torch.device,
                        "steps": len(history), "seconds": round(time.time() - t_start, 1)})
         if rank0:
             print(json.dumps(result), flush=True)
-        out = dict(result, records=records, device=str(device))
+        out = dict(result, records=records, device=str(device),
+                   execution=execution(args, table))
         return dict(out, state={"storage": storage, "opt": opt}) if keep_state else out
     finally:
         if tracer is not None:
@@ -385,12 +460,14 @@ def _train(args, cfg, spec: PipeSpec | None, device: torch.device,
 
 
 def profile_ticks(cfg, spec: PipeSpec, partitioned: bool, axis: dist.AxisCtx, storage: dict,
-                   data: DataConfig, device: torch.device, tracer) -> list:
+                  data: DataConfig, device: torch.device, tracer, table=None) -> list:
     """One warm-up and one timed grad-only pass on batch 0 through the
-    executor with a tick recorder; the gradients are discarded."""
+    executor (``table``, else the spec's) with a tick recorder; the
+    gradients are discarded."""
     rec = obs_trace.TickRecorder(axis.stage_index, device)
     grad_fn = pp.make_pipeline_grad_fn(cfg, spec, stepfn.full_template(cfg),
-                                       partitioned=partitioned, axis=axis, recorder=rec)
+                                       partitioned=partitioned, axis=axis, recorder=rec,
+                                       table=table)
     batch = {k: v.to(device) for k, v in batch_for(cfg, data, 0, axis).items()}
     return obs_trace.measure_tick_timeline(grad_fn, rec, storage, batch, axis=axis,
                                            warmup=1, tracer=tracer, pid=1)

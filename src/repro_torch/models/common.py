@@ -127,6 +127,32 @@ class ModelConfig:
         return (self.num_layers * self.params_per_layer()
                 + self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2))
 
+    # -- tensor-parallel head padding (the JAX ModelConfig's, copied) -------
+    def padded_for_tp(self, tp: int) -> "ModelConfig":
+        """Head counts (and d_ff) padded so they divide the tensor-parallel
+        width; the planner costs a model-sharded candidate on this config."""
+        nh = self.num_heads
+        if nh % tp != 0:
+            nh = ((nh + tp - 1) // tp) * tp
+        dff = ((self.d_ff + tp - 1) // tp) * tp
+        changes = {}
+        if nh != self.num_heads:
+            changes["num_heads"] = nh
+        if dff != self.d_ff:
+            changes["d_ff"] = dff
+        if self.block_kind == "mamba":
+            heads = self.d_ff // self.ssm_head_dim
+            if heads % tp != 0:
+                heads = ((heads + tp - 1) // tp) * tp
+                changes["d_ff"] = heads * self.ssm_head_dim
+        if self.block_kind == "rwkv":
+            heads = self.rwkv_heads
+            if heads % tp != 0:
+                changes["rwkv_heads"] = ((heads + tp - 1) // tp) * tp
+        if not changes:
+            return self
+        return dataclasses.replace(self, **changes)
+
 
 # ---------------------------------------------------------------------------
 # Normalisation

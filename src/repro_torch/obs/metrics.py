@@ -19,6 +19,8 @@ from typing import Any
 
 import torch
 
+from repro_torch.core import roofline
+
 _KINDS = ("counter", "gauge", "histogram")
 
 
@@ -132,20 +134,13 @@ def percentiles(values, qs=(50, 95, 99)) -> dict:
     return out
 
 
-# dense bf16 tensor-core peak of one NVIDIA H100 SXM (NVIDIA's data sheet, at
-# its 700 W power limit); the JAX package's roofline peak is a TPU's
-PEAK_FLOPS_H100_BF16 = 989e12
-
-
 def mfu_estimate(cfg, *, global_batch: int, seq_len: int, step_time_s: float,
                  n_devices: int = 1) -> float:
     """Model-flops utilization of one optimizer step: 6ND training flops
     (fwd 2ND + bwd 4ND; recomputation not counted) over ``step_time *
-    n_devices * peak``."""
-    if step_time_s <= 0:
-        return 0.0
-    flops = 6.0 * cfg.param_count() * global_batch * seq_len
-    return flops / (step_time_s * n_devices * PEAK_FLOPS_H100_BF16)
+    n_devices * peak``, the H100's dense bf16 peak (``core/roofline.py``)."""
+    return roofline.mfu(roofline.model_flops_train(cfg, global_batch, seq_len),
+                        step_time_s, n_devices=n_devices)
 
 
 # ---------------------------------------------------------------------------

@@ -27,7 +27,10 @@ x model grid of processes:
 Failure-shrink (a lost data replica) is not ported: here each replica is a
 process that owns 1/D of the ZeRO chunks, so losing one loses its chunks,
 and whether to restore from the last checkpoint or drain the leaving rank
-first is a design question of its own.  A ``lose_replica`` fault is refused.
+first is a design question of its own.  A ``lose_replica`` fault is refused,
+after the plan's execution (``plan_execution``, from ``launch.train
+--plan``) is checked against the shrunk grid as the JAX supervisor checks
+it before it reshards.
 
 Events (on rank 0's ``MetricsSink``) carry the JAX package's names:
 ``resume``, ``restart``, ``anomaly``, ``injected_corruption`` and
@@ -55,6 +58,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adam import AdamConfig, adam_init
+from repro_torch.planner import plan as planlib
 from repro_torch.resilience import faults as flt
 from repro_torch.resilience import reshard
 from repro_torch.resilience.reshard import MeshLayout
@@ -104,7 +108,7 @@ class Supervisor:
                  sup: SupervisorConfig = SupervisorConfig(),
                  fault_plan: flt.FaultPlan | None = None,
                  sink: obs_metrics.MetricsSink | None = None, tracer=None,
-                 axis: AxisCtx = LOCAL, device="cpu"):
+                 axis: AxisCtx = LOCAL, device="cpu", plan_execution: dict | None = None):
         if (layout.stages, layout.data, layout.model) != (axis.nstage, axis.ndata, axis.tp):
             raise SupervisorError(f"layout {layout} is not this rank's grid "
                                   f"({axis.nstage}x{axis.ndata}x{axis.tp})")
@@ -113,6 +117,7 @@ class Supervisor:
         self.ckpt_root = ckpt_root
         self.sup = sup
         self.faults = fault_plan
+        self.plan_execution = plan_execution
         self.sink = sink or obs_metrics.MetricsSink(None)
         self.tracer = tracer
         self.axis = axis
@@ -135,6 +140,16 @@ class Supervisor:
         self._before = None
 
     # -- build / state ----------------------------------------------------
+    def _check_plan_shrinks(self, at_step: int) -> None:
+        """A lost data replica: the plan's execution must still run on the
+        grid without it (``planner.plan.shrink_execution``)."""
+        if self.plan_execution is not None and self.layout.data > 1:
+            try:
+                planlib.shrink_execution(self.plan_execution, data=self.layout.data - 1)
+            except ValueError as e:
+                raise SupervisorError(f"failure-shrink to data={self.layout.data - 1} "
+                                      f"rejected by the plan: {e}") from e
+
     def _build(self) -> None:
         lay = self.layout
         if lay.stages > 1:
@@ -272,6 +287,7 @@ class Supervisor:
                         self.faults.fire(f)
                         raise flt.InjectedCrash(i)
                     if f.kind == "lose_replica":
+                        self._check_plan_shrinks(i)
                         raise NotImplementedError(
                             f"fault 'lose_replica' at step {i}: failure-shrink is not ported "
                             f"(each data replica is a process that owns its ZeRO chunks; "

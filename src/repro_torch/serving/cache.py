@@ -50,10 +50,20 @@ def init_paged_cache(cfg: ModelConfig, pcfg: PagedCacheConfig, device) -> dict:
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}
 
 
-def kv_bytes_per_token(cfg: ModelConfig) -> int:
-    """K+V bytes cached per token."""
+def local_kv_heads(cfg: ModelConfig, tp: int) -> int:
+    """KV heads cached per model shard at tensor-parallel width ``tp`` (1
+    when the KV heads are replicated and each shard caches its own GQA
+    group)."""
+    if tp > 1 and cfg.num_kv_heads % tp == 0:
+        return cfg.num_kv_heads // tp
+    return cfg.num_kv_heads if tp == 1 else 1
+
+
+def kv_bytes_per_token(cfg: ModelConfig, tp: int = 1) -> int:
+    """K+V bytes cached per token on one model shard (the planner's serving
+    costs read it at every ``tp``)."""
     itemsize = torch.empty((), dtype=cfg.torch_dtype).element_size()
-    return 2 * cfg.num_attn_slots() * cfg.num_kv_heads * cfg.head_dim * itemsize
+    return 2 * cfg.num_attn_slots() * local_kv_heads(cfg, tp) * cfg.head_dim * itemsize
 
 
 class BlockAllocator:

@@ -128,3 +128,21 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
                              capture_output=True, text=True, timeout=300)
         assert out.returncode != 0
         assert '"ok": true' not in out.stdout
+
+
+@pytest.mark.parametrize("module", ["core.calculator", "core.roofline", "planner.search",
+                                    "planner.plan", "planner.validate", "launch.plan"])
+def test_import_checks_cover_the_planner_modules(module):
+    """The planner's modules (copies of the JAX package's jax-free
+    calculator, search and plan, the counter and the plan CLI) are in both
+    checks: the AST scan reads their files, and the fresh interpreter walks
+    them and finds no JAX."""
+    path = PORT.joinpath(*module.split(".")).with_suffix(".py")
+    assert path in _port_files()
+    code = ("import pkgutil, repro_torch\n"
+            "print(' '.join(m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
+            "'repro_torch.')))\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert f"repro_torch.{module}" in out.stdout.split(), out.stderr

@@ -2,6 +2,8 @@
 kernels (interpret mode on the CPU), and the device dispatch.  The CUDA
 kernels themselves are held against the plain versions on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
+import types
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,9 +224,15 @@ def test_cpu_dispatch_runs_plain_versions():
 
 
 def test_dispatch_rejects_other_devices():
+    """A ``meta`` tensor (shapes only, the planner's counter) goes to the
+    plain version, which computes nothing; a device with neither a kernel
+    nor a plain version is refused."""
     x = torch.empty(2, 8, device="meta")
+    out = ops.rmsnorm(x, torch.empty(8, device="meta"))
+    assert out.device.type == "meta" and out.shape == x.shape
+    other = types.SimpleNamespace(is_cuda=False, device=torch.device("xpu"))
     with pytest.raises(ValueError, match="device"):
-        ops.rmsnorm(x, torch.empty(8, device="meta"))
+        ops.paged_attention(other, None, None, None, None)
 
 
 def test_cuda_wrappers_refuse_cpu_tensors():

@@ -2,6 +2,7 @@
 accumulation schedules over both storage layouts, a 4-step trajectory, the
 data stream and the training entry point."""
 import dataclasses
+import math
 
 import jax
 import jax.numpy as jnp
@@ -279,9 +280,14 @@ def test_train_cli_smoke_on_cpu(capsys):
                                    ["--plan", "p.json", "--metrics", "m.jsonl"],
                                    ["--plan", "p.json", "--checkpoint-dir", "ck"],
                                    ["--plan", "p.json"]])
-def test_train_cli_refuses_what_is_not_ported(flags, capsys):
-    """``--plan`` alone is not ported: it is refused by name, with or
-    without the run-time flags the port now takes."""
-    with pytest.raises(SystemExit):
-        train.main(["--arch", "yi-6b", "--smoke", "--device", "cpu", *flags])
-    assert "not ported yet: --plan " in capsys.readouterr().err
+def test_train_cli_refuses_what_is_not_ported(flags, tmp_path, monkeypatch, capsys):
+    """Every JAX trainer flag is ported now: ``--plan`` (a plan from
+    ``launch.plan``) runs, with or without the run-time flags, and nothing
+    is refused as not ported."""
+    from repro_torch.launch import plan as plan_cli
+    monkeypatch.chdir(tmp_path)
+    plan_cli.main(["--arch", "yi-6b", "--smoke", "--devices", "1", "--global-batch", "4",
+                   "--seq-len", "32", "--steps", "1", "--out", "p.json"])
+    res = train.main(["--device", "cpu", *flags])
+    assert res["steps"] == 1 and math.isfinite(res["last_loss"])
+    assert "not ported" not in capsys.readouterr().err
