@@ -75,7 +75,9 @@ nonzero and prints no result:
      method and micro-batch count's and K6 none (a one-card plan is
      unpartitioned: the tree-map AdamW); the plan's predicted step time is
      printed beside the measured one.  The same run given by flags must
-     equal it bit for bit; then one profiled step of the plan's
+     equal it bit for bit; K1-K5 at the planned micro-batch's shapes
+     against their plain versions (phase 2's training-shape tolerances);
+     then one profiled step of the plan's
      configuration, which reports and never fails the run.  On the host, the paper's X_160 document (the
      paper's A100): Table 6.1's winner, 38640 GPUs, ~1.9x its 3d baseline;
  10. the ``kernels`` line (launches over phases 4-9), and as the last line
@@ -1723,6 +1725,50 @@ PAPER_ARGV = ["--arch", "paper-x", "--size", "160", "--grid", "reduced", "--simu
               "--max-sims", "24"]
 
 
+def plan_shape_checks(torch, mb: int, S: int) -> list:
+    """K1-K5 at the planned run's shapes (a micro-batch of mb x S tokens of
+    Yi-6B, bf16) against their plain versions, with phase 2's training-shape
+    tolerances: K1/K2 on [mb * S, d_model] rows, K3 (and its row check), K4
+    and K5 on q [mb, S, 32, 128], k/v [mb, S, 4, 128], causal.  Returns the
+    failures."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+
+    cfg = configs.get_config("yi-6b")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def randn(*shape, dtype=torch.bfloat16):
+        return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+    failures = []
+    D = cfg.d_model
+    x, dy, s = randn(mb * S, D), randn(mb * S, D), randn(D, dtype=torch.float32)
+    name = f"at the plan's rows={mb * S} D={D} bfloat16"
+    check_case(torch, "K1 " + name, rn.rmsnorm_cuda(x, s), rn.plain(x, s), failures)
+    check_case(torch, "K2 " + name, rn.rmsnorm_bwd_cuda(x, s, dy), rn.plain_bwd(x, s, dy),
+               failures, parts=(" [dx]", " [dscale]"), rel=True)
+    del x, dy
+    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, do = randn(mb, S, Hq, hd), randn(mb, S, Hq, hd)
+    k, v = randn(mb, S, Hkv, hd), randn(mb, S, Hkv, hd)
+    name = f"at the plan's q={[mb, S, Hq, hd]} kv_heads={Hkv} bfloat16 causal"
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    check_case(torch, "K3 " + name, (out, lse), fa.plain(q, k, v), failures,
+               bf16_rel=BF16_FWD_TOL)
+    check_rows(torch, "K3 " + name, out, fa.plain(q, k, v, round_p=True)[0], failures)
+    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    dq_p, delta_p = fa.plain_bwd_dq(q, k, v, out, lse, do)
+    check_case(torch, "K4 " + name, (dq, delta), (dq_p, delta_p), failures,
+               parts=(" [dq]", " [delta]"), rel=True, bf16_rel=BF16_BWD_TOL)
+    del dq, dq_p
+    check_case(torch, "K5 " + name, fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta),
+               fa.plain_bwd_dkv(q, k, v, do, lse, delta_p), failures,
+               parts=(" [dk]", " [dv]"), rel=True, bf16_rel=BF16_BWD_TOL)
+    torch.cuda.empty_cache()
+    return failures
+
+
 def phase_plan(torch, smi):
     """(a) ``launch.plan`` ranks the one-card executions of 8-layer Yi-6B at
     the H100's constants (``--devices`` left at 0: this machine's cards);
@@ -1730,7 +1776,8 @@ def phase_plan(torch, smi):
     the plan's, every step finite, K1-K5 launches exactly the planned method
     and M's, no K6 (a one-card plan is unpartitioned), the plan's score
     beside the measured step; (c) the same run given by flags, bit for bit
-    (b)'s, then a profile of one step of it; (d) on the host, the paper's X_160 document: Table 6.1's winner
+    (b)'s, K1-K5 at the planned micro-batch's shapes against their plain
+    versions, then a profile of one step of it; (d) on the host, the paper's X_160 document: Table 6.1's winner
     and the ~1.9x speedup."""
     from repro_torch.launch import plan as plan_cli
     from repro_torch.launch import train
@@ -1786,6 +1833,9 @@ def phase_plan(torch, smi):
     if hist != [(r["loss"], r["grad_norm"]) for r in given["records"]]:
         problems.append(f"the flag-given run differs from the plan's: {hist} against "
                         f"{[(r['loss'], r['grad_norm']) for r in given['records']]}")
+    # the counts are read: these launches compare, they are not the path's
+    problems += plan_shape_checks(torch, ex["global_batch"] // ex["microbatches"],
+                                  ex["seq_len"])
 
     try:
         from repro_torch.core.accumulation import AccumConfig

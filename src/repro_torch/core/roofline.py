@@ -9,11 +9,12 @@ kernels off the model runs a plain attention, whose dots are counted in
 full, S×S.  The port has no jaxpr: ``DotCounter`` is a dispatch mode that
 counts the matrix products torch runs while it is active, on real tensors
 or on ``meta`` tensors (shapes only, nothing allocated: a full-width layer
-costs nothing to count).  ``kernels/ops.py`` marks each hand-written
-kernel's work, on the card its launch and on the CPU or ``meta`` its plain
-version, and the counter sees such a kernel as one opaque call, as the
-walk sees a ``pallas_call``; ``see=("flash_attention",)`` makes it count
-the attention's plain dots, as the walk does with the kernels off.
+costs nothing to count).  ``kernels/ops.py`` marks the flash attention's
+work (the one kernel on a counted path whose plain version holds matrix
+products), on the card its launch and on the CPU or ``meta`` its plain
+version, and the counter sees it as one opaque call, as the walk sees a
+``pallas_call``; ``see=("flash_attention",)`` makes it count the
+attention's plain dots, as the walk does with the kernels off.
 
 Constants: the NVIDIA H100 SXM 80GB's data-sheet figures at its 700 W power
 limit (the JAX package's are a TPU's: 197e12, 819e9 and 50e9).
@@ -64,7 +65,8 @@ _BIASED = {_aten.addmm, _aten.baddbmm, _aten.addmv}     # (bias, a, b)
 class DotCounter(TorchDispatchMode):
     """Counts the dot flops (2 x output elements x contraction length of
     every matrix product) torch runs while active.  The work of a kernel
-    ``kernels/ops.py`` marks is not counted, unless ``see`` names it."""
+    ``kernels/ops.py`` marks (the flash attention) is not counted, unless
+    ``see`` names it."""
 
     def __init__(self, see=()):
         super().__init__()

@@ -11,9 +11,10 @@ card would lose every gradient upstream of a norm or an attention.
 
 A ``meta`` tensor (shapes only) goes to the plain version too, which then
 computes nothing: the kernel's output shapes, as a ``pallas_call``'s
-abstract evaluation gives them.  Each kernel's work, launch or plain
-version, runs inside ``_kernel(name)``, so that the counter of
-``core/roofline.py`` can see a kernel as one opaque call.
+abstract evaluation gives them.  The flash attention's work, launch or
+plain version, runs inside ``_kernel("flash_attention")``, so that the
+counter of ``core/roofline.py`` can see it as one opaque call; it is the
+one kernel on a counted path whose plain version holds matrix products.
 """
 from __future__ import annotations
 
@@ -64,11 +65,10 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, eps, plus_one):
         s32 = scale.float()
-        with _kernel("rmsnorm"):
-            if _on_cuda(x, "rmsnorm"):
-                out = _rn.rmsnorm_cuda(x, s32, eps=eps, plus_one=plus_one)
-            else:
-                out = _rn.plain(x, s32, eps=eps, plus_one=plus_one)
+        if _on_cuda(x, "rmsnorm"):
+            out = _rn.rmsnorm_cuda(x, s32, eps=eps, plus_one=plus_one)
+        else:
+            out = _rn.plain(x, s32, eps=eps, plus_one=plus_one)
         ctx.save_for_backward(x, s32)
         ctx.eps, ctx.plus_one, ctx.scale_dtype = eps, plus_one, scale.dtype
         return out
@@ -77,8 +77,7 @@ class _RMSNorm(torch.autograd.Function):
     def backward(ctx, g):
         x, s32 = ctx.saved_tensors
         fn = _rn.rmsnorm_bwd_cuda if x.is_cuda else _rn.plain_bwd
-        with _kernel("rmsnorm"):
-            dx, ds = fn(x, s32, g.contiguous(), eps=ctx.eps, plus_one=ctx.plus_one)
+        dx, ds = fn(x, s32, g.contiguous(), eps=ctx.eps, plus_one=ctx.plus_one)
         return dx, ds.to(ctx.scale_dtype), None, None
 
 
@@ -129,9 +128,8 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
     pools: [N, Hkv, bs, D]; block_tables: [R, max_blocks]; context_lens: [R].
     Rows with ``context_lens == 0`` return zeros (idle serving slots)."""
     fn = _pa.paged_attention_cuda if _on_cuda(q, "paged_attention") else _pa.plain
-    with _kernel("paged_attention"):
-        return fn(q, k_pool, v_pool, block_tables, context_lens, window=window,
-                  softcap=softcap)
+    return fn(q, k_pool, v_pool, block_tables, context_lens, window=window,
+              softcap=softcap)
 
 
 def fused_adamw(p, m, v, g, scalars, *, b1: float, b2: float, eps: float,
@@ -140,9 +138,8 @@ def fused_adamw(p, m, v, g, scalars, *, b1: float, b2: float, eps: float,
     overwritten).  ``scalars`` fp32 [4] = (lr, 1 - b1^t, 1 - b2^t, grad
     scale), on the leaf's device."""
     hyper = dict(b1=b1, b2=b2, eps=eps, wd=wd)
-    with _kernel("adamw"):
-        if _on_cuda(p, "fused_adamw"):
-            _aw.adamw_cuda(p, m, v, g, scalars, **hyper)
-            return
-        for dst, new in zip((p, m, v), _aw.plain(p, m, v, g, scalars, **hyper)):
-            dst.copy_(new)
+    if _on_cuda(p, "fused_adamw"):
+        _aw.adamw_cuda(p, m, v, g, scalars, **hyper)
+        return
+    for dst, new in zip((p, m, v), _aw.plain(p, m, v, g, scalars, **hyper)):
+        dst.copy_(new)

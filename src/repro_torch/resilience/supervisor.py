@@ -27,10 +27,9 @@ x model grid of processes:
 Failure-shrink (a lost data replica) is not ported: here each replica is a
 process that owns 1/D of the ZeRO chunks, so losing one loses its chunks,
 and whether to restore from the last checkpoint or drain the leaving rank
-first is a design question of its own.  A ``lose_replica`` fault is refused,
-after the plan's execution (``plan_execution``, from ``launch.train
---plan``) is checked against the shrunk grid as the JAX supervisor checks
-it before it reshards.
+first is a design question of its own.  A ``lose_replica`` fault is refused.
+``plan_execution`` (from ``launch.train --plan``) is kept, as the JAX
+supervisor keeps it, for that shrink to revalidate.
 
 Events (on rank 0's ``MetricsSink``) carry the JAX package's names:
 ``resume``, ``restart``, ``anomaly``, ``injected_corruption`` and
@@ -58,7 +57,6 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adam import AdamConfig, adam_init
-from repro_torch.planner import plan as planlib
 from repro_torch.resilience import faults as flt
 from repro_torch.resilience import reshard
 from repro_torch.resilience.reshard import MeshLayout
@@ -140,16 +138,6 @@ class Supervisor:
         self._before = None
 
     # -- build / state ----------------------------------------------------
-    def _check_plan_shrinks(self, at_step: int) -> None:
-        """A lost data replica: the plan's execution must still run on the
-        grid without it (``planner.plan.shrink_execution``)."""
-        if self.plan_execution is not None and self.layout.data > 1:
-            try:
-                planlib.shrink_execution(self.plan_execution, data=self.layout.data - 1)
-            except ValueError as e:
-                raise SupervisorError(f"failure-shrink to data={self.layout.data - 1} "
-                                      f"rejected by the plan: {e}") from e
-
     def _build(self) -> None:
         lay = self.layout
         if lay.stages > 1:
@@ -287,7 +275,6 @@ class Supervisor:
                         self.faults.fire(f)
                         raise flt.InjectedCrash(i)
                     if f.kind == "lose_replica":
-                        self._check_plan_shrinks(i)
                         raise NotImplementedError(
                             f"fault 'lose_replica' at step {i}: failure-shrink is not ported "
                             f"(each data replica is a process that owns its ZeRO chunks; "

@@ -2,6 +2,7 @@
 accumulation schedules over both storage layouts, a 4-step trajectory, the
 data stream and the training entry point."""
 import dataclasses
+import json
 import math
 
 import jax
@@ -276,18 +277,38 @@ def test_train_cli_smoke_on_cpu(capsys):
     assert '"first_loss"' in lines[-1]
 
 
-@pytest.mark.parametrize("flags", [["--plan", "p.json", "--trace", "t.json"],
-                                   ["--plan", "p.json", "--metrics", "m.jsonl"],
-                                   ["--plan", "p.json", "--checkpoint-dir", "ck"],
-                                   ["--plan", "p.json"]])
-def test_train_cli_refuses_what_is_not_ported(flags, tmp_path, monkeypatch, capsys):
-    """Every JAX trainer flag is ported now: ``--plan`` (a plan from
-    ``launch.plan``) runs, with or without the run-time flags, and nothing
-    is refused as not ported."""
+PLAN_RUNS = [["--plan", "p.json", "--trace", "t.json"],
+             ["--plan", "p.json", "--metrics", "m.jsonl"],
+             ["--plan", "p.json", "--checkpoint-dir", "ck"],
+             ["--plan", "p.json"]]
+
+
+def _smoke_plan() -> None:
+    """``p.json``: a one-step yi-6b smoke plan from ``launch.plan``."""
     from repro_torch.launch import plan as plan_cli
-    monkeypatch.chdir(tmp_path)
     plan_cli.main(["--arch", "yi-6b", "--smoke", "--devices", "1", "--global-batch", "4",
                    "--seq-len", "32", "--steps", "1", "--out", "p.json"])
+
+
+@pytest.mark.parametrize("flags", PLAN_RUNS)
+def test_train_cli_runs_a_plan_with_runtime_flags(flags, tmp_path, monkeypatch, capsys):
+    """``--plan`` (a plan from ``launch.plan``) runs, with or without the
+    run-time flags, and nothing is refused as not ported."""
+    monkeypatch.chdir(tmp_path)
+    _smoke_plan()
     res = train.main(["--device", "cpu", *flags])
     assert res["steps"] == 1 and math.isfinite(res["last_loss"])
     assert "not ported" not in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("flags", PLAN_RUNS)
+def test_train_cli_refuses_what_is_not_ported(flags, tmp_path, monkeypatch):
+    """Failure-shrink is the one part of the JAX trainer the port lacks: a
+    plan's supervised run, with each set of run-time flags, refuses a
+    ``lose_replica`` fault by name before it takes the step."""
+    monkeypatch.chdir(tmp_path)
+    _smoke_plan()
+    with open("f.json", "w") as f:
+        json.dump({"faults": [{"kind": "lose_replica", "step": 0}]}, f)
+    with pytest.raises(NotImplementedError, match="failure-shrink is not ported"):
+        train.main(["--device", "cpu", "--checkpoint-dir", "ck", "--faults", "f.json", *flags])
