@@ -80,7 +80,23 @@ nonzero and prints no result:
      then one profiled step of the plan's
      configuration, which reports and never fails the run.  On the host, the paper's X_160 document (the
      paper's A100): Table 6.1's winner, 38640 GPUs, ~1.9x its 3d baseline;
- 10. the ``kernels`` line (launches over phases 4-9), and as the last line
+ 10. the mixture-of-experts family, with the earlier phases' tensors freed
+     first: (a) dbrx-132b at every published width (16 experts top 4, 48/8
+     heads) cut to 8 layers, bf16, weights made on the card, served by
+     ``ServingEngine`` over a seeded Poisson trace (16 requests) with exact
+     K1/K3/K7 launch counts, then a profile of its decode steps (device
+     time, GEMM time and the one-hot dispatch and combine's share of it);
+     (b) arctic-480b at every published width (128 experts top 2, the dense
+     residual FFN, 56/8 heads) cut to 2 layers, 4 requests, exact counts;
+     (c) dbrx-132b's widths, 1 layer, fp32, on the card and on the CPU with
+     the same weights: the router's expert ids and the greedy tokens of 3
+     ragged prompts and 4 decode steps equal; (d) ``launch.train`` at
+     dbrx-132b's widths, 1 layer, 8 of its 16 experts (the fp32 state of 16
+     is more than a card holds), 8 x 2048 tokens in 4 micro-batches, 5 steps,
+     exact K1-K6 counts, finite loss, grad norm and aux; (e) K1/K2 at
+     d_model 6144 and 7168, K3-K5 at rep 6 and 7, K7 at both, against their
+     plain versions with phase 2's tolerances;
+ 11. the ``kernels`` line (launches over phases 4-10), and as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -1725,17 +1741,15 @@ PAPER_ARGV = ["--arch", "paper-x", "--size", "160", "--grid", "reduced", "--simu
               "--max-sims", "24"]
 
 
-def plan_shape_checks(torch, mb: int, S: int) -> list:
-    """K1-K5 at the planned run's shapes (a micro-batch of mb x S tokens of
-    Yi-6B, bf16) against their plain versions, with phase 2's training-shape
-    tolerances: K1/K2 on [mb * S, d_model] rows, K3 (and its row check), K4
-    and K5 on q [mb, S, 32, 128], k/v [mb, S, 4, 128], causal.  Returns the
-    failures."""
-    from repro_torch import configs
+def shape_checks(torch, cfg, mb: int, S: int, label: str) -> list:
+    """K1-K5 at a micro-batch of mb x S tokens of ``cfg`` (bf16) against
+    their plain versions, with phase 2's training-shape tolerances: K1/K2 on
+    [mb * S, d_model] rows, K3 (and its row check), K4 and K5 on q [mb, S,
+    num_heads, head_dim], k/v [mb, S, num_kv_heads, head_dim], causal.
+    Returns the failures."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
 
-    cfg = configs.get_config("yi-6b")
     g = torch.Generator(device="cuda").manual_seed(SEED)
 
     def randn(*shape, dtype=torch.bfloat16):
@@ -1744,7 +1758,7 @@ def plan_shape_checks(torch, mb: int, S: int) -> list:
     failures = []
     D = cfg.d_model
     x, dy, s = randn(mb * S, D), randn(mb * S, D), randn(D, dtype=torch.float32)
-    name = f"at the plan's rows={mb * S} D={D} bfloat16"
+    name = f"{label} rows={mb * S} D={D} bfloat16"
     check_case(torch, "K1 " + name, rn.rmsnorm_cuda(x, s), rn.plain(x, s), failures)
     check_case(torch, "K2 " + name, rn.rmsnorm_bwd_cuda(x, s, dy), rn.plain_bwd(x, s, dy),
                failures, parts=(" [dx]", " [dscale]"), rel=True)
@@ -1752,7 +1766,7 @@ def plan_shape_checks(torch, mb: int, S: int) -> list:
     Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     q, do = randn(mb, S, Hq, hd), randn(mb, S, Hq, hd)
     k, v = randn(mb, S, Hkv, hd), randn(mb, S, Hkv, hd)
-    name = f"at the plan's q={[mb, S, Hq, hd]} kv_heads={Hkv} bfloat16 causal"
+    name = f"{label} q={[mb, S, Hq, hd]} kv_heads={Hkv} bfloat16 causal"
     out, lse = fa.flash_attention_fwd_cuda(q, k, v)
     check_case(torch, "K3 " + name, (out, lse), fa.plain(q, k, v), failures,
                bf16_rel=BF16_FWD_TOL)
@@ -1779,6 +1793,7 @@ def phase_plan(torch, smi):
     (b)'s, K1-K5 at the planned micro-batch's shapes against their plain
     versions, then a profile of one step of it; (d) on the host, the paper's X_160 document: Table 6.1's winner
     and the ~1.9x speedup."""
+    from repro_torch import configs
     from repro_torch.launch import plan as plan_cli
     from repro_torch.launch import train
 
@@ -1834,8 +1849,9 @@ def phase_plan(torch, smi):
         problems.append(f"the flag-given run differs from the plan's: {hist} against "
                         f"{[(r['loss'], r['grad_norm']) for r in given['records']]}")
     # the counts are read: these launches compare, they are not the path's
-    problems += plan_shape_checks(torch, ex["global_batch"] // ex["microbatches"],
-                                  ex["seq_len"])
+    problems += shape_checks(torch, configs.get_config("yi-6b"),
+                             ex["global_batch"] // ex["microbatches"], ex["seq_len"],
+                             "at the plan's")
 
     try:
         from repro_torch.core.accumulation import AccumConfig
@@ -1860,6 +1876,337 @@ def phase_plan(torch, smi):
 
 
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# Phase 10: the mixture-of-experts family (dbrx-132b, arctic-480b)
+# ---------------------------------------------------------------------------
+def paged_checks(torch, cfg, label: str) -> list:
+    """K7 at ``cfg``'s heads (bf16 and fp32, 8 slots of ragged contexts, an
+    idle slot) against its plain version with phase 2's tolerances; idle
+    rows exactly zero.  Returns the failures."""
+    from repro_torch.kernels import paged_attention as pa
+
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    Hq, Hkv, hd, bs = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16
+    failures = []
+    for dtype, ctx in ((torch.bfloat16, [577, 65, 301, 512, 0, 449, 96, 2100]),
+                       (torch.float32, [40, 1, 300, 0, 8191, 17, 260, 513])):
+        R = len(ctx)
+        maxb = -(-max(ctx) // bs) + 1
+        N = max(2049, R * maxb + 1)
+
+        def randn(*shape):
+            return torch.randn(*shape, generator=g, device="cuda").to(dtype)
+
+        q, kp, vp = randn(R, Hq, hd), randn(N, Hkv, bs, hd), randn(N, Hkv, bs, hd)
+        perm = torch.randperm(N - 1, generator=g, device="cuda")[:R * maxb]
+        bt = perm.view(R, maxb).to(torch.int32).contiguous()
+        cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+        got = pa.paged_attention_cuda(q, kp, vp, bt, cl)
+        check_case(torch, f"K7 {label} q_heads={Hq} kv_heads={Hkv} D={hd} {str(dtype)[6:]} "
+                   f"ctx={ctx}", got, pa.plain(q, kp, vp, bt, cl), failures)
+        if not bool((got[cl == 0] == 0).all()):
+            failures.append(f"K7 {label}: ctx == 0 rows are not zero")
+    return failures
+
+
+def moe_kernel_checks(torch) -> list:
+    """Phase 10 (e): the kernels at the MoE configs' shapes, which no other
+    phase gives them: K1/K2 at d_model 6144 and 7168, K3-K5 at rep 6
+    (dbrx-132b, 48 q / 8 KV heads) and rep 7 (arctic-480b, 56 / 8: K3 pairs
+    rep heads a warpgroup and duplicates the last of an odd rep), K7 at both.
+    Returns the failures."""
+    from repro_torch import configs
+
+    failures = []
+    for arch, mb, S in (("dbrx-132b", 2, 2048), ("arctic-480b", 1, 2048),
+                        ("arctic-480b", 4, 512)):
+        cfg = configs.get_config(arch)
+        failures += shape_checks(torch, cfg, mb, S, f"{arch} at")
+        torch.cuda.empty_cache()
+    for arch in ("dbrx-132b", "arctic-480b"):
+        failures += paged_checks(torch, configs.get_config(arch), arch)
+    torch.cuda.empty_cache()
+    return failures
+
+
+MOE_SERVE = {
+    # arch: (layers, requests, prompt lengths, output lengths); every published
+    # width, depth cut so that the bf16 weights (6.52 GB a dbrx layer, 27.2 GB
+    # an arctic layer) fit one card
+    "dbrx-132b": (8, 16, [64, 512, 128, 320, 256, 96, 448, 200], [32, 48, 64]),
+    "arctic-480b": (2, 4, [64, 512, 128, 320], [32, 48]),
+}
+MOE_TRAIN_EXPERTS = 8                        # of dbrx's 16: fp32 state of 16 B a parameter
+MOE_TRAIN_ARGV = ["--arch", "dbrx-132b", "--layers", "1", "--global-batch", "8",
+                  "--seq-len", "2048", "--microbatches", str(TRAIN_MB), "--steps",
+                  str(TRAIN_STEPS), "--lr", "3e-3", "--seed", str(SEED)]
+GEMM_NAMES = ("gemm", "xmma", "cutlass", "nvjet", "gemv")
+
+
+def free_card(torch) -> str:
+    """Collect garbage, return cached blocks; the allocator's state."""
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return (f"memory_allocated {torch.cuda.memory_allocated() / 1e9:.2f} GB, "
+            f"reserved {torch.cuda.memory_reserved() / 1e9:.2f} GB")
+
+
+def moe_profile(torch, np, cfg, eng) -> None:
+    """A profiler window over 10 decode steps of a running engine: device
+    time a step, its GEMM time, and the GEMM time inside the MoE block's
+    ``moe.dispatch`` / ``moe.combine`` ranges (the one-hot dispatch and
+    combine) and ``moe.experts``.  Reports; never fails the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        n = 0
+        while n < 10 and eng.step():
+            n += 1
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    ranges = {"moe.dispatch": 0.0, "moe.combine": 0.0, "moe.experts": 0.0}
+    # the ranges show on the device timeline too: kernels only
+    kern = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
+    gemm_ms = sum(e.self_device_time_total for e in kern
+                  if any(k in e.key.lower() for k in GEMM_NAMES)) / 1e3
+
+    def gemm_in(ev) -> float:
+        us = sum(k.duration for k in ev.kernels if any(g in k.name.lower() for g in GEMM_NAMES))
+        return us + sum(gemm_in(c) for c in ev.cpu_children)
+
+    for ev in prof.events():
+        if ev.name in ranges:
+            ranges[ev.name] += gemm_in(ev) / 1e3
+    n = max(n, 1)
+    dc = ranges["moe.dispatch"] + ranges["moe.combine"]
+    say(f"  profile {cfg.name}, {n} engine steps (decode, 8 slots): wall {wall_ms / n:.3f} ms, "
+        f"device busy {dev_ms / n:.3f} ms a step (idle {100 - 100 * dev_ms / wall_ms:.1f}%), "
+        f"GEMM {gemm_ms / n:.3f} ms, of which one-hot dispatch + combine {dc / n:.3f} ms "
+        f"({100 * dc / max(gemm_ms, 1e-9):.1f}%), experts {ranges['moe.experts'] / n:.3f} ms")
+
+
+def serve_moe(torch, np, smi, arch: str) -> dict:
+    """``MOE_SERVE[arch]`` through ``ServingEngine``: weights made on the
+    card in bf16, a seeded Poisson trace, exact K1/K3/K7 launch counts; for
+    dbrx-132b then a profile of its decode steps."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.cache import PagedCacheConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import Request, SchedulerConfig, poisson_trace
+
+    layers, n_req, prompts, outs = MOE_SERVE[arch]
+    cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in T.named_parameters(params))
+    say(f"  {arch}: {layers} layers, d_model {cfg.d_model}, {cfg.num_experts} experts top "
+        f"{cfg.experts_per_token}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+        f"{n_params / 1e9:.3f} B parameters in bf16 (router fp32), made on the card in "
+        f"{time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+    warm = ServingEngine(cfg, params, SchedulerConfig(
+        cache=PagedCacheConfig(num_blocks=64, block_size=16, max_blocks_per_seq=8),
+        max_batch=2))
+    warm.submit(Request(rid=0, prompt=tuple(range(1, 65)), max_new_tokens=4))
+    warm.run()
+    del warm
+    reqs = poisson_trace(np.random.default_rng(SEED), n_requests=n_req, rate=0.5,
+                         vocab=cfg.vocab_size, prompt_lens=prompts, max_new=outs)
+    pcfg = PagedCacheConfig(num_blocks=2048, block_size=16, max_blocks_per_seq=36)
+    eng = ServingEngine(cfg, params, SchedulerConfig(cache=pcfg, max_batch=8))
+    eng.submit_all(reqs)
+    torch.cuda.synchronize()
+    rn.launches = fa.launches = pa.launches = 0
+    t0 = time.perf_counter()
+    out = eng.run(max_steps=2000)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    counts = {"rmsnorm": rn.launches, "flash_attention_fwd": fa.launches,
+              "paged_attention_decode": pa.launches}
+    st = eng.stats
+    want = {"rmsnorm": (2 * layers + 1) * (st["prefill_calls"] + st["decode_steps"]),
+            "flash_attention_fwd": layers * st["prefill_calls"],
+            "paged_attention_decode": layers * st["decode_steps"]}
+    lat = eng.latency_summary()
+    say(f"  {arch} engine on {smi}: {len(out)} requests, {st['emitted_tokens']} tokens, "
+        f"{st['prefill_calls']} prefill calls, {st['decode_steps']} decode steps in {dt:.3f} s "
+        f"-> {st['emitted_tokens'] / dt:.1f} tok/s; TTFT ms p50 {lat['ttft_ms']['p50']:.2f} "
+        f"p99 {lat['ttft_ms']['p99']:.2f}; ITL ms p50 {lat['itl_ms']['p50']:.2f} p99 "
+        f"{lat['itl_ms']['p99']:.2f}; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    say(f"  launches {counts} expected {want}")
+    problems = []
+    if sorted(out) != list(range(len(reqs))) or any(
+            len(out[r.rid]) != r.max_new_tokens for r in reqs):
+        problems.append(f"{arch}: not every request finished its budget")
+    if any(not 0 <= t < cfg.vocab_size for toks in out.values() for t in toks):
+        problems.append(f"{arch}: token outside the vocabulary")
+    if eng.sched.alloc.used != 0:
+        problems.append(f"{arch}: the allocator did not drain")
+    if counts != want:
+        problems.append(f"{arch}: launch counts {counts} != {want}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if arch == "dbrx-132b":
+        try:
+            rng = np.random.default_rng(SEED + 1)
+            eng.submit_all([Request(rid=100 + i, prompt=tuple(
+                int(t) for t in rng.integers(0, cfg.vocab_size, 256)), max_new_tokens=40,
+                arrival=eng.t) for i in range(8)])
+            eng.step()
+            eng.step()
+            moe_profile(torch, np, cfg, eng)
+        except Exception as e:  # noqa: BLE001 — the breakdown is optional; say why it is missing
+            say(f"  profile: not measured ({type(e).__name__}: {e})")
+    del eng, params
+    return counts
+
+
+def moe_parity(torch, np) -> None:
+    """dbrx-132b's widths, 1 layer, fp32, on the card (kernels) and on the CPU
+    (plain versions) with the same weights: 3 ragged prompts through prefill
+    and 4 decode steps.  The router's expert ids of every prompt position
+    (pads included: they are routed too) and the greedy tokens must be
+    equal; where an id differs, the top-k margin at that token is printed."""
+    from repro_torch import configs
+    from repro_torch.models import attention as attn_mod
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    from repro_torch.models.common import apply_norm
+    from repro_torch.serving import steps
+    from repro_torch.serving.cache import PagedCacheConfig, init_paged_cache
+
+    cfg = dataclasses.replace(configs.get_config("dbrx-132b"), num_layers=1, dtype="float32")
+    t0 = time.perf_counter()
+    on_card = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    on_cpu = T.to_device(on_card, "cpu")
+    say(f"  dbrx-132b widths, 1 layer, fp32: weights made on the card and copied to the CPU "
+        f"in {time.perf_counter() - t0:.1f} s")
+    lens = np.array([37, 64, 11], np.int32)
+    B, S, bs, maxb = 3, 64, 16, 5
+    toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (B, S)).astype(np.int32)
+    tables = np.arange(B * maxb, dtype=np.int32).reshape(B, maxb)
+    pcfg = PagedCacheConfig(num_blocks=B * maxb, block_size=bs, max_blocks_per_seq=maxb)
+    res = {}
+    for dev, params in (("cuda", on_card), ("cpu", on_cpu)):
+        t0 = time.perf_counter()
+        t = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
+        with torch.no_grad():
+            x, pos = T.embed_inputs(cfg, params, {"tokens": t(toks)})
+            lp = params["layers"][0]
+            x = x + attn_mod.attention_train(cfg, lp["attn"], apply_norm(cfg, lp["ln1"], x),
+                                             positions=pos, window=0)
+            h = apply_norm(cfg, lp["ln2"], x).reshape(-1, cfg.d_model)
+            logits = h.float() @ lp["moe"]["router"].float()
+            _, ids, _ = moe._router(cfg, lp["moe"], h)
+            cache = init_paged_cache(cfg, pcfg, dev)
+            lg, cache = steps.paged_prefill_step(cfg, params, cache, {
+                "tokens": t(toks), "lens": t(lens)}, t(tables))
+            greedy = [lg.argmax(-1).cpu()]
+            cur = lens.copy()
+            for _ in range(4):
+                lg, cache = steps.paged_decode_step(cfg, params, cache, t(tables), t(cur),
+                                                    greedy[-1].to(dev).int())
+                greedy.append(lg.argmax(-1).cpu())
+                cur = cur + 1
+        res[dev] = (ids.cpu(), torch.softmax(logits.cpu(), -1), torch.stack(greedy, 1))
+        say(f"  {dev}: prefill and 4 decode steps in {time.perf_counter() - t0:.1f} s")
+    (ids_g, _, tok_g), (ids_c, probs_c, tok_c) = res["cuda"], res["cpu"]
+    bad = (ids_g != ids_c).any(-1).nonzero().flatten().tolist()
+    for i in bad[:8]:
+        top = probs_c[i].sort(descending=True).values
+        k = cfg.experts_per_token
+        say(f"  token {i}: ids card {ids_g[i].tolist()} cpu {ids_c[i].tolist()}; top-{k} "
+            f"margin on the CPU {float(top[k - 1] - top[k]):.3e}")
+    say(f"  router ids of {ids_g.shape[0]} positions x top {ids_g.shape[1]}: "
+        f"{'equal' if not bad else f'{len(bad)} positions differ'}; greedy tokens card "
+        f"{tok_g.tolist()} cpu {tok_c.tolist()}")
+    if bad or not torch.equal(tok_g, tok_c):
+        raise AssertionError("card and CPU disagree on expert ids or greedy tokens")
+    del on_card, on_cpu
+
+
+def train_moe(torch, smi) -> dict:
+    """``launch.train`` at dbrx-132b's widths, 1 layer, ``MOE_TRAIN_EXPERTS``
+    of its 16 experts (top 4 kept): layered, partitioned, 8 x 2048 tokens in
+    4 micro-batches, 5 steps; exact K1-K6 launches (10 layer leaves, the
+    router and 3 expert stacks among them, and 3 outer ones through K6 a
+    step), finite loss, grad norm and aux."""
+    from repro_torch.launch import train
+
+    counters = train_counters()
+    orig = train.configs.get_config
+
+    def get_config(arch, *, smoke=False):
+        return dataclasses.replace(orig(arch, smoke=smoke), num_experts=MOE_TRAIN_EXPERTS)
+
+    say(f"  before training: {free_card(torch)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    train.configs.get_config = get_config
+    try:
+        res = train.main(MOE_TRAIN_ARGV)
+    finally:
+        train.configs.get_config = orig
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    want = {k: v * TRAIN_STEPS for k, v in step_launches(1, TRAIN_MB, 13).items()}
+    for r in res["records"]:
+        say(f"  step {r['step']}: {r['step_time_s']:.3f} s, {r['tokens_per_s']:.0f} tok/s, "
+            f"MFU {100 * r['mfu']:.2f}% (6ND at active parameters), loss {r['loss']:.4f}, "
+            f"grad norm {r['grad_norm']:.4f}, aux {r['aux']:.4f}, max memory allocated "
+            f"{r['peak_mem_gb']:.2f} GB")
+    steady = res["records"][1:]
+    say(f"  MoE training on {smi}: dbrx-132b widths, 1 layer, {MOE_TRAIN_EXPERTS} of 16 "
+        f"experts, layered + partitioned, 8 x 2048 tokens in {TRAIN_MB} micro-batches; steady "
+        f"mean {sum(r['step_time_s'] for r in steady) / len(steady):.3f} s, "
+        f"{sum(r['tokens_per_s'] for r in steady) / len(steady):.0f} tok/s, MFU "
+        f"{100 * sum(r['mfu'] for r in steady) / len(steady):.2f}%")
+    say(f"  launches over {TRAIN_STEPS} steps {counts} expected {want}")
+    problems = []
+    if not all(math.isfinite(r[k]) for r in res["records"] for k in ("loss", "grad_norm", "aux")):
+        problems.append("non-finite loss, grad norm or aux")
+    if counts != want:
+        problems.append(f"launch counts {counts} != {want}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
+def phase_moe(torch, np, smi) -> dict:
+    """(a) dbrx-132b served at full width (16 experts, 8 layers), (b)
+    arctic-480b (128 experts and the dense residual, 2 layers), (c) card
+    against CPU at dbrx's widths, (d) training at dbrx's widths, (e) the
+    kernels at the family's shapes.  Returns the launches of (a), (b), (d)."""
+    say(f"  at the start of phase 10: {free_card(torch)}")
+    counts = {}
+    for part, fn in (("a", lambda: serve_moe(torch, np, smi, "dbrx-132b")),
+                     ("b", lambda: serve_moe(torch, np, smi, "arctic-480b")),
+                     ("c", lambda: moe_parity(torch, np)),
+                     ("d", lambda: train_moe(torch, smi))):
+        t0 = time.perf_counter()
+        for name, c in (fn() or {}).items():
+            counts[name] = counts.get(name, 0) + c
+        say(f"  ({part}) {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+    t0 = time.perf_counter()
+    failures = moe_kernel_checks(torch)
+    say(f"  (e) {time.perf_counter() - t0:.1f} s")
+    if failures:
+        raise AssertionError(f"kernels at the MoE shapes: {failures}")
+    return counts
+
+
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -1945,15 +2292,19 @@ def main() -> int:
         t0 = time.perf_counter()
         plan_counts = phase_plan(torch, smi)
         say(f"[phase 9] plan-driven launch ok; {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        moe_counts = phase_moe(torch, np, smi)
+        say(f"[phase 10] the mixture-of-experts family ok; {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
 
-    # launches: the serving run's, the training run's, phases 6's, 7's, 8's
-    # and 9's (the plan-driven run's)
-    counts = {name: serve_counts.get(name, 0) + train_counts.get(name, 0)
-              + group_counts.get(name, 0) + pipe_counts.get(name, 0)
-              + sup_counts.get(name, 0) + plan_counts.get(name, 0) for name in KERNELS}
+    # launches: the serving run's, the training run's, phases 6's, 7's, 8's,
+    # 9's (the plan-driven run's) and 10's (the MoE serving and training runs)
+    counts = {name: sum(c.get(name, 0) for c in (
+        serve_counts, train_counts, group_counts, pipe_counts, sup_counts, plan_counts,
+        moe_counts)) for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],
@@ -1962,7 +2313,7 @@ def main() -> int:
          "library_ms": rows[name]["library_ms"],
          **({"device_ms": rows[name]["device_ms"]} if "device_ms" in rows[name] else {})}
         for name, (src, rep) in KERNELS.items()]}
-    say(f"[phase 10] total {time.perf_counter() - t_all:.1f} s")
+    say(f"[phase 11] total {time.perf_counter() - t_all:.1f} s")
     say(smi)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,7 +1,7 @@
-"""Architecture registry: ``--arch <id>`` resolution (the dense
-attention-stack token models the port runs so far; the other families come
-later).  ``paper-*`` configs resolve but are kept out of ``list_archs()``,
-as in the JAX registry."""
+"""Architecture registry: ``--arch <id>`` resolution (the token-input
+attention stacks the port runs so far, dense and mixture-of-experts; the SSM,
+hybrid and multimodal families come later).  ``paper-*`` configs resolve
+but are kept out of ``list_archs()``, as in the JAX registry."""
 from __future__ import annotations
 
 import importlib
@@ -9,10 +9,12 @@ import importlib
 from repro_torch.models.common import ModelConfig
 
 ARCHS = {
+    "dbrx-132b": "dbrx_132b",
     "yi-6b": "yi_6b",
     "granite-20b": "granite_20b",
     "gemma-2b": "gemma_2b",
     "gemma2-9b": "gemma2_9b",
+    "arctic-480b": "arctic_480b",
     "paper-x32": "paper_x",
 }
 

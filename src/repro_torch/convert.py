@@ -3,9 +3,11 @@
 The JAX tree (``repro.models.transformer.init_params``) stacks the layers on
 a leading ``[L, ...]`` dim; pass it with numpy leaves (for example
 ``jax.tree.map(np.asarray, params)``).  ``params_from_numpy`` makes the
-serving parameters: matrices in ``cfg.dtype``, norm parameters fp32, as
-``transformer.init_params`` makes them.  ``storage_from_numpy`` makes the
-fp32 training storage, ``pipeline_storage_from_numpy`` a pipeline stage's.
+serving parameters: matrices in ``cfg.dtype``, norm parameters and an MoE
+router fp32, as ``transformer.init_params`` makes them.  ``storage_from_numpy``
+makes the fp32 training storage (MoE expert stacks ``[L, E, D, F]`` chunked,
+or resident under expert parallelism), ``pipeline_storage_from_numpy`` a
+pipeline stage's.
 The tests use these to give both packages the same weights.
 """
 from __future__ import annotations
@@ -24,6 +26,11 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.tensor(np.asarray(a, np.float32)).to(device=device, dtype=dtype)
 
 
+def _layer_dtype(path: tuple, dt: torch.dtype) -> torch.dtype:
+    """A layer leaf's serving dtype: fp32 for the norms and the router."""
+    return torch.float32 if path[0] in ("ln1", "ln2") or path[-1] == "router" else dt
+
+
 def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict:
     dt = cfg.torch_dtype
 
@@ -31,13 +38,8 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict:
         return {k: _tensor(v, torch.float32, device) for k, v in p.items()}
 
     def layer(i):
-        lp = tree["layers"]
-        return {
-            "ln1": norm({k: v[i] for k, v in lp["ln1"].items()}),
-            "attn": {k: _tensor(v[i], dt, device) for k, v in lp["attn"].items()},
-            "ln2": norm({k: v[i] for k, v in lp["ln2"].items()}),
-            "mlp": {k: _tensor(v[i], dt, device) for k, v in lp["mlp"].items()},
-        }
+        return ptree.tree_map_with_path(
+            lambda path, v: _tensor(v[i], _layer_dtype(path, dt), device), tree["layers"])
 
     params = {
         "embed": _tensor(tree["embed"], dt, device),
@@ -50,17 +52,23 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict:
 
 
 def storage_from_numpy(cfg: ModelConfig, tree: dict, *, partitioned: bool,
-                       device="cpu", axis: AxisCtx = LOCAL) -> dict:
+                       device="cpu", axis: AxisCtx = LOCAL,
+                       expert_resident: bool = False) -> dict:
     """The JAX parameter tree -> this rank's fp32 training storage, so both
     packages start a step from the same weights: when ``partitioned``, the
     rank's chunks ``[L?, 1, 1, chunk]`` (block ``[..., m, d, :]`` of
-    ``partition.host_partition_leaf``), else its model shard of each leaf.
-    The dense stacks' empty ``shared`` subtree is dropped."""
+    ``partition.host_partition_leaf``), else its model shard of each leaf;
+    under ``expert_resident``, its block ``[L, E/D, D, F/M]`` of each expert
+    stack (``partition.expert_resident_spec``).  The attention stacks' empty
+    ``shared`` subtree is dropped."""
     if tree.get("shared"):
         raise NotImplementedError("hybrid shared-attention blocks are not ported yet")
 
     def conv(path, a, spec):
         a = np.asarray(a, np.float32)
+        if expert_resident and zp.is_expert_path(path):
+            return zp.resident_shard(torch.tensor(a), zp.expert_resident_spec(
+                path, axis.tp), axis).to(device)
         dim = zp.model_dim(spec)
         if not partitioned:
             local = a if dim is None else np.split(a, axis.tp, dim)[axis.model_index]

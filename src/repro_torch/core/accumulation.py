@@ -26,7 +26,15 @@ rank's chunks) and are gathered to ``cfg.dtype`` model-local copies (every
 leaf, norm scales included, as the JAX package's ``gather_layer`` casts
 them); the batch arrives as this rank's rows, ``[M, mb_local, S]``.
 Without groups (``dist.LOCAL``) a gather is a cast and a reduction hands
-back the fp32 accumulators in the storage layout.
+back the fp32 accumulators in the storage layout.  Under expert parallelism
+(``AccumConfig.expert_parallel``) an MoE layer's expert stacks are resident:
+a gather is a cast and the gradient stays on the rank, no collective at all.
+
+An MoE layer also returns the router's load-balance loss.  It enters the
+loss as ``router_aux_weight * aux / (M * L * D)`` a layer and micro-batch
+(D data ranks), as in the JAX package: the standard schedule adds it to each
+micro-batch's loss, the layered one gives each layer's backward that
+cotangent beside ``dx``.
 """
 from __future__ import annotations
 
@@ -50,6 +58,9 @@ class AccumConfig:
     n_microbatches: int = 1
     remat: bool = True             # standard: recompute each layer in the backward
     reduce_dtype: str = "float32"  # the reduce-scatter's wire dtype
+    # MoE expert stacks resident in their compute layout (the expert dim over
+    # the data group, tokens sent to them by all-to-all) instead of ZeRO chunks
+    expert_parallel: bool = False
 
 
 def outer_keys(storage: dict) -> list[str]:
@@ -65,7 +76,8 @@ class Adapters:
     back into it.  ``outer_shapes`` / ``layer_shapes`` are model-local
     shapes (a layer's without its stacking dim); ``partial`` names the
     layer leaves whose per-rank gradients are partial over the model
-    group."""
+    group; ``resident``, whether the expert stacks are resident (expert
+    parallelism: no gather, no reduction)."""
 
     cfg: ModelConfig
     axis: AxisCtx
@@ -74,9 +86,10 @@ class Adapters:
     outer_shapes: dict
     layer_shapes: dict
     partial: frozenset
+    resident: bool = False
 
-    def _chunk(self, leaf: torch.Tensor, shape, dtype) -> torch.Tensor:
-        if self.partitioned:
+    def _chunk(self, leaf: torch.Tensor, shape, dtype, path=()) -> torch.Tensor:
+        if self.partitioned and not (self.resident and zp.is_expert_path(path)):
             return zp.gather_local(leaf, self.axis, shape, dtype)
         return leaf.to(dtype, copy=True)
 
@@ -88,18 +101,23 @@ class Adapters:
 
     def gather_layer(self, storage: dict, l: int) -> dict:
         """Compute copies of layer ``l``, requiring grad: one all-gather per
-        leaf when partitioned."""
-        return tree.tree_map(lambda s, shp: self._chunk(s[l], shp, self.cfg.torch_dtype)
-                             .requires_grad_(), storage["layers"], self.layer_shapes)
+        leaf when partitioned (a cast of a resident expert stack)."""
+        return tree.tree_map_with_path(
+            lambda path, s, shp: self._chunk(s[l], shp, self.cfg.torch_dtype, path)
+            .requires_grad_(), storage["layers"], self.layer_shapes)
 
     def gather_ad(self, chunks: dict, shapes: dict, layer: bool) -> dict:
         """Differentiable compute copies of partitioned ``chunks`` (which
         require grad): a gather whose backward is the reduce-scatter into
-        the fp32 chunk."""
+        the fp32 chunk; a resident expert stack's is a cast."""
         dt, rdt = self.cfg.torch_dtype, self.reduce_dtype
-        return tree.tree_map_with_path(
-            lambda path, s, shp: zp.GatherLocal.apply(
-                s, self.axis, shp, dt, rdt, layer and path in self.partial), chunks, shapes)
+
+        def one(path, s, shp):
+            if layer and self.resident and zp.is_expert_path(path):
+                return s.to(dt)
+            return zp.GatherLocal.apply(s, self.axis, shp, dt, rdt,
+                                        layer and path in self.partial)
+        return tree.tree_map_with_path(one, chunks, shapes)
 
     def accumulators(self, shapes: dict, device) -> dict:
         """fp32 zeros in the model-local ``shapes``, that the gradients of
@@ -115,6 +133,8 @@ class Adapters:
         groups, and replicated, ``accs`` themselves otherwise."""
         def one(path, a, o):
             partial = layer and path in self.partial
+            if layer and self.resident and zp.is_expert_path(path):
+                return a if o is None else o.copy_(a)    # the rank's own experts
             if self.partitioned:
                 g = zp.scatter_grad_local(a, self.axis, reduce_dtype=self.reduce_dtype,
                                           model_partial=partial,
@@ -133,13 +153,21 @@ class Adapters:
 
 def make_adapters(cfg: ModelConfig, axis: AxisCtx, acc: AccumConfig,
                   template: dict) -> Adapters:
+    resident = acc.expert_parallel and cfg.is_moe
     specs = T.param_specs(cfg, axis.tp)
-    local = tree.tree_map(lambda shp, sp: zp.local_shape(shp, sp, axis.tp), template, specs)
+
+    def local(path, shp, sp):
+        if resident and zp.is_expert_path(path):
+            return zp.local_shape(shp, zp.expert_resident_spec(path, axis.tp), axis.tp,
+                                  axis.ndata)
+        return zp.local_shape(shp, sp, axis.tp)
+
+    local = tree.tree_map_with_path(local, template, specs)
     return Adapters(cfg=cfg, axis=axis, partitioned=acc.partitioned,
                     reduce_dtype=getattr(torch, acc.reduce_dtype),
                     outer_shapes={k: v for k, v in local.items() if k != "layers"},
                     layer_shapes=tree.tree_map(lambda s: s[1:], local["layers"]),
-                    partial=T.model_partial_leaves(cfg, axis.tp))
+                    partial=T.model_partial_leaves(cfg, axis.tp), resident=resident)
 
 
 def _accumulate(accs, grads) -> None:
@@ -163,9 +191,13 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
     the layer in the storage layout (``storage["layers"]`` leaves at ``[l]``).
     The stacked layer-gradient buffer is then never allocated, and the
     returned grads hold the outer leaves only."""
-    if cfg.block_kind != "attn" or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: the port trains dense attention "
-                                  f"stacks only so far")
+    if cfg.block_kind != "attn":
+        raise NotImplementedError(f"{cfg.name}: the port trains attention stacks "
+                                  f"only so far")
+    if acc.expert_parallel and cfg.is_moe and not acc.partitioned:
+        raise ValueError("expert parallelism needs the partitioned layout: replicated "
+                         "storage sums every leaf's gradient over the data group, "
+                         "whose ranks hold different experts")
     if acc.method not in ("layered", "standard"):
         raise ValueError(f"unknown accumulation method {acc.method!r}")
     if layer_update is not None and acc.method != "layered":
@@ -175,6 +207,9 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
     windows = cfg.layer_windows()
     part = acc.partitioned
     head_key = "embed" if cfg.tie_embeddings else "head"
+    # each layer's and micro-batch's aux, weighted into the loss (JAX's
+    # aux_w * aux_scale: the mean over micro-batches, layers and data ranks)
+    aux_ct = cfg.router_aux_weight / (M * L * axis.ndata)
 
     def setup(batch):
         if batch["tokens"].shape[0] != M:
@@ -188,12 +223,20 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
     def layer_dest(grads_l, l):
         return tree.tree_map(lambda g: g[l], grads_l)
 
-    def metrics(nlls, batch):
-        t = torch.stack([torch.stack(nlls).sum(), batch["mask"].float().sum()])
+    def metrics(nlls, aux, batch):
+        """``aux``: this rank's (None: no router), the JAX package's mean
+        over the data ranks reported."""
+        nll = torch.stack(nlls).sum()
+        t = torch.stack([nll, batch["mask"].float().sum(),
+                         torch.zeros_like(nll) if aux is None else aux])
         if axis.data is not None:
             axis.all_reduce(t, "data")
-        return {"loss": t[0] / t[1], "ntok": t[1],
-                "aux": torch.zeros((), device=t.device)}
+        return {"loss": t[0] / t[1], "ntok": t[1], "aux": t[2] / axis.ndata}
+
+    def add_aux(total, a):
+        if a is None:
+            return total
+        return a.detach() if total is None else total + a.detach()
 
     # ------------------------------------------------------------------
     # standard (batch-major) gradient accumulation
@@ -214,7 +257,7 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
             lp = ad.gather_ad(lp_in, ad.layer_shapes, layer=True) if part else lp_in
             return T.apply_layer(cfg, lp, x, positions=pos, window=w, axis=axis)
 
-        nlls = []
+        nlls, auxs = [], None
         for mb in mbs:
             # gathered per micro-batch, as standard ZeRO does; the layers
             # inside the (recomputed) layer function
@@ -225,24 +268,31 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
                 outer = (ad.gather_ad(outer_in, ad.outer_shapes, layer=False) if part
                          else outer_in)
                 x, pos = T.embed_inputs(cfg, outer, mb, axis)
+                aux = None
                 for l in range(L):
                     if acc.remat:
-                        x = checkpoint(layer_fn, layers_in[l], x, pos, windows[l],
-                                       use_reentrant=False)
+                        x, a = checkpoint(layer_fn, layers_in[l], x, pos, windows[l],
+                                          use_reentrant=False)
                     else:
-                        x = layer_fn(layers_in[l], x, pos, windows[l])
+                        x, a = layer_fn(layers_in[l], x, pos, windows[l])
+                    aux = a if aux is None else aux + a
                 x = apply_norm(cfg, outer["final_norm"], x)
                 nll = T.head_loss(cfg, outer, x, mb, axis)
                 loss = nll * inv_n
+                if aux is not None:
+                    loss = loss + aux * aux_ct
             wrt = tree.leaves(outer_in) + [t for lp in layers_in for t in tree.leaves(lp)]
             dests = tree.leaves({k: grads[k] for k in okeys}) + [
                 t for l in range(L) for t in tree.leaves(layer_dest(grads["layers"], l))]
             _accumulate(dests, torch.autograd.grad(loss, wrt))
             nlls.append(nll.detach())
+            auxs = add_aux(auxs, aux)
         if not part:   # one sum per leaf over the data group, at the end
             grads = dict(ad.reduce({k: grads[k] for k in okeys}, layer=False),
                          layers=ad.reduce(grads["layers"], layer=True))
-        return grads, metrics(nlls, batch)
+        # the JAX package's aux metric here: the micro-batches' mean of the
+        # layers' sum
+        return grads, metrics(nlls, None if auxs is None else auxs / M, batch)
 
     # ------------------------------------------------------------------
     # layered (layer-major) gradient accumulation — the paper's §3
@@ -286,12 +336,15 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
         xs = [x for x, _ in embedded]
         S = xs[0].shape[-2]
         ckpt = []
+        aux_total = None
         for l in range(L):
             lp = ad.gather_layer(storage, l)        # one gather per layer
             ckpt.append([ckpt_slice(x) for x in xs])
             with torch.no_grad():
-                xs = [T.apply_layer(cfg, lp, x, positions=p, window=windows[l], axis=axis)
-                      for x, p in zip(xs, pos)]
+                for m in range(M):
+                    xs[m], a = T.apply_layer(cfg, lp, xs[m], positions=pos[m],
+                                             window=windows[l], axis=axis)
+                    aux_total = add_aux(aux_total, a)
             del lp
 
         # head: loss and dx per micro-batch
@@ -321,9 +374,13 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
             for m in range(M):
                 xm = x_in[m].requires_grad_()
                 with torch.enable_grad():
-                    y = T.apply_layer(cfg, lp, xm, positions=pos[m], window=windows[l],
-                                      axis=axis)
-                dx, *g = torch.autograd.grad(y, [xm] + wrt, dxs[m])
+                    y, a = T.apply_layer(cfg, lp, xm, positions=pos[m], window=windows[l],
+                                         axis=axis)
+                outs, cots = [y], [dxs[m]]
+                if a is not None:                   # the router's aux cotangent
+                    outs.append(a)
+                    cots.append(torch.full_like(a, aux_ct))
+                dx, *g = torch.autograd.grad(outs, [xm] + wrt, cots)
                 _accumulate(accs, g)
                 dxs[m] = dx
             del lp, x_in, accs
@@ -343,6 +400,8 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
         g_outer = ad.reduce(a_outer, layer=False)
         del a_outer
         grads = g_outer if grads_l is None else dict(g_outer, layers=grads_l)
-        return grads, metrics(nlls, batch)
+        # the JAX package's aux metric here: the layers' mean of the
+        # micro-batches' sum
+        return grads, metrics(nlls, None if aux_total is None else aux_total / L, batch)
 
     return layered_grad if acc.method == "layered" else standard_grad

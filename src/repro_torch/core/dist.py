@@ -11,6 +11,9 @@ stage.  Each rank belongs to one data group (the ranks of its stage and model
 column: the ZeRO partition and the gradient sum), one model group (the ranks
 of its stage and data row: the Megatron shards) and one stage group (the
 ranks at its data and model position in every stage: the pipeline's rings).
+Under expert parallelism the data group also holds the MoE experts: its
+``expert`` group is the data group, and tokens reach their experts through
+all-to-alls over it.
 
 ``AxisCtx()``, with no groups, is the one-process path: no collective is
 issued and every "gather" is a cast.  A group of size 1 still issues every
@@ -19,9 +22,10 @@ collective, so the process-group path runs on one card as it would on many.
 Every collective goes through the wrappers below, which count calls and
 bytes per (group, op) in ``AxisCtx.counts``.  Bytes are those of the full
 buffer: the gathered output, the reduce-scatter's input, the all-reduced
-tensor.  They call ``all_gather_into_tensor`` and ``reduce_scatter_tensor``,
-which every supported torch has (2.11 has no ``*_single`` forms; 2.13 has
-both, and warns that these are deprecated), on flat buffers, as gloo wants.
+tensor, the all-to-all's input.  They call ``all_gather_into_tensor``,
+``reduce_scatter_tensor`` and ``all_to_all_single``, which every supported
+torch has (2.11 has no ``*_single`` forms of the first two; 2.13 has both,
+and warns that these are deprecated), on flat buffers, as gloo wants.
 Point-to-point transfers on the stage group (``p2p``) count each send and
 each receive, with its bytes.
 """
@@ -42,6 +46,8 @@ class AxisCtx:
     data: dist.ProcessGroup | None = None    # ZeRO partition / gradient sum
     model: dist.ProcessGroup | None = None   # tensor parallel (Megatron)
     stage: dist.ProcessGroup | None = None   # pipeline stages (the rings)
+    expert: dist.ProcessGroup | None = None  # MoE experts: the data group under
+                                             # expert parallelism, else None
     tp: int = 1                              # size of the model group
     ndata: int = 1                           # size of the data group
     nstage: int = 1                          # size of the stage group
@@ -74,6 +80,13 @@ class AxisCtx:
         red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
         dist.all_reduce(t, op=red, group=getattr(self, group))
         self._count(group, "all_reduce", t)
+
+    def all_to_all(self, out: torch.Tensor, inp: torch.Tensor, group: str) -> None:
+        """``out`` (contiguous) <- block ``i`` of every rank ``i``'s ``inp``,
+        in rank order: ``inp`` is ``size`` equal blocks along dim 0, block
+        ``j`` sent to rank ``j`` of the group."""
+        dist.all_to_all_single(out, inp.contiguous(), group=getattr(self, group))
+        self._count(group, "all_to_all", inp)
 
     def broadcast(self, t: torch.Tensor, group: str, src: int) -> None:
         """In place, from global rank ``src`` of the group."""
@@ -119,6 +132,31 @@ class AxisCtx:
 
 
 LOCAL = AxisCtx()   # one process, no groups: issues no collective
+
+
+class AllToAll(torch.autograd.Function):
+    """``AxisCtx.all_to_all`` over ``group``, differentiable: with equal
+    blocks the exchange is its own transpose, so the backward sends each
+    block of the cotangent back where it came from."""
+
+    @staticmethod
+    def forward(ctx, x, axis, group):
+        ctx.axis, ctx.group = axis, group
+        out = torch.empty_like(x, memory_format=torch.contiguous_format)
+        axis.all_to_all(out, x, group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        out = torch.empty_like(g, memory_format=torch.contiguous_format)
+        ctx.axis.all_to_all(out, g, ctx.group)
+        return out, None, None
+
+
+def with_expert_group(axis: AxisCtx) -> AxisCtx:
+    """``axis`` with its data group as the expert group (expert
+    parallelism over the data group; the JAX package's ``expert="data"``)."""
+    return dataclasses.replace(axis, expert=axis.data)
 
 
 def make_axis(ndata: int, tp: int, nstage: int = 1) -> AxisCtx:

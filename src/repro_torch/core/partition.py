@@ -16,6 +16,11 @@ per layer and micro-batch).
 A spec names the mesh axis of each dim of a leaf, as a ``PartitionSpec``
 does in the JAX package: a tuple of ``"model"``, ``"data"`` or None.
 
+Under expert parallelism an MoE layer's expert stacks are *resident* instead:
+``[L, E/D, D, F/M]`` fp32 on each rank (``expert_resident_spec``: the expert
+dim over the data group, the hidden dim over the model group), never chunked,
+gathered or reduce-scattered; tokens travel to them instead.
+
 ``host_partition_leaf`` / ``host_unpartition_leaf`` are the numpy forms for
 all ranks at once, bit-compatible with the JAX package's; the stage-stack
 functions at the end are the pipeline's layouts built on them.
@@ -41,37 +46,67 @@ def model_replicated(spec: tuple) -> bool:
     return "model" not in spec
 
 
-def local_shape(global_shape: tuple[int, ...], spec: tuple, tp: int) -> tuple[int, ...]:
-    """Model-local shape of a leaf under tensor parallelism."""
+def local_shape(global_shape: tuple[int, ...], spec: tuple, tp: int,
+                ndata: int = 1) -> tuple[int, ...]:
+    """Model-local shape of a leaf under tensor parallelism (and, for a
+    resident expert stack, data-local: its ``"data"`` dim over ``ndata``)."""
     dims = list(global_shape)
     for i, ax in enumerate(spec):
-        if ax == "model":
-            if dims[i] % tp:
-                raise ValueError(f"tensor-parallel width tp={tp} does not divide dim {i} "
-                                 f"(size {dims[i]}) of shape {tuple(global_shape)} "
-                                 f"(spec {spec})")
-            dims[i] //= tp
+        n = {"model": tp, "data": ndata}.get(ax, 1)
+        if dims[i] % n:
+            raise ValueError(f"{ax} width {n} does not divide dim {i} "
+                             f"(size {dims[i]}) of shape {tuple(global_shape)} "
+                             f"(spec {spec})")
+        dims[i] //= n
     return tuple(dims)
+
+
+EXPERT_LEAVES = ("w_up", "w_gate", "w_down")
+
+
+def is_expert_path(path: tuple) -> bool:
+    """An MoE layer's expert stacks (the expert-parallel resident set; not
+    the router, not arctic's dense residual FFN)."""
+    return "moe" in path and path[-1] in EXPERT_LEAVES and "dense" not in path
+
+
+def expert_resident_spec(path: tuple, tp: int) -> tuple:
+    """The resident layout of a stacked expert leaf: ``[L, E, D, F]`` (up,
+    gate) and ``[L, E, F, D]`` (down) with the expert dim over the data
+    group and the hidden dim over the model group (replicated when tp = 1,
+    as every spec is)."""
+    m = "model" if tp > 1 else None
+    return (None, "data", m, None) if path[-1] == "w_down" else (None, "data", None, m)
+
+
+def resident_shard(full: torch.Tensor, spec: tuple, axis: AxisCtx) -> torch.Tensor:
+    """A global resident leaf -> this rank's block, fp32: its share of the
+    ``"data"`` dim (its experts) and of the ``"model"`` dim."""
+    x = full
+    for i, ax in enumerate(spec):
+        n, j = {"data": (axis.ndata, axis.data_index),
+                "model": (axis.tp, axis.model_index)}.get(ax, (1, 0))
+        if n > 1:
+            x = x.chunk(n, i)[j]
+    return x.float().contiguous()
 
 
 def chunk_size(local_numel: int, n_data: int) -> int:
     return math.ceil(local_numel / n_data)
 
 
-def partitioned_specs(specs: dict) -> dict:
-    """Specs of the partitioned storage: ``(None?, model?, "data", None)``.
-    ``specs`` is the parameter tree's (stacked layer leaves already carry
-    their leading None)."""
-    def conv(spec, stacked):
+def partitioned_specs(specs: dict, *, expert_resident: bool = False, tp: int = 1) -> dict:
+    """Specs of the partitioned storage: ``(None?, model?, "data", None)``;
+    with ``expert_resident``, the expert stacks' resident specs at model
+    width ``tp``.  ``specs`` is the parameter tree's (stacked layer leaves
+    already carry their leading None)."""
+    def conv(path, spec):
+        if expert_resident and is_expert_path(path):
+            return expert_resident_spec(path, tp)
         m = None if model_replicated(spec) else "model"
-        return (None, m, "data", None) if stacked else (m, "data", None)
+        return (None, m, "data", None) if path[0] == "layers" else (m, "data", None)
 
-    def walk(node, stacked):
-        if isinstance(node, dict):
-            return {k: walk(v, stacked) for k, v in node.items()}
-        return conv(node, stacked)
-
-    return {k: walk(v, k == "layers") for k, v in specs.items()}
+    return tree.tree_map_with_path(conv, specs)
 
 
 # ---------------------------------------------------------------------------

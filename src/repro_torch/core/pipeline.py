@@ -74,7 +74,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
     compute only (the tick profiler, ``obs.trace.measure_tick_timeline``);
     without one the pass records nothing and adds no sync."""
     if cfg.block_kind != "attn" or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: the port trains dense attention "
+        raise NotImplementedError(f"{cfg.name}: the port pipelines dense attention "
                                   f"stacks only so far")
     if axis.stage is None or axis.data is None:
         raise ValueError("the pipeline runs on the stage and data groups of "
@@ -178,8 +178,8 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
         def run_chunk(v: int, x: torch.Tensor) -> torch.Tensor:
             g = v * S + s
             for j, lp in enumerate(wbuf[v]):
-                x = T.apply_layer(cfg, lp, x, positions=pos, window=windows[g * k_c + j],
-                                  axis=axis)
+                x, _ = T.apply_layer(cfg, lp, x, positions=pos, window=windows[g * k_c + j],
+                                     axis=axis)
             return x
 
         def weights(v: int) -> list:

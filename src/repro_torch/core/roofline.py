@@ -48,6 +48,7 @@ COLLECTIVES = {
     "all_gather": lambda n: (n - 1) / n,
     "reduce_scatter": lambda n: (n - 1) / n,
     "all_reduce": lambda n: 2 * (n - 1) / n,
+    "all_to_all": lambda n: (n - 1) / n,
     "send": lambda n: 1.0,
 }
 
@@ -115,13 +116,13 @@ def wire_bytes(counts: dict, sizes: dict) -> dict:
 
 def model_flops_train(cfg, global_batch: int, seq: int) -> float:
     """6*N*D rule (paper appendix C.1: fwd 2ND + bwd 4ND; +2ND with full
-    activation recompute, not counted).  Dense stacks: every parameter is
-    active."""
-    return 6.0 * cfg.param_count() * global_batch * seq
+    activation recompute, not counted), N the parameters a token runs
+    through (an MoE layer's routed experts, not all of them)."""
+    return 6.0 * cfg.param_count(active_only=True) * global_batch * seq
 
 
 def model_flops_decode(cfg, global_batch: int) -> float:
-    return 2.0 * cfg.param_count() * global_batch
+    return 2.0 * cfg.param_count(active_only=True) * global_batch
 
 
 def mfu(flops_per_step: float, step_time_s: float, *, n_devices: int = 1,

@@ -16,24 +16,36 @@ from repro_torch import tree
 from repro_torch.core import partition as zp
 from repro_torch.core import pipeline as pp
 from repro_torch.core.accumulation import AccumConfig, make_grad_fn, outer_keys
-from repro_torch.core.dist import LOCAL, AxisCtx
+from repro_torch.core.dist import LOCAL, AxisCtx, with_expert_group
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adam import AdamConfig, adam_update, global_norm, leaf_update, step_scalars
 
 
-def full_template(cfg: ModelConfig) -> dict:
-    """The shapes of the JAX parameter tree (layers stacked on a leading
-    ``[L]`` dim) for a dense attention stack."""
-    d, hd, f, L = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.num_layers
-    norm = ({"scale": (d,), "bias": (d,)} if cfg.norm == "layernorm"
-            else {"scale": (d,)})
+def _mlp_template(cfg: ModelConfig, d: int, f: int) -> dict:
     mlp = {"w_up": (d, f), "w_down": (f, d)}
     if cfg.glu:
         mlp["w_gate"] = (d, f)
-    layer = {"ln1": norm, "ln2": norm, "mlp": mlp,
+    return mlp
+
+
+def full_template(cfg: ModelConfig) -> dict:
+    """The shapes of the JAX parameter tree (layers stacked on a leading
+    ``[L]`` dim) for an attention stack, dense or MoE."""
+    d, hd, f, L = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.num_layers
+    norm = ({"scale": (d,), "bias": (d,)} if cfg.norm == "layernorm"
+            else {"scale": (d,)})
+    layer = {"ln1": norm, "ln2": norm,
              "attn": {"wq": (d, cfg.num_heads * hd), "wk": (d, cfg.num_kv_heads * hd),
                       "wv": (d, cfg.num_kv_heads * hd), "wo": (cfg.num_heads * hd, d)}}
+    if cfg.is_moe:
+        e = cfg.num_experts
+        moe = {"router": (d, e), **{k: (e, *shp) for k, shp in _mlp_template(cfg, d, f).items()}}
+        if cfg.moe_dense_residual:
+            moe["dense"] = _mlp_template(cfg, d, cfg.moe_dense_ff or f)
+        layer["moe"] = moe
+    else:
+        layer["mlp"] = _mlp_template(cfg, d, f)
     out = {"embed": (cfg.vocab_size, d), "final_norm": dict(norm),
            "layers": tree.tree_map(lambda s: (L, *s), layer)}
     if not cfg.tie_embeddings:
@@ -41,18 +53,26 @@ def full_template(cfg: ModelConfig) -> dict:
     return out
 
 
-def storage_specs(cfg: ModelConfig, axis: AxisCtx, partitioned: bool) -> dict:
-    """The storage layout's specs: the parameter tree's, or the chunks'."""
+def storage_specs(cfg: ModelConfig, axis: AxisCtx, partitioned: bool, *,
+                  expert_resident: bool = False) -> dict:
+    """The storage layout's specs: the parameter tree's, or the chunks' (with
+    the expert stacks' resident specs under ``expert_resident``)."""
     full = T.param_specs(cfg, axis.tp)
-    return zp.partitioned_specs(full) if partitioned else full
+    if not partitioned:
+        return full
+    return zp.partitioned_specs(full, expert_resident=expert_resident and cfg.is_moe,
+                                tp=axis.tp)
 
 
 def storage_from_params(cfg: ModelConfig, params: dict, *, partitioned: bool,
-                        axis: AxisCtx = LOCAL) -> dict:
+                        axis: AxisCtx = LOCAL, expert_resident: bool = False) -> dict:
     """A global fp32 parameter tree (layers stacked) -> this rank's storage:
     its model shard of every leaf, and of that its data chunk when
-    ``partitioned`` (views where the rank holds a contiguous leaf whole)."""
+    ``partitioned`` (views where the rank holds a contiguous leaf whole);
+    under ``expert_resident``, its block of each expert stack, whole."""
     def conv(path, t, spec):
+        if expert_resident and zp.is_expert_path(path):
+            return zp.resident_shard(t, zp.expert_resident_spec(path, axis.tp), axis)
         local = zp.model_shard(t, spec, axis.tp, axis.model_index)
         if not partitioned:
             return local
@@ -62,12 +82,17 @@ def storage_from_params(cfg: ModelConfig, params: dict, *, partitioned: bool,
 
 
 def init_storage(cfg: ModelConfig, seed: int, *, partitioned: bool, device="cuda",
-                 axis: AxisCtx = LOCAL) -> dict:
+                 axis: AxisCtx = LOCAL, expert_resident: bool = False) -> dict:
     """Random fp32 master weights from ``seed``, drawn on ``device``, in this
     rank's storage layout.  Every rank draws the same full weights, one layer
-    at a time, and keeps its share.  (The JAX and torch generators differ;
+    at a time, and keeps its share.  ``expert_resident`` (with
+    ``partitioned``): the expert stacks in their resident layout, as
+    expert parallelism trains them.  (The JAX and torch generators differ;
     tests that compare the packages convert the JAX tree with
     ``convert.storage_from_numpy`` instead.)"""
+    if expert_resident and cfg.is_moe and not partitioned:
+        raise ValueError("resident experts need the partitioned layout")
+    ep = expert_resident and cfg.is_moe
     fcfg = dataclasses.replace(cfg, dtype=cfg.param_dtype)
     gen = torch.Generator(device=device).manual_seed(seed)
     outer = T.init_params(dataclasses.replace(fcfg, num_layers=0), gen, device)
@@ -77,7 +102,7 @@ def init_storage(cfg: ModelConfig, seed: int, *, partitioned: bool, device="cuda
     for l in range(cfg.num_layers):
         one = storage_from_params(cfg, {"layers": tree.tree_map(
             lambda t: t[None], T.init_layer(fcfg, gen, device))}, partitioned=partitioned,
-            axis=axis)["layers"]
+            axis=axis, expert_resident=ep)["layers"]
         if layers is None:
             layers = tree.tree_map(lambda t: torch.empty((cfg.num_layers, *t.shape[1:]),
                                                          dtype=torch.float32, device=device),
@@ -116,11 +141,19 @@ def sq_reduce(grads: dict) -> torch.Tensor:
     return sum(g.float().square().sum() for g in tree.leaves(grads))
 
 
-def make_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool):
+def make_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool, *,
+                   expert_resident: bool = False):
     """The global norm's square over a gradient tree in this rank's storage
     layout: model-sharded leaves summed over the model group, then, when the
-    state is partitioned, everything over the data group."""
+    state is partitioned, everything over the data group (a resident expert
+    stack's share counted once: each data rank holds its own experts).  The
+    JAX package's resident sum adds the experts' share over the data group
+    twice, so its norm under expert parallelism is larger (ROADMAP.md §3)."""
     specs = T.param_specs(cfg, axis.tp)
+    if expert_resident and cfg.is_moe:
+        specs = tree.tree_map_with_path(
+            lambda path, sp: (zp.expert_resident_spec(path, axis.tp)
+                              if zp.is_expert_path(path) else sp), specs)
 
     def reduce(grads: dict) -> torch.Tensor:
         pairs = tree.leaves(tree.tree_map(lambda g, sp: (g, sp), grads,
@@ -173,8 +206,11 @@ def build_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
     is asked after the global norm and before the update (the supervisor's
     anomaly gate, ``_gated_update``); without it the step makes no extra
     host sync."""
+    if acc.expert_parallel and cfg.is_moe:
+        axis = with_expert_group(axis)
     grad_fn = make_grad_fn(cfg, acc, full_template(cfg), axis=axis)
-    reduce = make_sq_reduce(cfg, axis, acc.partitioned)
+    reduce = make_sq_reduce(cfg, axis, acc.partitioned,
+                            expert_resident=acc.expert_parallel)
 
     def step(storage, opt, batch):
         grads, metrics = grad_fn(storage, _on_device(storage, batch))
@@ -196,6 +232,8 @@ def build_fused_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConf
     ``build_train_step``."""
     if acc.method != "layered":
         raise ValueError("the fused update requires the layered schedule")
+    if acc.expert_parallel and cfg.is_moe:
+        axis = with_expert_group(axis)
     tmpl = full_template(cfg)
     c = opt_cfg
 

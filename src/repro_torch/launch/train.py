@@ -402,6 +402,7 @@ def _train(args, cfg, spec: PipeSpec | None, table, device: torch.device,
             sink.log(rec)
             rec.update(peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
                                     if device.type == "cuda" else None),
+                       aux=float(metrics.get("aux", 0.0)),   # the router's load balance
                        # this rank's collectives of the step: "group op" -> [calls, bytes]
                        collectives={f"{g} {op}": list(c) for (g, op), c in axis.counts.items()})
             records.append(rec)

@@ -117,14 +117,23 @@ class ModelConfig:
             return self.num_layers // self.hybrid_attn_period
         return 0
 
-    # -- parameter counting (the MFU numerator), dense attention stacks ----
-    def params_per_layer(self) -> int:
+    # -- parameter counting (the MFU numerator), attention stacks ---------
+    def params_per_layer(self, *, active_only: bool = False) -> int:
+        """One layer's parameters; ``active_only`` counts the experts a token
+        runs (``experts_per_token`` of them) and the whole router."""
         d, h = self.d_model, self.head_dim
         n = d * h * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * h * d
-        return n + (3 if self.glu else 2) * d * self.d_ff
+        mult = 3 if self.glu else 2
+        if self.is_moe:
+            e = self.experts_per_token if active_only else self.num_experts
+            n += e * mult * d * self.d_ff + d * self.num_experts
+            if self.moe_dense_residual:
+                n += mult * d * (self.moe_dense_ff or self.d_ff)
+            return n
+        return n + mult * d * self.d_ff
 
-    def param_count(self) -> int:
-        return (self.num_layers * self.params_per_layer()
+    def param_count(self, *, active_only: bool = False) -> int:
+        return (self.num_layers * self.params_per_layer(active_only=active_only)
                 + self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2))
 
     # -- tensor-parallel head padding (the JAX ModelConfig's, copied) -------

@@ -11,8 +11,9 @@ from repro_torch.models.common import (ModelConfig, activation, copy_to_model, d
                                        reduce_from_model)
 
 
-def init_mlp(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
-    d, f, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
+def init_mlp(cfg: ModelConfig, generator: torch.Generator, device, *,
+             d_ff: int | None = None) -> dict:
+    d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.torch_dtype
     p = {"w_up": dense_init(generator, (d, f), dt, device),
          "w_down": dense_init(generator, (f, d), dt, device)}
     if cfg.glu:

@@ -5,7 +5,8 @@
 Parameters are a plain dict whose names follow the JAX tree, with the layer
 stack as a list: ``layers.{i}.attn.wq`` and so on.  Matrices are stored in
 ``cfg.dtype`` (the JAX package casts its fp32 leaves to it at every use, so
-the values are the same); norm scales stay fp32.
+the values are the same); norm scales stay fp32, and so does an MoE layer's
+router (``moe.init_moe``: the JAX package keeps it fp32 and routes in fp32).
 """
 from __future__ import annotations
 
@@ -16,25 +17,30 @@ from repro_torch import tree
 from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
                                        embed_tokens, init_norm, lm_head_loss)
 
 
 def init_layer(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
-    return {
+    p = {
         "ln1": init_norm(cfg, cfg.d_model, device),
         "attn": attn_mod.init_attention(cfg, generator, device),
         "ln2": init_norm(cfg, cfg.d_model, device),
-        "mlp": mlp_mod.init_mlp(cfg, generator, device),
     }
+    if cfg.is_moe:
+        p["moe"] = moe_mod.init_moe(cfg, generator, device)
+    else:
+        p["mlp"] = mlp_mod.init_mlp(cfg, generator, device)
+    return p
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
-    """Random weights for a dense attention stack, drawn from ``generator``
-    (which must live on ``device``)."""
-    if cfg.block_kind != "attn" or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: the port has dense attention "
-                                  f"stacks only so far")
+    """Random weights for an attention stack (dense or MoE), drawn from
+    ``generator`` (which must live on ``device``)."""
+    if cfg.block_kind != "attn":
+        raise NotImplementedError(f"{cfg.name}: the port has attention stacks "
+                                  f"only so far")
     dt = cfg.torch_dtype
     params = {
         "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model), dt, device,
@@ -50,7 +56,7 @@ def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
 
 # ---------------------------------------------------------------------------
 # Partition specs: the model-sharded dim of every leaf (the data/ZeRO
-# partition is orthogonal).  Dense attention stacks only.
+# partition is orthogonal).  Attention stacks, dense and MoE.
 # ---------------------------------------------------------------------------
 def _norm_specs(cfg: ModelConfig) -> dict:
     if cfg.norm == "layernorm":
@@ -63,17 +69,33 @@ def _strip_model(specs: dict) -> dict:
     return tree.tree_map(lambda sp: tuple(None if a == "model" else a for a in sp), specs)
 
 
-def layer_specs(cfg: ModelConfig, tp: int) -> dict:
-    """Specs of ONE layer (the caller prepends the stacking dim)."""
-    if cfg.block_kind != "attn" or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: the port shards dense attention "
-                                  f"stacks only so far")
-    kv = (None, None) if attn_mod.local_counts(cfg, tp)[2] else (None, "model")
+def _mlp_specs(cfg: ModelConfig) -> dict:
     mlp = {"w_up": (None, "model"), "w_down": ("model", None)}
     if cfg.glu:
         mlp["w_gate"] = (None, "model")
-    s = {"ln1": _norm_specs(cfg), "ln2": _norm_specs(cfg), "mlp": mlp,
+    return mlp
+
+
+def layer_specs(cfg: ModelConfig, tp: int) -> dict:
+    """Specs of ONE layer (the caller prepends the stacking dim).  MoE: the
+    experts over the model group on their expert dim, the router replicated,
+    a dense residual FFN as the dense MLP."""
+    if cfg.block_kind != "attn":
+        raise NotImplementedError(f"{cfg.name}: the port shards attention stacks "
+                                  f"only so far")
+    kv = (None, None) if attn_mod.local_counts(cfg, tp)[2] else (None, "model")
+    s = {"ln1": _norm_specs(cfg), "ln2": _norm_specs(cfg),
          "attn": {"wq": (None, "model"), "wk": kv, "wv": kv, "wo": ("model", None)}}
+    if cfg.is_moe:
+        moe = {"router": (None, None), "w_up": ("model", None, None),
+               "w_down": ("model", None, None)}
+        if cfg.glu:
+            moe["w_gate"] = ("model", None, None)
+        if cfg.moe_dense_residual:
+            moe["dense"] = _mlp_specs(cfg)
+        s["moe"] = moe
+    else:
+        s["mlp"] = _mlp_specs(cfg)
     return _strip_model(s) if tp == 1 else s
 
 
@@ -120,30 +142,35 @@ def layer_tables(cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 def apply_layer(cfg: ModelConfig, lp: dict, x: torch.Tensor, *,
                 positions: torch.Tensor, window: int,
-                axis: AxisCtx = LOCAL) -> torch.Tensor:
-    """One layer, training mode: norm -> attention -> norm -> MLP, each with
-    its residual.  ``lp`` holds this rank's model shards.  (The JAX layer
-    also returns an MoE aux loss, which is 0 for the dense stacks the port
-    runs.)"""
+                axis: AxisCtx = LOCAL) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One layer, training mode: norm -> attention -> norm -> MLP or MoE,
+    each with its residual.  ``lp`` holds this rank's model shards.  Returns
+    (x, aux): the MoE router's load-balance loss, an fp32 scalar, or None
+    for a dense layer (the JAX package's 0.0; nothing to differentiate)."""
     h = apply_norm(cfg, lp["ln1"], x)
     x = x + attn_mod.attention_train(cfg, lp["attn"], h, positions=positions,
                                      window=window, axis=axis)
     h = apply_norm(cfg, lp["ln2"], x)
-    return x + mlp_mod.apply_mlp(cfg, lp["mlp"], h, axis)
+    if cfg.is_moe:
+        delta, aux = moe_mod.apply_moe(cfg, lp["moe"], h, axis)
+        return x + delta, aux
+    return x + mlp_mod.apply_mlp(cfg, lp["mlp"], h, axis), None
 
 
 def forward(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True,
             axis: AxisCtx = LOCAL):
     """Embed, the layer stack (each layer recomputed in the backward when
-    ``remat``), the final norm -> x [B, S, D]."""
+    ``remat``), the final norm -> (x [B, S, D], the layers' summed aux)."""
     x, positions = embed_inputs(cfg, params, batch, axis)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, w in zip(params["layers"], cfg.layer_windows()):
         if remat:
-            x = checkpoint(apply_layer, cfg, lp, x, positions=positions, window=w,
-                           axis=axis, use_reentrant=False)
+            x, a = checkpoint(apply_layer, cfg, lp, x, positions=positions, window=w,
+                              axis=axis, use_reentrant=False)
         else:
-            x = apply_layer(cfg, lp, x, positions=positions, window=w, axis=axis)
-    return apply_norm(cfg, params["final_norm"], x)
+            x, a = apply_layer(cfg, lp, x, positions=positions, window=w, axis=axis)
+        aux = aux if a is None else aux + a
+    return apply_norm(cfg, params["final_norm"], x), aux
 
 
 def head_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
@@ -154,11 +181,13 @@ def head_loss(cfg: ModelConfig, params: dict, x: torch.Tensor,
 
 def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True,
             axis: AxisCtx = LOCAL):
-    """Summed token loss (and, as the JAX package returns, (nll, n_tok)).
-    The caller divides by the global token count."""
-    x = forward(cfg, params, batch, remat=remat, axis=axis)
+    """Summed token loss plus the router's aux loss weighted per token (and,
+    as the JAX package returns, (nll, n_tok)).  The caller divides by the
+    global token count."""
+    x, aux = forward(cfg, params, batch, remat=remat, axis=axis)
     nll = head_loss(cfg, params, x, batch, axis)
-    return nll, (nll, batch["mask"].float().sum())
+    n_tok = batch["mask"].float().sum()
+    return nll + cfg.router_aux_weight * aux * n_tok, (nll, n_tok)
 
 
 def to_device(params: dict, device) -> dict:

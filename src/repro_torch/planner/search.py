@@ -467,7 +467,7 @@ def _serving_bytes(cfg, tp: int) -> tuple[float, float, float, float]:
     itemsize = _DTYPE_BYTES.get(cfg.dtype, 2)
     w = 2.0 * cfg.param_count() / tp                      # bf16 serving weights
     kv_pt = float(kv_bytes_per_token(cfg, tp))
-    flops_pt = 2.0 * cfg.param_count() / tp     # dense: every parameter is active
+    flops_pt = 2.0 * cfg.param_count(active_only=True) / tp
     ring = (tp - 1) / tp if tp > 1 else 0.0
     coll_pt = cfg.num_layers * 2.0 * ring * cfg.d_model * itemsize
     return w, kv_pt, flops_pt, coll_pt

@@ -9,6 +9,10 @@
     lands at ``(table[len // bs], len % bs)`` and attention runs through the
     paged decode kernel.
 
+An MoE layer routes every row of the step, as the JAX package's does: the
+pad positions of a prefill batch and the idle slots of a decode step take
+expert capacity too (their outputs are discarded).
+
 K/V writes into the pool are in place (``index_put_``, also behind the
 indexed assignment in the decode step).  The JAX package writes through a
 functional update of a donated buffer; here nothing is donated or copied,
@@ -21,6 +25,7 @@ import torch
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.common import (ModelConfig, apply_norm, apply_rope,
                                        embed_tokens, lm_logits)
@@ -37,7 +42,12 @@ def _write_prefill_kv(pool: torch.Tensor, kv: torch.Tensor,
 
 
 def _mlp_block(cfg: ModelConfig, lp: dict, x: torch.Tensor) -> torch.Tensor:
-    return x + mlp_mod.apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+    """The feed-forward half of a layer: the MLP, or the MoE (its aux loss
+    dropped)."""
+    h = apply_norm(cfg, lp["ln2"], x)
+    if cfg.is_moe:
+        return x + moe_mod.apply_moe(cfg, lp["moe"], h)[0]
+    return x + mlp_mod.apply_mlp(cfg, lp["mlp"], h)
 
 
 def paged_prefill_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict,

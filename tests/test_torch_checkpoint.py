@@ -506,3 +506,50 @@ def test_fault_plan_json_is_the_jax_one(tmp_path):
         flt.FaultPlan.from_json([1, 2])
     (f,) = tuple(flt.FaultPlan([flt.Fault("crash", 2)]).pending_at(2))
     assert f.to_json() == {"kind": "crash", "step": 2}
+
+
+MOE = ["--arch", "dbrx-132b", "--smoke", "--global-batch", "4", "--seq-len", "32",
+       "--microbatches", "2", "--log-every", "100"]
+
+
+def _entries(d) -> list:
+    """A checkpoint's leaves: (name, layers, shape, dtype), file hashes aside."""
+    return [(e["name"], e["layers"], e["shape"], e["dtype"])
+            for e in store.load_manifest(d)["entries"]]
+
+
+@pytest.mark.parametrize("first", ["jax", "port"])
+def test_moe_checkpoints_interchange(tmp_path, jax_no_kernels, first):
+    """dbrx-132b smoke (4 experts, top 2): one package trains 4 steps,
+    saving at 2 and 4; the other, ``--resume auto --steps 4`` from its step-2
+    checkpoint, takes steps 2 and 3 as the first did (the trajectory
+    tolerance, 1e-5).  Both step-4 checkpoints hold the same leaves (names,
+    shapes, dtypes; the router fp32 ``[L, D, E]`` and the expert stacks
+    ``[L, E, D, F]`` as ZeRO chunks), their arrays to 1e-4: where an
+    expert's gradient is near zero, Adam's per-element normalisation turns
+    its fp32 rounding into a few percent of one step (lr 3e-3), as in
+    ``tests/test_torch_moe.py``."""
+    runs = {"jax": lambda argv: jtrain.main(MOE + argv),
+            "port": lambda argv: train.main(MOE + ["--device", "cpu"] + argv)}
+    second = "port" if first == "jax" else "jax"
+    runs[first](["--steps", "4", "--checkpoint-dir", str(tmp_path / "a"), "--checkpoint-every",
+                 "2", "--metrics", str(tmp_path / "a.jsonl")])
+    ref = _steps(tmp_path / "a.jsonl")
+    seeded = _seed_dir(tmp_path / "a", tmp_path / "b", 2)
+    r = runs[second](["--steps", "4", "--checkpoint-dir", seeded, "--resume", "auto",
+                      "--checkpoint-every", "2"])
+    assert [h["step"] for h in r["history"]] == [2, 3] and r["restarts"] == 0
+    _close({h["step"]: h for h in r["history"]}, ref, (2, 3))
+    a, b = (os.path.join(d, "step_00000004") for d in (tmp_path / "a", seeded))
+    assert _entries(a) == _entries(b)
+    cfg = dataclasses.replace(jconfigs.get_config("dbrx-132b", smoke=True), kernels=False)
+    names = {e[0]: e for e in _entries(a)}
+    L, D, E = cfg.num_layers, cfg.d_model, cfg.num_experts
+    assert names["params__layers__moe__router"][2:] == ([L, 1, 1, D * E], "float32")
+    assert names["params__layers__moe__w_up"][2:] == ([L, 1, 1, E * D * cfg.d_ff], "float32")
+    like = jreshard.bundle_template(cfg, jreshard.MeshLayout(n_microbatches=2))
+    x, _ = jstore.load_state(a, like)
+    y, _ = jstore.load_state(b, like)
+    assert x["params"]["layers"]["moe"]["router"].dtype == np.float32
+    for u, v in zip(jax.tree.leaves(x), jax.tree.leaves(y)):
+        np.testing.assert_allclose(np.asarray(u), np.asarray(v), rtol=0, atol=1e-4)

@@ -88,6 +88,8 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape, window, cap, causal, kv_
     ((2, 300, 8, 2, 64), 40, 30.0, True, 0),      # window, softcap, hd 64
     ((1, 130, 4, 1, 128), 1, 0.0, True, 0),       # a window of one key
     ((2, 50, 4, 2, 64), 12, 0.0, False, 41),      # non-causal, padded keys
+    ((2, 1024, 48, 8, 128), 0, 0.0, True, 0),     # rep 6 (dbrx-132b)
+    ((1, 1024, 56, 8, 128), 0, 0.0, True, 0),     # rep 7 (arctic-480b): odd rep
 ])
 def test_flash_tensor_core_kernel_matches_plain(cuda, shape, window, cap, causal, kv_len):
     """bf16 K3 at head dim 64 and 128 runs on the tensor cores and rounds p to
@@ -167,7 +169,7 @@ def test_paged_kernel_is_deterministic(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hq,hkv,D,bs,window,cap", [
     (32, 4, 128, 16, 0, 0.0), (8, 1, 256, 8, 0, 0.0), (4, 2, 64, 16, 20, 30.0),
-    (48, 1, 128, 16, 0, 0.0)])
+    (48, 1, 128, 16, 0, 0.0), (48, 8, 128, 16, 0, 0.0), (56, 8, 128, 16, 0, 0.0)])
 def test_paged_kernel_matches_plain(cuda, dtype, hq, hkv, D, bs, window, cap):
     R, N, maxb = 6, 64, 40
     g = torch.Generator(device=cuda).manual_seed(hq + D)
@@ -185,7 +187,7 @@ def test_paged_kernel_matches_plain(cuda, dtype, hq, hkv, D, bs, window, cap):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-9b", "dbrx-132b", "arctic-480b"])
 def test_engine_on_card_matches_cpu(cuda, arch):
     """fp32 smoke configs: the card (kernels) and the CPU (plain versions)
     emit the same greedy tokens for the same weights and trace."""
@@ -294,6 +296,8 @@ def _flash_bwd_case(cuda, B, S, Hq, Hkv, D, dtype, kw, seed):
     ((2, 50, 4, 2, 64), 12, 0.0, False, 41),
     ((1, 300, 32, 4, 128), 0, 0.0, True, 0),
     ((2, 2048, 32, 4, 128), 0, 0.0, True, 0),     # the training path's micro-batch
+    ((1, 512, 48, 8, 128), 0, 0.0, True, 0),      # rep 6 (dbrx-132b)
+    ((1, 512, 56, 8, 128), 0, 0.0, True, 0),      # rep 7 (arctic-480b)
 ])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, window, cap, causal, kv_len):
     n = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
@@ -437,13 +441,27 @@ def test_train_step_on_card_matches_cpu(cuda, method, part):
     turns the rounding of a near-zero gradient element (card vs CPU) into a
     difference of up to lr in its weight; a larger eps keeps the update a
     smooth function of g, so the weights can be held to fp32 noise."""
-    cfg = configs.get_config("yi-6b", smoke=True)
-    acc = AccumConfig(method=method, partitioned=part, n_microbatches=2)
+    _train_on_card_and_cpu(cuda, configs.get_config("yi-6b", smoke=True),
+                           AccumConfig(method=method, partitioned=part, n_microbatches=2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("ep", [False, True], ids=["chunked", "resident"])
+def test_moe_train_step_on_card_matches_cpu(cuda, ep):
+    """The same for dbrx-132b smoke (4 experts, top 2), layered and
+    partitioned, its expert stacks chunked or resident."""
+    _train_on_card_and_cpu(cuda, configs.get_config("dbrx-132b", smoke=True),
+                           AccumConfig(partitioned=True, n_microbatches=2, expert_parallel=ep))
+
+
+def _train_on_card_and_cpu(cuda, cfg, acc):
+    part = acc.partitioned
     step = stepfn.build_train_step(cfg, acc, AdamConfig(lr=1e-3, eps=1e-3, warmup_steps=1,
                                                         decay_steps=3))
     data = DataConfig(vocab_size=cfg.vocab_size, seq_len=48, global_batch=4,
                       n_microbatches=2)
-    cpu = stepfn.init_storage(cfg, 0, partitioned=part, device="cpu")
+    cpu = stepfn.init_storage(cfg, 0, partitioned=part, device="cpu",
+                              expert_resident=acc.expert_parallel)
     runs = {}
     for dev in ("cpu", cuda):
         storage = tree.tree_map(lambda t: t.to(dev, copy=True), cpu)
@@ -468,3 +486,25 @@ def test_train_cli_on_card(cuda, capsys):
     assert out["device"] == "cuda" and out["steps"] == 2
     assert all(np.isfinite(r["loss"]) and r["peak_mem_gb"] > 0 for r in out["records"])
     assert '"first_loss"' in capsys.readouterr().out.splitlines()[-1]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["dbrx-132b", "arctic-480b"])
+def test_apply_moe_on_card_matches_cpu(cuda, arch):
+    """One MoE block (fp32 smoke config) on the card and on the CPU with the
+    same weights: the router's expert ids equal, the output and aux to 1e-4
+    (fp32 sums in other orders)."""
+    from repro_torch.models import moe
+    cfg = configs.get_config(arch, smoke=True)
+    p = moe.init_moe(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.randn(2, 64, cfg.d_model, generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        pd = tree.tree_map(lambda t: t.to(dev), p)
+        _, ids, _ = moe._router(cfg, pd, x.to(dev).reshape(-1, cfg.d_model))
+        y, aux = moe.apply_moe(cfg, pd, x.to(dev))
+        out[str(dev)] = (ids.cpu(), y.cpu(), aux.cpu())
+    (ids_c, y_c, a_c), (ids_g, y_g, a_g) = out["cpu"], out[str(cuda)]
+    assert torch.equal(ids_c, ids_g)
+    torch.testing.assert_close(y_g, y_c, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(a_g, a_c, rtol=1e-4, atol=1e-4)

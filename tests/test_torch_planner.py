@@ -22,6 +22,7 @@ import torch
 
 from repro import configs as jconfigs
 from repro.core import calculator as jcalc
+from repro.core import roofline as jroofline
 from repro.core.schedules import PipeSpec as JPipeSpec
 from repro.launch import plan as jplan_cli
 from repro.launch import serve as jserve
@@ -236,11 +237,24 @@ def test_plan_cli_paper_mode_matches_jax(tmp_path):
         "modular/layered/part"
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-9b", "dbrx-132b", "arctic-480b"])
 def test_search_serving_matches_jax(arch):
     a = [p.row() for p in searchlib.search_serving(configs.get_config(arch))]
     assert a == [p.row() for p in jsearch.search_serving(jconfigs.get_config(arch))]
     assert serve.main(["--arch", arch, "--plan"]) == jserve.main(["--arch", arch, "--plan"])
+
+
+@pytest.mark.parametrize("arch", ["yi-6b", "dbrx-132b", "arctic-480b"])
+def test_model_flops_match_jax(arch):
+    """6ND and 2ND at the active parameters (an MoE layer's routed experts
+    and its router), as the JAX roofline counts them."""
+    for smoke in (False, True):
+        cfg, jcfg = configs.get_config(arch, smoke=smoke), jconfigs.get_config(arch, smoke=smoke)
+        assert roofline.model_flops_train(cfg, 8, 2048) == \
+            jroofline.model_flops_train(jcfg, 8, 2048)
+        assert roofline.model_flops_decode(cfg, 16) == jroofline.model_flops_decode(jcfg, 16)
+    if arch != "yi-6b":
+        assert cfg.param_count(active_only=True) < cfg.param_count()
 
 
 # ---------------------------------------------------------------------------
