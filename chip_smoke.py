@@ -96,7 +96,26 @@ nonzero and prints no result:
      exact K1-K6 counts, finite loss, grad norm and aux; (e) K1/K2 at
      d_model 6144 and 7168, K3-K5 at rep 6 and 7, K7 at both, against their
      plain versions with phase 2's tolerances;
- 11. the ``kernels`` line (launches over phases 4-10), and as the last line
+ 11. the recurrent families, with the earlier phases' tensors freed first:
+     (a) rwkv6-3b (32 layers, 6.54 GB) and zamba2-7b (81 layers, 13
+     shared-block slots, 26.04 GB) at full width and depth in bf16, weights
+     made on the card, through ``stepfn.build_prefill_step`` (8 prompts of 512
+     tokens) and 64 greedy ``build_serve_step`` steps over the dense cache:
+     prefill ms, decode ms a step, tok/s, peak memory, exact K1/K3 counts, a
+     profile of 4 decode steps; (b) every published width cut in depth (2 and
+     6 layers), fp32, card against CPU: prefill logits, the greedy tokens of
+     4 decode steps and the final recurrent state; (c) ``launch.train`` at
+     full width, layered and partitioned, 8 x 2048 tokens in 4 micro-batches,
+     5 steps, exact K1-K6 counts: rwkv6-3b at full depth (52.3 GB of fp32
+     state), zamba2-7b cut to 12 layers (the shared block twice, its gradient
+     summed over both); (d) the §C.3 fused step on that cut, its first loss
+     equal to (c)'s, then one fused step profiled; (e) K1/K2 at rwkv6-3b's
+     training rows [4096, 2560] and both archs' decode rows [8, d_model]
+     against their plain versions.  Phase 2 also holds K1-K5 at zamba2-7b's
+     shapes (K1/K2 on [4096, 3584]; K3-K5 at head dim 112: the training
+     shape [2, 2048, 32, 112], the prefill shape [8, 512, 32, 112], GQA at
+     rep 4, fp32) with K3-K5's times, bounds and SDPA's;
+ 12. the ``kernels`` line (launches over phases 4-11), and as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -615,6 +634,12 @@ def phase_kernels(torch, F):
     say(f"  time K4 + K5 at the training shape: {bwd_ms:.4f} ms, {bwd_ms / sdpa_bwd_ms:.2f}x "
         f"SDPA's backward ({sdpa_bwd_ms:.4f} ms)")
     del main, q, k, v, do, out, lse, delta, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+
+    # -- K3-K5 at head dim 112 (zamba2-7b's shared attention)
+    for name, r in hd112_checks(torch, F, failures).items():
+        rows[name]["hd112"] = r
+    torch.cuda.empty_cache()
 
     # -- K6 AdamW: the largest storage leaf of the 8-layer Yi-6B, the stacked w_up
     say(f"K6 adamw (in place; fp32 outputs element by element within {K6_ATOL:g} + "
@@ -1741,44 +1766,56 @@ PAPER_ARGV = ["--arch", "paper-x", "--size", "160", "--grid", "reduced", "--simu
               "--max-sims", "24"]
 
 
-def shape_checks(torch, cfg, mb: int, S: int, label: str) -> list:
-    """K1-K5 at a micro-batch of mb x S tokens of ``cfg`` (bf16) against
-    their plain versions, with phase 2's training-shape tolerances: K1/K2 on
-    [mb * S, d_model] rows, K3 (and its row check), K4 and K5 on q [mb, S,
-    num_heads, head_dim], k/v [mb, S, num_kv_heads, head_dim], causal.
-    Returns the failures."""
+def shape_checks(torch, cfg, mb: int, S: int, label: str, *, attention: bool = True,
+                 dtype=None, errs: dict | None = None) -> list:
+    """K1-K5 at a micro-batch of mb x S tokens of ``cfg`` (in ``dtype``, bf16
+    unless given) against their plain versions, with phase 2's training-shape
+    tolerances: K1/K2 on [mb * S, d_model] rows, K3 (and in bf16 its row
+    check), K4 and K5 on q [mb, S, num_heads, head_dim], k/v [mb, S,
+    num_kv_heads, head_dim], causal; K1/K2 alone when ``attention`` is
+    false.  ``errs`` collects each kernel's max_abs_err.  Returns the
+    failures."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
 
     g = torch.Generator(device="cuda").manual_seed(SEED)
+    dtype = dtype or torch.bfloat16
+    errs = {} if errs is None else errs
 
-    def randn(*shape, dtype=torch.bfloat16):
+    def randn(*shape, dtype=dtype):
         return torch.randn(*shape, generator=g, device="cuda").to(dtype)
 
     failures = []
     D = cfg.d_model
     x, dy, s = randn(mb * S, D), randn(mb * S, D), randn(D, dtype=torch.float32)
-    name = f"{label} rows={mb * S} D={D} bfloat16"
-    check_case(torch, "K1 " + name, rn.rmsnorm_cuda(x, s), rn.plain(x, s), failures)
-    check_case(torch, "K2 " + name, rn.rmsnorm_bwd_cuda(x, s, dy), rn.plain_bwd(x, s, dy),
-               failures, parts=(" [dx]", " [dscale]"), rel=True)
+    name = f"{label} rows={mb * S} D={D} {str(dtype)[6:]}"
+    errs["rmsnorm"] = check_case(torch, "K1 " + name, rn.rmsnorm_cuda(x, s), rn.plain(x, s),
+                                 failures)
+    errs["rmsnorm_bwd"] = check_case(torch, "K2 " + name, rn.rmsnorm_bwd_cuda(x, s, dy),
+                                     rn.plain_bwd(x, s, dy), failures,
+                                     parts=(" [dx]", " [dscale]"), rel=True)
     del x, dy
-    Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, do = randn(mb, S, Hq, hd), randn(mb, S, Hq, hd)
-    k, v = randn(mb, S, Hkv, hd), randn(mb, S, Hkv, hd)
-    name = f"{label} q={[mb, S, Hq, hd]} kv_heads={Hkv} bfloat16 causal"
-    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
-    check_case(torch, "K3 " + name, (out, lse), fa.plain(q, k, v), failures,
-               bf16_rel=BF16_FWD_TOL)
-    check_rows(torch, "K3 " + name, out, fa.plain(q, k, v, round_p=True)[0], failures)
-    dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
-    dq_p, delta_p = fa.plain_bwd_dq(q, k, v, out, lse, do)
-    check_case(torch, "K4 " + name, (dq, delta), (dq_p, delta_p), failures,
-               parts=(" [dq]", " [delta]"), rel=True, bf16_rel=BF16_BWD_TOL)
-    del dq, dq_p
-    check_case(torch, "K5 " + name, fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta),
-               fa.plain_bwd_dkv(q, k, v, do, lse, delta_p), failures,
-               parts=(" [dk]", " [dv]"), rel=True, bf16_rel=BF16_BWD_TOL)
+    if attention:
+        Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        q, do = randn(mb, S, Hq, hd), randn(mb, S, Hq, hd)
+        k, v = randn(mb, S, Hkv, hd), randn(mb, S, Hkv, hd)
+        name = f"{label} q={[mb, S, Hq, hd]} kv_heads={Hkv} {str(dtype)[6:]} causal"
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+        errs["flash_attention_fwd"] = check_case(torch, "K3 " + name, (out, lse),
+                                                 fa.plain(q, k, v), failures,
+                                                 bf16_rel=BF16_FWD_TOL)
+        if dtype == torch.bfloat16:
+            check_rows(torch, "K3 " + name, out, fa.plain(q, k, v, round_p=True)[0], failures)
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+        dq_p, delta_p = fa.plain_bwd_dq(q, k, v, out, lse, do)
+        errs["flash_attention_bwd_dq"] = check_case(
+            torch, "K4 " + name, (dq, delta), (dq_p, delta_p), failures,
+            parts=(" [dq]", " [delta]"), rel=True, bf16_rel=BF16_BWD_TOL)
+        del dq, dq_p
+        errs["flash_attention_bwd_dkv"] = check_case(
+            torch, "K5 " + name, fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta),
+            fa.plain_bwd_dkv(q, k, v, do, lse, delta_p), failures,
+            parts=(" [dk]", " [dv]"), rel=True, bf16_rel=BF16_BWD_TOL)
     torch.cuda.empty_cache()
     return failures
 
@@ -2207,6 +2244,455 @@ def phase_moe(torch, np, smi) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the recurrent families (rwkv6-3b, zamba2-7b)
+# ---------------------------------------------------------------------------
+RECURRENT_SERVE = ("rwkv6-3b", "zamba2-7b")                 # full width and depth
+SERVE_B, SERVE_S, SERVE_STEPS = 8, 512, 64
+RECURRENT_PARITY = {"rwkv6-3b": 2, "zamba2-7b": 6}         # layers (6: the shared block runs)
+# launch.train at full width: rwkv6-3b at full depth (52.3 GB of fp32 state),
+# zamba2-7b cut to 12 layers (the shared block after layers 5 and 11; 36.8 GB)
+RECURRENT_TRAIN = {"rwkv6-3b": 0, "zamba2-7b": 12}
+FUSED_FAMILY_STEPS = 2
+
+
+def family_step_launches(cfg, M: int) -> dict:
+    """K1-K6 launches of one layered step of a recurrent stack at M
+    micro-batches: RWKV's block norms are plain (the JAX package's
+    ``rms_norm``), so only the final norm runs K1/K2 (the head, forward and
+    backward per micro-batch); a Mamba layer's norm runs K1 twice (forward,
+    recompute) and K2 once per micro-batch, the shared block's two norms and
+    its attention likewise after each flagged layer; K6 once per storage
+    leaf."""
+    from repro_torch import tree
+    from repro_torch.core import stepfn
+    n_sh = sum(cfg.attn_layer_flags())
+    leaves = len(tree.leaves(stepfn.full_template(cfg)))
+    if cfg.block_kind == "rwkv":
+        return {"rmsnorm": M, "rmsnorm_bwd": M, "flash_attention_fwd": 0,
+                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "adamw": leaves}
+    L = cfg.num_layers
+    return {"rmsnorm": 2 * M * L + 4 * M * n_sh + M, "rmsnorm_bwd": M * L + 2 * M * n_sh + M,
+            "flash_attention_fwd": 2 * M * n_sh, "flash_attention_bwd_dq": M * n_sh,
+            "flash_attention_bwd_dkv": M * n_sh, "adamw": leaves}
+
+
+def serve_launches(cfg, calls: int) -> dict:
+    """K1/K3 launches of ``calls`` dense-cache prefill or decode calls: one
+    K1 per Mamba layer, two per shared block and the final norm (RWKV's block
+    norms are plain); K3 once per shared block in a prefill (the decode
+    attends over the dense cache in plain PyTorch, as the JAX package does)."""
+    n_sh = sum(cfg.attn_layer_flags())
+    per = (cfg.num_layers if cfg.block_kind == "mamba" else 0) + 2 * n_sh + 1
+    return {"rmsnorm": per * calls, "flash_attention_fwd": n_sh}
+
+
+def hd112_checks(torch, F, failures) -> dict:
+    """K3-K5 at head dim 112 (Zamba2-7B's shared attention: the head-dim-128
+    instances compiled with the true head dim as a template parameter)
+    through ``shape_checks`` at zamba2-7b's training micro-batch (2 x 2048,
+    which also holds K1/K2 on its [4096, 3584] rows), its prefill (8 x 512),
+    GQA at rep 4, and fp32 on the CUDA-core kernels; the bf16 cases must run
+    the <128, 112> tensor-core instances.  At the training shape each
+    kernel's time, bound and SDPA's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    say("K3-K5 at head dim 112 (zamba2-7b's shared attention; the tensor-core instances in "
+        "bf16, the CUDA-core ones in fp32; phase 2's tolerances)")
+    cfg = configs.get_config("zamba2-7b")
+    gqa = dataclasses.replace(cfg, num_kv_heads=8)
+    errs = {}
+    cases = [(cfg, 2, 2048, torch.bfloat16, errs),          # training micro-batch
+             (cfg, 8, 512, torch.bfloat16, None),           # prefill
+             (gqa, 2, 512, torch.bfloat16, None),           # GQA rep 4
+             (gqa, 1, 300, torch.float32, None)]
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for c, mb, S, dtype, e in cases:
+            failures += shape_checks(torch, c, mb, S, "zamba2-7b", dtype=dtype, errs=e)
+        torch.cuda.synchronize()
+    launched = {}
+    for e in prof.key_averages():
+        hit = re.search(r"flash_\w*kernel\w*<[^>]*>", e.key)
+        if e.device_type == DeviceType.CUDA and hit:
+            launched[hit.group(0)] = launched.get(hit.group(0), 0) + e.count
+    say(f"  hd 112 launched as: {launched}")
+    n_tc = sum(c for name, c in launched.items() if "_tc<128, 112>" in name)
+    if n_tc != 3 * sum(dt == torch.bfloat16 for *_, dt, _ in cases):
+        failures.append(f"hd 112: the bf16 cases ran {n_tc} tensor-core launches")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    B, S, Hq, D = 2, 2048, cfg.num_heads, cfg.head_dim
+    q, k, v, do = (torch.randn(B, S, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
+                   for _ in range(4))
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    es = q.element_size()
+    pairs = B * Hq * S * (S + 1) // 2
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), [qt, kt, vt], dot)
+
+    sdpa_fwd = cuda_ms(torch, sdpa, 20)
+    sdpa_bwd = cuda_ms(torch, sdpa_fwd_bwd, 10) - cuda_ms(torch, sdpa, 10)
+    io = 4 * B * Hq * S
+    out_rows = {
+        "flash_attention_fwd": dict(
+            max_abs_err=errs["flash_attention_fwd"],
+            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 20),
+            library_ms=sdpa_fwd,
+            bound=bound(es * (2 * q.numel() + 2 * k.numel()) + io, 4 * D * pairs, "bfloat16")),
+        "flash_attention_bwd_dq": dict(
+            max_abs_err=errs["flash_attention_bwd_dq"],
+            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do), 20),
+            library_ms=sdpa_bwd,
+            bound=bound(es * (4 * q.numel() + 2 * k.numel()) + 2 * io, 6 * D * pairs,
+                        "bfloat16")),
+        "flash_attention_bwd_dkv": dict(
+            max_abs_err=errs["flash_attention_bwd_dkv"],
+            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta),
+                       20),
+            library_ms=sdpa_bwd,
+            bound=bound(es * (2 * q.numel() + 4 * k.numel()) + 2 * io, 8 * D * pairs,
+                        "bfloat16"))}
+    for name, r in out_rows.items():
+        say(f"  time {name} at hd 112, q [{B}, {S}, {Hq}, {D}] k/v [{B}, {S}, {k.shape[2]}, "
+            f"{D}] bf16 causal: kernel_ms={r['ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+            f"({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.0f}%) library_ms (SDPA"
+            f"{'' if name.endswith('fwd') else ' backward, dq dk dv together'})="
+            f"{r['library_ms']:.4f}")
+    del q, k, v, do, out, lse, delta, qt, kt, vt, dot
+    return out_rows
+
+
+def recurrent_profile(torch, label: str, fn, n: int) -> None:
+    """Device time over ``n`` calls of ``fn`` (a decode or a train step):
+    busy share and the top kernels (device activity only: a train step
+    launches a hundred thousand kernels).  Reports; never fails the run."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    dev_us = sum(e.self_device_time_total for e in kern)
+    gemm = sum(e.self_device_time_total for e in kern
+               if any(k in e.key.lower() for k in GEMM_NAMES))
+    say(f"  profile {label}: wall {wall_us / n / 1e3:.3f} ms per call, device busy "
+        f"{dev_us / n / 1e3:.3f} ms ({100 * dev_us / wall_us:.1f}% of wall, idle "
+        f"{100 - 100 * dev_us / wall_us:.1f}%), GEMM {gemm / n / 1e3:.3f} ms, kernel launches "
+        f"{sum(e.count for e in kern) // n} per call")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:5]:
+        say(f"    {e.self_device_time_total / n / 1e3:8.3f} ms x{e.count // n:<5d} {e.key[:90]}")
+
+
+def serve_recurrent(torch, np, smi, arch: str) -> dict:
+    """(a) ``arch`` at full width and depth, bf16, weights made on the card:
+    ``stepfn.build_prefill_step`` over 8 prompts of 512 tokens, then 64
+    greedy ``build_serve_step`` steps over the dense cache; exact K1/K3
+    counts; then a profile of 4 decode steps."""
+    from repro_torch import configs
+    from repro_torch.core import stepfn
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    nbytes = sum(p.numel() * p.element_size() for _, p in T.named_parameters(params))
+    say(f"  {arch}: {cfg.num_layers} layers, d_model {cfg.d_model}, "
+        f"{sum(cfg.attn_layer_flags())} shared-block slots, {nbytes / 1e9:.2f} GB of weights "
+        f"(bf16 matrices), made on the card in {time.perf_counter() - t0:.1f} s; "
+        f"{free_card(torch)}")
+    prefill, serve = stepfn.build_prefill_step(cfg), stepfn.build_serve_step(cfg)
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (SERVE_B, SERVE_S)).astype(
+        np.int32)).cuda()
+    warm = T.init_cache(cfg, 1, 80, device="cuda")                 # cuBLAS and allocator
+    lg, warm = prefill(params, warm, {"tokens": toks[:1, :64]})
+    serve(params, warm, lg.argmax(-1).int())
+    del warm
+    cache = T.init_cache(cfg, SERVE_B, SERVE_S + SERVE_STEPS, device="cuda")
+    torch.cuda.synchronize()
+    rn.launches = fa.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = prefill(params, cache, {"tokens": toks})
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    counts_p = {"rmsnorm": rn.launches, "flash_attention_fwd": fa.launches}
+    out, finite = [], bool(torch.isfinite(logits).all())
+    t0 = time.perf_counter()
+    for _ in range(SERVE_STEPS):
+        nxt = logits.argmax(-1).int()
+        out.append(nxt)
+        logits, cache = serve(params, cache, nxt)
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    finite = finite and bool(torch.isfinite(logits).all())
+    counts = {"rmsnorm": rn.launches, "flash_attention_fwd": fa.launches}
+    want = serve_launches(cfg, 1 + SERVE_STEPS)
+    toks_out = torch.stack(out, 1).cpu()
+    say(f"  {arch} dense-cache serving on {smi}: prefill {SERVE_B} x {SERVE_S} tokens "
+        f"{1e3 * t_prefill:.1f} ms ({SERVE_B * SERVE_S / t_prefill:.0f} tok/s); "
+        f"{SERVE_STEPS} greedy decode steps {1e3 * t_decode / SERVE_STEPS:.2f} ms a step "
+        f"({SERVE_B * SERVE_STEPS / t_decode:.1f} tok/s); overall "
+        f"{SERVE_B * SERVE_STEPS / (t_prefill + t_decode):.1f} generated tok/s; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB; cache pos {cache['pos']}")
+    say(f"  launches: prefill {counts_p}, prefill + decode {counts}, expected {want}; first "
+        f"tokens {toks_out[:, :8].tolist()}")
+    problems = []
+    if not finite:
+        problems.append(f"{arch}: non-finite logits")
+    if not bool(((toks_out >= 0) & (toks_out < cfg.vocab_size)).all()):
+        problems.append(f"{arch}: token outside the vocabulary")
+    if cache["pos"] != SERVE_S + SERVE_STEPS:
+        problems.append(f"{arch}: cache position {cache['pos']}")
+    if counts != want:
+        problems.append(f"{arch}: launch counts {counts} != {want}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    try:
+        state = {"logits": logits}
+
+        def one():
+            state["logits"], _ = serve(params, cache, state["logits"].argmax(-1).int())
+
+        cache["pos"] = SERVE_S + SERVE_STEPS - 4          # 4 more steps inside the cache
+        recurrent_profile(torch, f"{arch} decode step, {SERVE_B} sequences", one, 4)
+    except Exception as e:  # noqa: BLE001 — the breakdown is optional; say why it is missing
+        say(f"  profile: not measured ({type(e).__name__}: {e})")
+    del params, cache, logits
+    return counts
+
+
+def recurrent_parity(torch, np) -> None:
+    """(b) Every published width, cut in depth, fp32, one set of weights made
+    on the card and copied to the CPU: 2 prompts of 40 tokens through
+    prefill and 4 greedy decode steps on each; the prefill logits (1e-3 of
+    their scale), the greedy tokens (equal) and the final recurrent states
+    (1e-3 of their scale)."""
+    from repro_torch import configs, tree
+    from repro_torch.core import stepfn
+    from repro_torch.models import transformer as T
+
+    for arch, layers in RECURRENT_PARITY.items():
+        cfg = dataclasses.replace(configs.get_config(arch), num_layers=layers, dtype="float32")
+        t0 = time.perf_counter()
+        on_card = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+        params = {"cuda": on_card, "cpu": T.to_device(on_card, "cpu")}
+        toks = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 40)).astype(np.int32)
+        res = {}
+        for dev in ("cuda", "cpu"):
+            t1 = time.perf_counter()
+            cache = T.init_cache(cfg, 2, 44, device=dev)
+            lg, cache = stepfn.build_prefill_step(cfg)(params[dev], cache, {
+                "tokens": torch.from_numpy(toks).to(dev)})
+            first, greedy = lg.cpu(), [lg.argmax(-1).cpu()]
+            for _ in range(4):
+                lg, cache = stepfn.build_serve_step(cfg)(params[dev], cache,
+                                                         greedy[-1].to(dev).int())
+                greedy.append(lg.argmax(-1).cpu())
+            res[dev] = (first, torch.stack(greedy, 1),
+                        tree.tree_map(lambda t: t.float().cpu(), cache["ssm"]))
+            say(f"  {arch} {dev}: prefill and 4 decode steps in {time.perf_counter() - t1:.1f} s")
+        (lg_g, tok_g, st_g), (lg_c, tok_c, st_c) = res["cuda"], res["cpu"]
+        err = (lg_g - lg_c).abs().max().item()
+        tol = 1e-3 * max(1.0, lg_c.abs().max().item())
+        st_err = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                     for a, b in zip(tree.leaves(st_g), tree.leaves(st_c)))
+        same = torch.equal(tok_g, tok_c)
+        say(f"  {arch} width {cfg.d_model}, {layers} layers, fp32: prefill logits max_abs_err="
+            f"{err:.3e} tol={tol:.3e}; final recurrent state max err {st_err:.3e} of its scale "
+            f"(tol 1e-3); greedy tokens equal={same} {tok_g.tolist()} (weights made in "
+            f"{time.perf_counter() - t0:.1f} s)")
+        if not (err <= tol and st_err <= 1e-3 and same):
+            raise AssertionError(f"{arch}: card and CPU disagree")
+        del on_card, params, res
+
+
+def train_recurrent(torch, smi, arch: str, layers: int) -> tuple[dict, dict]:
+    """(c) ``launch.train`` at ``arch``'s full width (``layers`` = 0: full
+    depth), layered, partitioned, 8 x 2048 tokens in 4 micro-batches, 5
+    steps: exact K1-K6 launches, finite loss and grad norm; at full depth,
+    then one more step of the run's state profiled."""
+    from repro_torch import configs
+    from repro_torch.core import stepfn
+    from repro_torch.core.accumulation import AccumConfig
+    from repro_torch.data.synthetic import DataConfig, batch_for
+    from repro_torch.launch import train
+    from repro_torch.optim.adam import AdamConfig
+
+    argv = ["--arch", arch, "--global-batch", "8", "--seq-len", "2048", "--microbatches",
+            str(TRAIN_MB), "--steps", str(TRAIN_STEPS), "--lr", "3e-3", "--seed", str(SEED)]
+    if layers:
+        argv += ["--layers", str(layers)]
+    cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+    counters = train_counters()
+    say(f"  before training {arch}: {free_card(torch)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    res = train.main(argv, keep_state=not layers)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    per_step = family_step_launches(cfg, TRAIN_MB)
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    for r in res["records"]:
+        say(f"  step {r['step']}: {r['step_time_s']:.3f} s, {r['tokens_per_s']:.0f} tok/s, "
+            f"MFU {100 * r['mfu']:.2f}% (6ND), loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.4f}, max memory allocated {r['peak_mem_gb']:.2f} GB")
+    steady = res["records"][1:]
+    say(f"  {arch} training on {smi}: width {cfg.d_model}, {cfg.num_layers} layers, "
+        f"{cfg.param_count() / 1e9:.3f} B parameters ({16 * cfg.param_count() / 1e9:.1f} GB of "
+        f"fp32 state), layered + partitioned, 8 x 2048 tokens in {TRAIN_MB} micro-batches; "
+        f"steady mean {sum(r['step_time_s'] for r in steady) / len(steady):.3f} s, "
+        f"{sum(r['tokens_per_s'] for r in steady) / len(steady):.0f} tok/s, MFU "
+        f"{100 * sum(r['mfu'] for r in steady) / len(steady):.2f}%")
+    say(f"  launches over {TRAIN_STEPS} steps {counts}; per step {per_step}")
+    problems = []
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in res["records"]):
+        problems.append(f"{arch}: non-finite loss or grad norm")
+    if counts != want:
+        problems.append(f"{arch}: launch counts {counts} != {want}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    if not layers:
+        try:
+            state = res.pop("state")
+            step = stepfn.build_train_step(cfg, AccumConfig("layered", True, TRAIN_MB),
+                                           AdamConfig(lr=3e-3, warmup_steps=1,
+                                                      decay_steps=TRAIN_STEPS))
+            data = DataConfig(cfg.vocab_size, 2048, 8, TRAIN_MB, seed=SEED)
+
+            def one():
+                state["storage"], state["opt"], m = step(state["storage"], state["opt"],
+                                                         batch_for(cfg, data, TRAIN_STEPS))
+                m["loss"].item()
+
+            recurrent_profile(torch, f"{arch} train step", one, 1)
+        except Exception as e:  # noqa: BLE001 — the breakdown is optional; say why it is missing
+            say(f"  profile: not measured ({type(e).__name__}: {e})")
+        res.pop("state", None)
+        state = None
+    return counts, res
+
+
+def fused_recurrent(torch, smi, first_loss: float) -> None:
+    """(d) The §C.3 fused step on (c)'s zamba2-7b cut (the shared block
+    updated with the outer leaves after the step), from the same seed and
+    batch: step 0's loss equal to (c)'s (1e-6), every step finite, K6 once
+    per layer leaf and layer and per outer leaf a step; then one more fused
+    step profiled."""
+    from repro_torch import configs, tree
+    from repro_torch.core import stepfn
+    from repro_torch.core.accumulation import AccumConfig
+    from repro_torch.data.synthetic import DataConfig, batch_for
+    from repro_torch.kernels import adamw as aw
+    from repro_torch.optim.adam import AdamConfig, adam_init
+
+    cfg = dataclasses.replace(configs.get_config("zamba2-7b"),
+                              num_layers=RECURRENT_TRAIN["zamba2-7b"])
+    acc = AccumConfig("layered", True, TRAIN_MB)
+    opt_cfg = AdamConfig(lr=3e-3, warmup_steps=max(TRAIN_STEPS // 10, 1), decay_steps=TRAIN_STEPS)
+    say(f"  before the fused step: {free_card(torch)}")
+    torch.cuda.reset_peak_memory_stats()
+    storage = stepfn.init_storage(cfg, SEED, partitioned=True, device="cuda")
+    opt = adam_init(storage)
+    data = DataConfig(cfg.vocab_size, 2048, 8, TRAIN_MB, seed=SEED)
+    step = stepfn.build_fused_train_step(cfg, acc, opt_cfg)
+    tmpl = stepfn.full_template(cfg)
+    n_layer = len(tree.leaves(tmpl["layers"]))
+    want_k6 = n_layer * cfg.num_layers + len(tree.leaves(tmpl)) - n_layer
+    losses = []
+    for i in range(FUSED_FAMILY_STEPS):
+        aw.launches = 0
+        t0 = time.perf_counter()
+        storage, opt, m = step(storage, opt, batch_for(cfg, data, i))
+        losses.append(m["loss"].item())
+        say(f"  fused step {i}: {time.perf_counter() - t0:.3f} s, loss {losses[-1]:.6f}, K6 "
+            f"launches {aw.launches} (expected {want_k6}), max memory allocated "
+            f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+        if aw.launches != want_k6 or not math.isfinite(losses[-1]):
+            raise AssertionError(f"fused step {i}: K6 {aw.launches} != {want_k6} or loss "
+                                 f"{losses[-1]}")
+    rel_ = abs(losses[0] - first_loss) / abs(first_loss)
+    say(f"  fused step 0 loss {losses[0]:.6f} against (c)'s {first_loss:.6f}: rel {rel_:.2e} "
+        f"(tol 1e-6)")
+    if rel_ > 1e-6:
+        raise AssertionError("the fused step's first loss differs from the classic run's")
+    try:
+        state = {"s": storage, "o": opt}
+
+        def one():
+            state["s"], state["o"], m = step(state["s"], state["o"], batch_for(cfg, data, 2))
+            m["loss"].item()
+
+        recurrent_profile(torch, "zamba2-7b 12-layer fused train step", one, 1)
+    except Exception as e:  # noqa: BLE001 — the breakdown is optional; say why it is missing
+        say(f"  profile: not measured ({type(e).__name__}: {e})")
+    del storage, opt, state
+
+
+def phase_recurrent(torch, np, smi) -> dict:
+    """(a) both families served at full width and depth, (b) card against
+    CPU at every width, (c) ``launch.train`` at full width, (d) the fused
+    step, (e) K1/K2 at this phase's rows.  Returns the launches of (a) and
+    (c)."""
+    say(f"  at the start of phase 11: {free_card(torch)}")
+    counts, first = {}, {}
+
+    def add(c):
+        for name, n in (c or {}).items():
+            counts[name] = counts.get(name, 0) + n
+
+    parts = [(f"a {a}", lambda a=a: add(serve_recurrent(torch, np, smi, a)))
+             for a in RECURRENT_SERVE]
+    parts.append(("b", lambda: recurrent_parity(torch, np)))
+    for a, layers in RECURRENT_TRAIN.items():
+        def run(a=a, layers=layers):
+            c, res = train_recurrent(torch, smi, a, layers)
+            add(c)
+            first[a] = res["records"][0]["loss"]
+        parts.append((f"c {a}", run))
+    parts.append(("d", lambda: fused_recurrent(torch, smi, first["zamba2-7b"])))
+    for part, fn in parts:
+        t0 = time.perf_counter()
+        fn()
+        say(f"  ({part}) {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+    recurrent_norm_checks(torch)          # after the counted runs: these do not count
+    return counts
+
+
+def recurrent_norm_checks(torch) -> None:
+    """(e) K1/K2 at the rows of phase 11 that phase 2 does not hold (zamba2-7b's
+    training and prefill rows [4096, 3584] are there): rwkv6-3b's final norm
+    over a training micro-batch of 2 x 2048 (a prefill's 8 x 512 rows too)
+    and both archs' decode rows, against their plain versions."""
+    from repro_torch import configs
+    failures = shape_checks(torch, configs.get_config("rwkv6-3b"), 8 // TRAIN_MB, 2048,
+                            "rwkv6-3b training", attention=False)
+    for arch in RECURRENT_SERVE:
+        failures += shape_checks(torch, configs.get_config(arch), SERVE_B, 1,
+                                 f"{arch} decode", attention=False)
+    if failures:
+        raise AssertionError(f"kernels at phase 11's shapes: {failures}")
+
+
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -2296,24 +2782,33 @@ def main() -> int:
         t0 = time.perf_counter()
         moe_counts = phase_moe(torch, np, smi)
         say(f"[phase 10] the mixture-of-experts family ok; {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        recurrent_counts = phase_recurrent(torch, np, smi)
+        say(f"[phase 11] the recurrent families ok; {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
 
     # launches: the serving run's, the training run's, phases 6's, 7's, 8's,
-    # 9's (the plan-driven run's) and 10's (the MoE serving and training runs)
+    # 9's (the plan-driven run's), 10's (the MoE serving and training runs)
+    # and 11's (the recurrent families' serving and training runs)
     counts = {name: sum(c.get(name, 0) for c in (
         serve_counts, train_counts, group_counts, pipe_counts, sup_counts, plan_counts,
-        moe_counts)) for name in KERNELS}
+        moe_counts, recurrent_counts)) for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],
          "ms": rows[name]["ms"], "plain_ms": rows[name]["plain_ms"],
          "bound_ms": rows[name]["bound"][0], "bound_by": rows[name]["bound"][1],
          "library_ms": rows[name]["library_ms"],
-         **({"device_ms": rows[name]["device_ms"]} if "device_ms" in rows[name] else {})}
+         **({"device_ms": rows[name]["device_ms"]} if "device_ms" in rows[name] else {}),
+         **({"hd112_ms": rows[name]["hd112"]["ms"],
+             "hd112_bound_ms": rows[name]["hd112"]["bound"][0],
+             "hd112_library_ms": rows[name]["hd112"]["library_ms"]}
+            if "hd112" in rows[name] else {})}
         for name, (src, rep) in KERNELS.items()]}
-    say(f"[phase 11] total {time.perf_counter() - t_all:.1f} s")
+    say(f"[phase 12] total {time.perf_counter() - t_all:.1f} s")
     say(smi)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

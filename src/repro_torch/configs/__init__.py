@@ -1,6 +1,7 @@
 """Architecture registry: ``--arch <id>`` resolution (the token-input
-attention stacks the port runs so far, dense and mixture-of-experts; the SSM,
-hybrid and multimodal families come later).  ``paper-*`` configs resolve
+families the port runs so far: dense and mixture-of-experts attention stacks,
+the attention-free RWKV-6 and the Mamba-2 hybrid; the multimodal input modes
+come later).  ``paper-*`` configs resolve
 but are kept out of ``list_archs()``, as in the JAX registry."""
 from __future__ import annotations
 
@@ -11,8 +12,10 @@ from repro_torch.models.common import ModelConfig
 ARCHS = {
     "dbrx-132b": "dbrx_132b",
     "yi-6b": "yi_6b",
+    "zamba2-7b": "zamba2_7b",
     "granite-20b": "granite_20b",
     "gemma-2b": "gemma_2b",
+    "rwkv6-3b": "rwkv6_3b",
     "gemma2-9b": "gemma2_9b",
     "arctic-480b": "arctic_480b",
     "paper-x32": "paper_x",

@@ -3,8 +3,10 @@
 The JAX tree (``repro.models.transformer.init_params``) stacks the layers on
 a leading ``[L, ...]`` dim; pass it with numpy leaves (for example
 ``jax.tree.map(np.asarray, params)``).  ``params_from_numpy`` makes the
-serving parameters: matrices in ``cfg.dtype``, norm parameters and an MoE
-router fp32, as ``transformer.init_params`` makes them.  ``storage_from_numpy``
+serving parameters: matrices in ``cfg.dtype``; norm parameters, an MoE router
+and the recurrent blocks' vectors (``ssm.FP32_LEAVES``) fp32, as
+``transformer.init_params`` makes them; a hybrid's ``shared`` block likewise.
+``storage_from_numpy``
 makes the fp32 training storage (MoE expert stacks ``[L, E, D, F]`` chunked,
 or resident under expert parallelism), ``pipeline_storage_from_numpy`` a
 pipeline stage's.
@@ -20,6 +22,7 @@ from repro_torch.core import partition as zp
 from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
+from repro_torch.models.ssm import FP32_LEAVES
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -27,8 +30,11 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 
 
 def _layer_dtype(path: tuple, dt: torch.dtype) -> torch.dtype:
-    """A layer leaf's serving dtype: fp32 for the norms and the router."""
-    return torch.float32 if path[0] in ("ln1", "ln2") or path[-1] == "router" else dt
+    """A layer (or shared-block) leaf's serving dtype: fp32 for the norms,
+    the router and the recurrent blocks' vectors."""
+    fp32 = (path[0] in ("ln1", "ln2") or path[-1] == "router"
+            or (path[0] in ("rwkv", "mamba") and path[-1] in FP32_LEAVES))
+    return torch.float32 if fp32 else dt
 
 
 def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict:
@@ -46,6 +52,9 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict:
         "layers": [layer(i) for i in range(cfg.num_layers)],
         "final_norm": norm(tree["final_norm"]),
     }
+    if tree.get("shared"):
+        params["shared"] = ptree.tree_map_with_path(
+            lambda path, v: _tensor(v, _layer_dtype(path, dt), device), tree["shared"])
     if not cfg.tie_embeddings:
         params["head"] = _tensor(tree["head"], dt, device)
     return params
@@ -59,10 +68,9 @@ def storage_from_numpy(cfg: ModelConfig, tree: dict, *, partitioned: bool,
     rank's chunks ``[L?, 1, 1, chunk]`` (block ``[..., m, d, :]`` of
     ``partition.host_partition_leaf``), else its model shard of each leaf;
     under ``expert_resident``, its block ``[L, E/D, D, F/M]`` of each expert
-    stack (``partition.expert_resident_spec``).  The attention stacks' empty
-    ``shared`` subtree is dropped."""
-    if tree.get("shared"):
-        raise NotImplementedError("hybrid shared-attention blocks are not ported yet")
+    stack (``partition.expert_resident_spec``).  The other stacks' empty
+    ``shared`` subtree is dropped; a hybrid's is an outer leaf, chunked (or
+    model-sharded) like the embedding."""
 
     def conv(path, a, spec):
         a = np.asarray(a, np.float32)
@@ -79,7 +87,8 @@ def storage_from_numpy(cfg: ModelConfig, tree: dict, *, partitioned: bool,
         d = axis.data_index
         return _tensor(chunks[..., m:m + 1, d:d + 1, :], torch.float32, device)
 
-    return ptree.tree_map_with_path(conv, {k: v for k, v in tree.items() if k != "shared"},
+    return ptree.tree_map_with_path(conv, {k: v for k, v in tree.items()
+                                           if k != "shared" or v},
                                     T.param_specs(cfg, axis.tp))
 
 
@@ -93,7 +102,8 @@ def pipeline_storage_from_numpy(cfg: ModelConfig, tree: dict, spec, *, partition
     outer leaves in full (their model shards), never chunked, as the JAX
     package's ``partitioned_stage_param_specs`` keeps them."""
     if tree.get("shared"):
-        raise NotImplementedError("hybrid shared-attention blocks are not ported yet")
+        raise NotImplementedError("the pipeline of the hybrid families is not ported yet "
+                                  "(ROADMAP.md, item 7)")
     specs = T.param_specs(cfg, axis.tp)
     lspecs = T.layer_specs(cfg, axis.tp)
     s, d = axis.stage_index, axis.data_index

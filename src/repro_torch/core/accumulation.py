@@ -30,6 +30,14 @@ back the fp32 accumulators in the storage layout.  Under expert parallelism
 (``AccumConfig.expert_parallel``) an MoE layer's expert stacks are resident:
 a gather is a cast and the gradient stays on the rank, no collective at all.
 
+A hybrid's ``shared`` block (one parameter set applied after several layers)
+is an outer leaf: gathered with the embedding, handed to every layer whose
+flag is set, its gradient summed over those layers and the micro-batches in
+one fp32 accumulator and reduced once with the other outer leaves (the JAX
+package's ``dshared_acc`` carry).  In the standard schedule autograd sums its
+uses across the checkpointed layers; in the layered one each flagged layer's
+recompute takes it as an input of its backward.
+
 An MoE layer also returns the router's load-balance loss.  It enters the
 loss as ``router_aux_weight * aux / (M * L * D)`` a layer and micro-batch
 (D data ranks), as in the JAX package: the standard schedule adds it to each
@@ -191,9 +199,6 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
     the layer in the storage layout (``storage["layers"]`` leaves at ``[l]``).
     The stacked layer-gradient buffer is then never allocated, and the
     returned grads hold the outer leaves only."""
-    if cfg.block_kind != "attn":
-        raise NotImplementedError(f"{cfg.name}: the port trains attention stacks "
-                                  f"only so far")
     if acc.expert_parallel and cfg.is_moe and not acc.partitioned:
         raise ValueError("expert parallelism needs the partitioned layout: replicated "
                          "storage sums every leaf's gradient over the data group, "
@@ -204,7 +209,7 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
         raise ValueError("the per-layer update needs the layered schedule")
     ad = make_adapters(cfg, axis, acc, template)
     M, L = acc.n_microbatches, cfg.num_layers
-    windows = cfg.layer_windows()
+    windows, flags = cfg.layer_windows(), cfg.attn_layer_flags()
     part = acc.partitioned
     head_key = "embed" if cfg.tie_embeddings else "head"
     # each layer's and micro-batch's aux, weighted into the loss (JAX's
@@ -253,9 +258,10 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
                 return s.detach().requires_grad_()
             return s.to(cfg.torch_dtype, copy=True).requires_grad_()
 
-        def layer_fn(lp_in, x, pos, w):
+        def layer_fn(lp_in, shared, x, pos, w, fl):
             lp = ad.gather_ad(lp_in, ad.layer_shapes, layer=True) if part else lp_in
-            return T.apply_layer(cfg, lp, x, positions=pos, window=w, axis=axis)
+            return T.apply_layer(cfg, lp, x, positions=pos, window=w, axis=axis,
+                                 shared=shared, shared_flag=fl)
 
         nlls, auxs = [], None
         for mb in mbs:
@@ -268,13 +274,14 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
                 outer = (ad.gather_ad(outer_in, ad.outer_shapes, layer=False) if part
                          else outer_in)
                 x, pos = T.embed_inputs(cfg, outer, mb, axis)
+                shared = outer.get("shared")
                 aux = None
                 for l in range(L):
+                    args = (layers_in[l], shared, x, pos, windows[l], flags[l])
                     if acc.remat:
-                        x, a = checkpoint(layer_fn, layers_in[l], x, pos, windows[l],
-                                          use_reentrant=False)
+                        x, a = checkpoint(layer_fn, *args, use_reentrant=False)
                     else:
-                        x, a = layer_fn(layers_in[l], x, pos, windows[l])
+                        x, a = layer_fn(*args)
                     aux = a if aux is None else aux + a
                 x = apply_norm(cfg, outer["final_norm"], x)
                 nll = T.head_loss(cfg, outer, x, mb, axis)
@@ -321,6 +328,7 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
         mbs, inv_n = setup(batch)
         okeys = outer_keys(storage)
         outer = ad.gather_outer(storage)            # gathered once per step
+        shared = outer.get("shared")
         device = storage["embed"].device
         a_outer = ad.accumulators(ad.outer_shapes, device)
         # the stacked layer gradients (none with the per-layer update), each
@@ -343,7 +351,8 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
             with torch.no_grad():
                 for m in range(M):
                     xs[m], a = T.apply_layer(cfg, lp, xs[m], positions=pos[m],
-                                             window=windows[l], axis=axis)
+                                             window=windows[l], axis=axis, shared=shared,
+                                             shared_flag=flags[l])
                     aux_total = add_aux(aux_total, a)
             del lp
 
@@ -368,14 +377,15 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
             x_in = [ckpt_restore(c, S) for c in ckpt[l]]
             ckpt[l] = None
             lp = ad.gather_layer(storage, l)
-            wrt = tree.leaves(lp)
             a_layer = ad.accumulators(ad.layer_shapes, device)
-            accs = tree.leaves(a_layer)
+            wrt, accs = tree.leaves(lp), tree.leaves(a_layer)
+            if flags[l]:     # the shared block's gradient, over every layer it follows
+                wrt, accs = wrt + tree.leaves(shared), accs + tree.leaves(a_outer["shared"])
             for m in range(M):
                 xm = x_in[m].requires_grad_()
                 with torch.enable_grad():
                     y, a = T.apply_layer(cfg, lp, xm, positions=pos[m], window=windows[l],
-                                         axis=axis)
+                                         axis=axis, shared=shared, shared_flag=flags[l])
                 outs, cots = [y], [dxs[m]]
                 if a is not None:                   # the router's aux cotangent
                     outs.append(a)

@@ -61,6 +61,15 @@ def _last_weight_ticks(table, s: int) -> dict:
     return last
 
 
+def check_pipelinable(cfg: ModelConfig) -> None:
+    """Raises for the stacks the executor does not run yet (the JAX
+    package's runs them, the shared block's gradient summed over stages)."""
+    if cfg.block_kind != "attn" or cfg.is_moe:
+        raise NotImplementedError(f"{cfg.name}: the port pipelines dense attention stacks "
+                                  f"only so far; the pipeline with MoE and with the "
+                                  f"recurrent families is ROADMAP.md item 7")
+
+
 def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned: bool,
                           axis: AxisCtx, recorder=None, table=None):
     """Returns ``grad_fn(storage, batch) -> (grads like storage, metrics)``
@@ -73,9 +82,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
     ``obs.trace.TickRecorder``) times this stage's unit of each tick, its
     compute only (the tick profiler, ``obs.trace.measure_tick_timeline``);
     without one the pass records nothing and adds no sync."""
-    if cfg.block_kind != "attn" or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: the port pipelines dense attention "
-                                  f"stacks only so far")
+    check_pipelinable(cfg)
     if axis.stage is None or axis.data is None:
         raise ValueError("the pipeline runs on the stage and data groups of "
                          "dist.make_axis")

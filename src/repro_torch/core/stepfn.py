@@ -29,25 +29,52 @@ def _mlp_template(cfg: ModelConfig, d: int, f: int) -> dict:
     return mlp
 
 
+def _layer_template(cfg: ModelConfig, norm: dict) -> dict:
+    """One layer's shapes (unstacked)."""
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.block_kind == "rwkv":
+        inner = cfg.rwkv_inner
+        return {"rwkv": {"ln1": (d,), "ln2": (d,), "w_bias": (inner,),
+                         "u_bonus": (cfg.rwkv_heads, cfg.ssm_head_dim), "mix": (5, d),
+                         "w_time_out": (inner, d), "cm_mix": (2, d), "cm_k": (d, f),
+                         "cm_v": (f, d), "cm_r": (d, d),
+                         **{k: (d, inner) for k in ("w_r", "w_k", "w_v", "w_g", "w_w")}}}
+    if cfg.block_kind == "mamba":
+        heads, st = f // cfg.ssm_head_dim, cfg.ssm_state
+        return {"ln1": norm, "mamba": {
+            "w_x": (d, f), "w_z": (d, f), "w_B": (d, st), "w_C": (d, st),
+            "w_dt": (d, heads), "dt_bias": (heads,), "A_log": (heads,),
+            "D_skip": (heads,), "w_out": (f, d)}}
+    return {"ln1": norm, "ln2": norm, "attn": _attn_template(cfg)}
+
+
+def _attn_template(cfg: ModelConfig) -> dict:
+    d, hd = cfg.d_model, cfg.head_dim
+    return {"wq": (d, cfg.num_heads * hd), "wk": (d, cfg.num_kv_heads * hd),
+            "wv": (d, cfg.num_kv_heads * hd), "wo": (cfg.num_heads * hd, d)}
+
+
 def full_template(cfg: ModelConfig) -> dict:
     """The shapes of the JAX parameter tree (layers stacked on a leading
-    ``[L]`` dim) for an attention stack, dense or MoE."""
-    d, hd, f, L = cfg.d_model, cfg.head_dim, cfg.d_ff, cfg.num_layers
+    ``[L]`` dim; a hybrid's ``shared`` block, whose empty subtree the other
+    stacks drop)."""
+    d, f, L = cfg.d_model, cfg.d_ff, cfg.num_layers
     norm = ({"scale": (d,), "bias": (d,)} if cfg.norm == "layernorm"
             else {"scale": (d,)})
-    layer = {"ln1": norm, "ln2": norm,
-             "attn": {"wq": (d, cfg.num_heads * hd), "wk": (d, cfg.num_kv_heads * hd),
-                      "wv": (d, cfg.num_kv_heads * hd), "wo": (cfg.num_heads * hd, d)}}
+    layer = _layer_template(cfg, norm)
     if cfg.is_moe:
         e = cfg.num_experts
         moe = {"router": (d, e), **{k: (e, *shp) for k, shp in _mlp_template(cfg, d, f).items()}}
         if cfg.moe_dense_residual:
             moe["dense"] = _mlp_template(cfg, d, cfg.moe_dense_ff or f)
         layer["moe"] = moe
-    else:
+    elif cfg.block_kind == "attn":
         layer["mlp"] = _mlp_template(cfg, d, f)
     out = {"embed": (cfg.vocab_size, d), "final_norm": dict(norm),
            "layers": tree.tree_map(lambda s: (L, *s), layer)}
+    if cfg.hybrid_attn_period > 0:
+        out["shared"] = {"ln1": dict(norm), "attn": _attn_template(cfg), "ln2": dict(norm),
+                         "mlp": _mlp_template(cfg, d, f)}
     if not cfg.tie_embeddings:
         out["head"] = (cfg.vocab_size, d)
     return out
@@ -253,7 +280,8 @@ def build_fused_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConf
 
         grad_fn = make_grad_fn(cfg, acc, tmpl, axis=axis, layer_update=layer_update)
         outer_grads, metrics = grad_fn(storage, _on_device(storage, batch))
-        # the outer leaves (embed, head, final norm) are updated after the step
+        # the outer leaves (embed, head, final norm, a hybrid's shared block)
+        # are updated after the step
         for k, g in outer_grads.items():
             for p, m, v, gg in zip(tree.leaves(storage[k]), tree.leaves(opt["mu"][k]),
                                    tree.leaves(opt["nu"][k]), tree.leaves(g)):
@@ -262,6 +290,59 @@ def build_fused_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConf
         return storage, dict(opt, step=stp), metrics
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# The dense-cache serving steps (single rank)
+# ---------------------------------------------------------------------------
+ROADMAP_GROUP_SERVING = ("serving over a model or data group and sequence-sharded decode "
+                         "are not ported yet (ROADMAP.md, item 6)")
+
+
+def _single_rank(axis: AxisCtx, seq_shard: bool = False) -> None:
+    if seq_shard or axis.tp > 1 or axis.ndata > 1 or axis.nstage > 1:
+        raise NotImplementedError(ROADMAP_GROUP_SERVING)
+
+
+def cache_specs(cfg: ModelConfig, axis: AxisCtx = LOCAL, *, seq_shard: bool = False) -> dict:
+    """The JAX package's sharding of the dense cache, on one rank: every dim
+    whole (None).  Keys as ``transformer.init_cache``'s."""
+    _single_rank(axis, seq_shard)
+    specs: dict = {"pos": ()}
+    kv = (None,) * 5
+    if cfg.num_attn_slots() > 0:
+        specs.update(k=kv, v=kv)
+        if cfg.has_window_cache:
+            specs.update(kw=kv, vw=kv)
+    if cfg.block_kind == "mamba":
+        specs["ssm"] = kv
+    elif cfg.block_kind == "rwkv":
+        specs["ssm"] = {"S": kv, "x_tm": (None,) * 3, "x_cm": (None,) * 3}
+    return specs
+
+
+def build_serve_step(cfg: ModelConfig, *, axis: AxisCtx = LOCAL, seq_shard: bool = False):
+    """Returns ``serve(params, cache, tokens [B]) -> (logits [B, V], cache)``:
+    one greedy-decode step against the dense cache (``transformer.decode_step``,
+    the cache updated in place)."""
+    _single_rank(axis, seq_shard)
+
+    def serve(params, cache, tokens):
+        return T.decode_step(cfg, params, cache, tokens, axis)
+
+    return serve
+
+
+def build_prefill_step(cfg: ModelConfig, *, axis: AxisCtx = LOCAL):
+    """Returns ``prefill(params, cache, batch) -> (logits [B, V], cache)``
+    (``transformer.prefill_step``: the KV cache written for positions
+    [0, S), the recurrent states to their end state)."""
+    _single_rank(axis)
+
+    def prefill(params, cache, batch):
+        return T.prefill_step(cfg, params, cache, batch, axis)
+
+    return prefill
 
 
 # ---------------------------------------------------------------------------

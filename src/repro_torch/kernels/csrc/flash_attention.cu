@@ -11,8 +11,10 @@
 // flops per byte); below that, as at the serving path's S <= 512, the bytes
 // of q and out.  Two instances, chosen by dtype and head dim in the C entry:
 //
-// bf16 at head dim 64 and 128 (the training path and serving prefill: Yi-6B,
-// hd 128), flash_fwd_kernel_tc, runs both products on the tensor cores
+// bf16 at head dim 64, 112 and 128 (the training path and serving prefill:
+// Yi-6B, hd 128; Zamba2-7B's shared attention, hd 112, in D = 128 tiles with
+// zero columns past 112: the instance flash_fwd_kernel_tc<128, 112>),
+// flash_fwd_kernel_tc, runs both products on the tensor cores
 // (wgmma, bf16 operands, fp32 accumulators) over tiles of 64 rows kept bf16
 // in shared memory in wgmma's 128-byte-swizzled layout (wgmma.cuh):
 //   * a block owns the same 64 query rows of two q heads of one GQA group,
@@ -79,7 +81,7 @@ template <int D> struct Smem {
       sizeof(float) * (BQ * D + 2 * BK * KSTRIDE + WARPS * ROWS * BK);
 };
 
-template <typename T, int D>
+template <typename T, int D, int DT = D>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ out,
@@ -108,7 +110,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < BQ * VPR; i += THREADS) {
     const int r = i / VPR, c = (i % VPR) * V;
     float buf[V];
-    if (q0 + r < S) {
+    if (q0 + r < S && (DT == D || c < DT)) {
       Vec16<T>::load(qb + (q0 + r) * qsS + c, buf);
 #pragma unroll
       for (int j = 0; j < V; ++j) buf[j] *= scale;
@@ -143,7 +145,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = tid; i < BK * VPR; i += THREADS) {
       const int r = i / VPR, c = (i % VPR) * V;
       float kbuf[V], vbuf[V];
-      if (k0 + r < S) {
+      if (k0 + r < S && (DT == D || c < DT)) {
         Vec16<T>::load(kb + (k0 + r) * ksS + c, kbuf);
         Vec16<T>::load(vb + (k0 + r) * vsS + c, vbuf);
       } else {
@@ -216,19 +218,21 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (qp >= S) continue;
     float lt = warp_sum(l[r]);
     lt = lt == 0.f ? 1.f : lt;
-    T* o = out + (((int64_t)b * S + qp) * Hq + h) * D + lane * DPL;
+    T* o = out + (((int64_t)b * S + qp) * Hq + h) * DT + lane * DPL;
+    if (DT == D || lane * DPL < DT) {
 #pragma unroll
-    for (int c = 0; c < DPL; ++c) o[c] = from_float<T>(acc[r][c] / lt);
+      for (int c = 0; c < DPL; ++c) o[c] = from_float<T>(acc[r][c] / lt);
+    }
     if (lane == 0) lse[((int64_t)b * Hq + h) * S + qp] = m[r] + logf(lt);
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, int DT = D>
 int launch(const void* q, const void* k, const void* v, void* out, void* lse, int B,
            int S, int Hq, int Hkv, const long long* qs, const long long* ks,
            const long long* vs, int kv_len, int causal, int window, float softcap,
            cudaStream_t st) {
-  auto kern = flash_fwd_kernel<T, D>;
+  auto kern = flash_fwd_kernel<T, D, DT>;
   const size_t smem = Smem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -238,7 +242,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(out), static_cast<float*>(lse), S, Hq, Hkv, qs[0], qs[1], qs[2],
       ks[0], ks[1], ks[2], vs[0], vs[1], vs[2], kv_len, causal, window, softcap,
-      1.f / sqrtf(static_cast<float>(D)));
+      1.f / sqrtf(static_cast<float>(DT)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,7 +302,7 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
 // Warpgroup w serves q head 2 * pair + w of its GQA group; when the group
 // has an odd number of heads the second warpgroup of the last pair repeats
 // the group's last head and stores nothing.
-template <int D>
+template <int D, int DT = D>
 __global__ void __launch_bounds__(WGS * TC_THREADS)
 flash_fwd_kernel_tc(const bf16* __restrict__ q, const __grid_constant__ CUtensorMap tmK,
                     const __grid_constant__ CUtensorMap tmV, bf16* __restrict__ out,
@@ -352,7 +356,7 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const __grid_constant__ CUtensor
   }
   __syncthreads();
   if (n > 0) load_kv(0);
-  tc::load_tile<D, TC_THREADS>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
+  tc::load_tile<D, TC_THREADS, DT>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
   tc::cp_async_commit();
   tc::cp_async_wait<0>();
   tc::fence_proxy_async();
@@ -453,9 +457,9 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const __grid_constant__ CUtensor
     const int qp = q0 + r0 + 8 * e;
     if (qp >= S) continue;
     const float inv = l[e] > 0.f ? 1.f / l[e] : 0.f;   // no live key: out 0
-    bf16* o = out + (((int64_t)b * S + qp) * Hq + h) * D + c2;
+    bf16* o = out + (((int64_t)b * S + qp) * Hq + h) * DT + c2;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DT / 8; ++j)
       *reinterpret_cast<uint32_t*>(o + 8 * j) =
           tc::pack_bf16(acc[4 * j + 2 * e] * inv, acc[4 * j + 2 * e + 1] * inv);
     if (c2 == 0)
@@ -465,7 +469,10 @@ flash_fwd_kernel_tc(const bf16* __restrict__ q, const __grid_constant__ CUtensor
 
 // A 4-d tensor map over K or V [B, S, Hkv, D] (strides in elements, the head
 // dim dense) whose box is one 64-row by 64-column chunk of a tile, 128-byte
-// swizzled.  cuTensorMapEncodeTiled is looked up through the runtime
+// swizzled.  At D = 112 the second chunk's columns 112-127 lie outside the
+// tensor and the copy fills them with zeros (load_tile zeroes the Q tile's),
+// so a D = 128 tile serves with no padded copy in memory.
+// cuTensorMapEncodeTiled is looked up through the runtime
 // (CUDA 12.5 or later), so the library links against nothing more.
 int encode_kv_map(CUtensorMap* map, const void* base, int B, int S, int H, int D,
                   const long long* strides) {
@@ -490,16 +497,16 @@ int encode_kv_map(CUtensorMap* map, const void* base, int B, int S, int H, int D
   return res == CUDA_SUCCESS ? 0 : kBadArgs;
 }
 
-template <int D>
+template <int D, int DT = D>
 int launch_tc(const void* q, const void* k, const void* v, void* out, void* lse, int B,
               int S, int Hq, int Hkv, const long long* qs, const long long* ks,
               const long long* vs, int kv_len, int causal, int window, float softcap,
               cudaStream_t st) {
   CUtensorMap tmK, tmV;
-  int status = encode_kv_map(&tmK, k, B, S, Hkv, D, ks);
-  if (status == 0) status = encode_kv_map(&tmV, v, B, S, Hkv, D, vs);
+  int status = encode_kv_map(&tmK, k, B, S, Hkv, DT, ks);
+  if (status == 0) status = encode_kv_map(&tmV, v, B, S, Hkv, DT, vs);
   if (status != 0) return status;
-  auto kern = flash_fwd_kernel_tc<D>;
+  auto kern = flash_fwd_kernel_tc<D, DT>;
   const size_t smem = FwdTc<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -509,7 +516,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, void* lse,
   kern<<<blocks, WGS * TC_THREADS, smem, st>>>(
       static_cast<const bf16*>(q), tmK, tmV, static_cast<bf16*>(out),
       static_cast<float*>(lse), B, S, Hq, Hkv, qs[0], qs[1], qs[2], kv_len, causal, window,
-      softcap, 1.f / sqrtf(static_cast<float>(D)));
+      softcap, 1.f / sqrtf(static_cast<float>(DT)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -517,8 +524,13 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, void* lse,
 
 // q/k/v strides are (batch, seq, head) in elements; the last dim is dense.
 // out is a dense [B, S, Hq, D] tensor of q's dtype, lse a dense fp32 [B, Hq, S].
-// bf16 at head dim 64 and 128 runs on the tensor cores; fp32, and bf16 at
-// head dim 256, on the CUDA cores.  Any other dtype or head dim is refused.
+// bf16 at head dim 64, 112 and 128 runs on the tensor cores; fp32, and bf16
+// at head dim 256, on the CUDA cores.  Head dim 112 (Zamba2-7B's shared
+// attention) runs D = 128 instances compiled with the true head dim DT = 112:
+// the tiles' columns 112-127 are zeros, stores skip them, and the scale is
+// 112^-0.5; at DT = D every such test folds away at compile time, so the
+// other head dims run exactly the code they ran before.  Any other dtype or
+// head dim is refused.
 extern "C" int rt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       void* out, void* lse, int B, int S, int Hq,
                                       int Hkv, int D, const long long* q_strides,
@@ -529,20 +541,22 @@ extern "C" int rt_flash_attention_fwd(const void* q, const void* k, const void* 
   if (B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || kv_len <= 0 || kv_len > S)
     return kBadArgs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define RT_FWD(T_, D_) \
-  launch<T_, D_>(q, k, v, out, lse, B, S, Hq, Hkv, q_strides, k_strides, v_strides, \
-                 kv_len, causal, window, softcap, st)
-#define RT_FWD_TC(D_) \
-  launch_tc<D_>(q, k, v, out, lse, B, S, Hq, Hkv, q_strides, k_strides, v_strides, \
-                kv_len, causal, window, softcap, st)
+#define RT_FWD(T_, D_, DT_) \
+  launch<T_, D_, DT_>(q, k, v, out, lse, B, S, Hq, Hkv, q_strides, k_strides, v_strides, \
+                      kv_len, causal, window, softcap, st)
+#define RT_FWD_TC(D_, DT_) \
+  launch_tc<D_, DT_>(q, k, v, out, lse, B, S, Hq, Hkv, q_strides, k_strides, v_strides, \
+                     kv_len, causal, window, softcap, st)
   if (dtype == kFloat32) {
-    if (D == 64) return RT_FWD(float, 64);
-    if (D == 128) return RT_FWD(float, 128);
-    if (D == 256) return RT_FWD(float, 256);
+    if (D == 64) return RT_FWD(float, 64, 64);
+    if (D == 112) return RT_FWD(float, 128, 112);
+    if (D == 128) return RT_FWD(float, 128, 128);
+    if (D == 256) return RT_FWD(float, 256, 256);
   } else if (dtype == kBFloat16) {
-    if (D == 64) return RT_FWD_TC(64);
-    if (D == 128) return RT_FWD_TC(128);
-    if (D == 256) return RT_FWD(__nv_bfloat16, 256);
+    if (D == 64) return RT_FWD_TC(64, 64);
+    if (D == 112) return RT_FWD_TC(128, 112);
+    if (D == 128) return RT_FWD_TC(128, 128);
+    if (D == 256) return RT_FWD(__nv_bfloat16, 256, 256);
   }
 #undef RT_FWD
 #undef RT_FWD_TC

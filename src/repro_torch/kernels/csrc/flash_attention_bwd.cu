@@ -71,7 +71,13 @@
 //   * fp32 stays off the tensor cores: TF32 would break the full-width fp32
 //     card-vs-CPU train parity.
 // Both instances read q/k/v/out/dO in the JAX layout [B, S, H, D] through
-// strides.
+// strides.  Head dim 112 (Zamba2-7B's shared attention) runs D = 128
+// instances compiled with the true head dim DT = 112: columns 112-127 of every
+// tile are zeros (cp.async's src-size form, or skipped loads on the CUDA
+// cores), the stores and the delta row sums skip them, and the scale is
+// 112^-0.5.  Nothing is padded in memory; at DT = D every such test folds away
+// at compile time, so the other head dims run exactly the code they ran
+// before.
 #include "common.cuh"
 #include "wgmma.cuh"
 
@@ -84,9 +90,9 @@ constexpr int THREADS = WARPS * 32;
 constexpr int BQ = 32;                 // query rows per tile
 constexpr int BK = 32;                 // keys per tile (K4)
 
-// stage rows [r0, r0 + n) of a [.., S, .., D] head into smem rows of `stride`
-// floats, scaled; rows past S are zero
-template <typename T, int D>
+// stage rows [r0, r0 + n) of a [.., S, .., DT] head into smem rows of `stride`
+// floats, scaled; rows past S and columns past DT (<= D) are zero
+template <typename T, int D, int DT = D>
 __device__ __forceinline__ void stage_rows(float* dst, int stride, const T* src,
                                            int64_t row_stride, int r0, int n, int S,
                                            float scale) {
@@ -95,7 +101,7 @@ __device__ __forceinline__ void stage_rows(float* dst, int stride, const T* src,
   for (int i = threadIdx.x; i < n * VPR; i += THREADS) {
     const int r = i / VPR, c = (i % VPR) * V;
     float buf[V];
-    if (r0 + r < S) {
+    if (r0 + r < S && (DT == D || c < DT)) {
       Vec16<T>::load(src + (int64_t)(r0 + r) * row_stride + c, buf);
 #pragma unroll
       for (int j = 0; j < V; ++j) buf[j] *= scale;
@@ -119,7 +125,7 @@ template <int D> struct DqSmem {
       sizeof(float) * (2 * BQ * D + 2 * BK * KSTRIDE + WARPS * DQ_ROWS * BK);
 };
 
-template <typename T, int D>
+template <typename T, int D, int DT = D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
@@ -144,8 +150,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const T* kb = k + b * ksB + hk * ksH;
   const T* vb = v + b * vsB + hk * vsH;
-  stage_rows<T, D>(Qs, D, q + b * qsB + h * qsH, qsS, q0, BQ, S, 1.f);
-  stage_rows<T, D>(Os, D, dO + b * dsB + h * dsH, dsS, q0, BQ, S, 1.f);
+  stage_rows<T, D, DT>(Qs, D, q + b * qsB + h * qsH, qsS, q0, BQ, S, 1.f);
+  stage_rows<T, D, DT>(Os, D, dO + b * dsB + h * dsH, dsS, q0, BQ, S, 1.f);
   __syncthreads();
 
   // delta = rowsum(dO * O), lse, and the dead-row flag for the warp's rows
@@ -158,7 +164,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int r = 0; r < DQ_ROWS; ++r) {
     const int qp = qw0 + r;  // warp-uniform
     float part = 0.f;
-    if (qp < S) {
+    if (qp < S && (DT == D || lane * DPL < DT)) {
       const T* orow = o + b * osB + (int64_t)qp * osS + h * osH + lane * DPL;
       float ov[DPL];
       load_row<T, DPL>(orow, ov);
@@ -186,8 +192,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int t = lo; t < hi; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile is consumed
-    stage_rows<T, D>(Ks, KSTRIDE, kb, ksS, k0, BK, S, 1.f);
-    stage_rows<T, D>(Vs, KSTRIDE, vb, vsS, k0, BK, S, 1.f);
+    stage_rows<T, D, DT>(Ks, KSTRIDE, kb, ksS, k0, BK, S, 1.f);
+    stage_rows<T, D, DT>(Vs, KSTRIDE, vb, vsS, k0, BK, S, 1.f);
     __syncthreads();
 
     float s[DQ_ROWS], dp[DQ_ROWS];
@@ -247,8 +253,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int r = 0; r < DQ_ROWS; ++r) {
     const int qp = qw0 + r;
-    if (qp >= S) continue;
-    T* out = dq + (((int64_t)b * S + qp) * Hq + h) * D + lane * DPL;
+    if (qp >= S || (DT < D && lane * DPL >= DT)) continue;
+    T* out = dq + (((int64_t)b * S + qp) * Hq + h) * DT + lane * DPL;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) out[c] = from_float<T>(acc[r][c] * scale);
   }
@@ -265,7 +271,7 @@ template <int D> struct DkvCfg {
       sizeof(float) * (2 * BKV * STRIDE + 2 * BQ * STRIDE + 2 * BQ + 2 * WARPS * KR * BQ);
 };
 
-template <typename T, int D>
+template <typename T, int D, int DT = D>
 __global__ void __launch_bounds__(THREADS)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dO,
@@ -290,8 +296,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int k0 = blockIdx.x * BKV, hk = blockIdx.y, b = blockIdx.z;
   const int rep = Hq / Hkv;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  stage_rows<T, D>(Ks, STRIDE, k + b * ksB + hk * ksH, ksS, k0, BKV, S, 1.f);
-  stage_rows<T, D>(Vs, STRIDE, v + b * vsB + hk * vsH, vsS, k0, BKV, S, 1.f);
+  stage_rows<T, D, DT>(Ks, STRIDE, k + b * ksB + hk * ksH, ksS, k0, BKV, S, 1.f);
+  stage_rows<T, D, DT>(Vs, STRIDE, v + b * vsB + hk * vsH, vsS, k0, BKV, S, 1.f);
 
   const int kw0 = k0 + warp * KR;      // the warp's first key
   const float* Kw = Ks + warp * KR * STRIDE;
@@ -321,8 +327,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int t = qlo; t < qhi; ++t) {
       const int q0 = t * BQ;
       __syncthreads();  // the previous tile is consumed (and K/V are staged)
-      stage_rows<T, D>(Qs, STRIDE, qh, qsS, q0, BQ, S, 1.f);
-      stage_rows<T, D>(Os, STRIDE, oh, dsS, q0, BQ, S, 1.f);
+      stage_rows<T, D, DT>(Qs, STRIDE, qh, qsS, q0, BQ, S, 1.f);
+      stage_rows<T, D, DT>(Os, STRIDE, oh, dsS, q0, BQ, S, 1.f);
       if (tid < BQ) {
         const int qp = q0 + tid;
         const float l = qp < S ? lh[qp] : NEG_INF;
@@ -399,8 +405,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int j = 0; j < KR; ++j) {
     const int kp = kw0 + j;
-    if (kp >= S) continue;
-    const int64_t off = (((int64_t)b * S + kp) * Hkv + hk) * D + lane * DPL;
+    if (kp >= S || (DT < D && lane * DPL >= DT)) continue;
+    const int64_t off = (((int64_t)b * S + kp) * Hkv + hk) * DT + lane * DPL;
 #pragma unroll
     for (int c = 0; c < DPL; ++c) {
       dk[off + c] = from_float<T>(dk_acc[j][c] * scale);
@@ -446,7 +452,7 @@ __device__ __forceinline__ void p_ds(float s_raw, float dp, float lse2, float de
 
 // K4.  Grid: one block per (q tile, q head, batch), numbered so that the
 // q tiles with the most keys come first under causal.
-template <int D>
+template <int D, int DT = D>
 __global__ void __launch_bounds__(TC_THREADS)
 flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const bf16* __restrict__ o,
@@ -478,11 +484,11 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lo = window > 0 ? max(q0 - window + 1, 0) / TT : 0;
   const int n = hi - lo;
 
-  tc::load_tile<D, TC_THREADS>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
-  tc::load_tile<D, TC_THREADS>(sO, dob, dsS, q0, S, tid);
+  tc::load_tile<D, TC_THREADS, DT>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
+  tc::load_tile<D, TC_THREADS, DT>(sO, dob, dsS, q0, S, tid);
   if (n > 0) {
-    tc::load_tile<D, TC_THREADS>(sKV, kb, ksS, lo * TT, S, tid);
-    tc::load_tile<D, TC_THREADS>(sKV + TILE, vb, vsS, lo * TT, S, tid);
+    tc::load_tile<D, TC_THREADS, DT>(sKV, kb, ksS, lo * TT, S, tid);
+    tc::load_tile<D, TC_THREADS, DT>(sKV + TILE, vb, vsS, lo * TT, S, tid);
   }
   tc::cp_async_commit();
 
@@ -495,7 +501,7 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     for (int r = warp * 16 + lane / CPR; r < warp * 16 + 16; r += RPP) {
       const int qp = q0 + r;
       float part = 0.f;
-      if (qp < S) {
+      if (qp < S && (DT == D || j * 8 < DT)) {
         float x[8], y[8];
         Vec16<bf16>::load(dob + (int64_t)qp * dsS + j * 8, x);
         Vec16<bf16>::load(o + b * osB + (int64_t)qp * osS + h * osH + j * 8, y);
@@ -536,8 +542,8 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint32_t sK = sKV + (i & 1) * 2 * TILE, sV = sK + TILE;
     if (i + 1 < n) {
       const uint32_t nK = sKV + ((i + 1) & 1) * 2 * TILE;
-      tc::load_tile<D, TC_THREADS>(nK, kb, ksS, k0 + TT, S, tid);
-      tc::load_tile<D, TC_THREADS>(nK + TILE, vb, vsS, k0 + TT, S, tid);
+      tc::load_tile<D, TC_THREADS, DT>(nK, kb, ksS, k0 + TT, S, tid);
+      tc::load_tile<D, TC_THREADS, DT>(nK + TILE, vb, vsS, k0 + TT, S, tid);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();                 // this tile (and Q, dO) has landed
@@ -585,9 +591,9 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int e = 0; e < 2; ++e) {
     const int qp = q0 + r0 + 8 * e;
     if (qp >= S) continue;
-    bf16* out = dq + (((int64_t)b * S + qp) * Hq + h) * D + c2;
+    bf16* out = dq + (((int64_t)b * S + qp) * Hq + h) * DT + c2;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DT / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
           tc::pack_bf16(acc[4 * j + 2 * e] * scale, acc[4 * j + 2 * e + 1] * scale);
   }
@@ -602,8 +608,9 @@ __device__ __forceinline__ void stash(const float (&acc)[N], float* dst, int t) 
 }
 
 // ... and the other's added to them, scaled and stored as bf16: rows r0
-// (at out) and r0 + 8 (row_step further), while `rows` > 0 and > 8
-template <int D>
+// (at out) and r0 + 8 (row_step further), while `rows` > 0 and > 8; the
+// columns below DT
+template <int D, int DT = D>
 __device__ __forceinline__ void add_store(float (&acc)[D / 2], const float* src, int t,
                                           bf16* out, int64_t row_step, int rows,
                                           float scale) {
@@ -613,7 +620,7 @@ __device__ __forceinline__ void add_store(float (&acc)[D / 2], const float* src,
   for (int e = 0; e < 2; ++e) {
     if (rows <= 8 * e) continue;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DT / 8; ++j) {
       const int x = 4 * j + 2 * e;
       *reinterpret_cast<uint32_t*>(out + e * row_step + 8 * j) =
           tc::pack_bf16(acc[x] * scale, acc[x + 1] * scale);
@@ -627,7 +634,7 @@ __device__ __forceinline__ void add_store(float (&acc)[D / 2], const float* src,
 // (rep head, q tile) steps, even steps to the first and odd to the second,
 // each with its own ring; at the end each adds the other's partial of one
 // output (dk or dv) through shared memory, in a fixed order.
-template <int D>
+template <int D, int DT = D>
 __global__ void __launch_bounds__(2 * TC_THREADS)
 flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
                         const bf16* __restrict__ v, const bf16* __restrict__ dO,
@@ -667,16 +674,16 @@ flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   auto issue = [&](int i, int st) {
     const int h = hk * rep + i / nqt, q0 = (qlo + i % nqt) * TT;
     const uint32_t sQ = sQO + st * 2 * TILE;
-    tc::load_tile<D, TC_THREADS>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
-    tc::load_tile<D, TC_THREADS>(sQ + TILE, dO + b * dsB + h * dsH, dsS, q0, S, tid);
+    tc::load_tile<D, TC_THREADS, DT>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
+    tc::load_tile<D, TC_THREADS, DT>(sQ + TILE, dO + b * dsB + h * dsH, dsS, q0, S, tid);
     const int r = tid & (TT - 1);
     const bool in = q0 + r < S;
     const float* src = (tid < TT ? lse : delta) + ((int64_t)b * Hq + h) * S + (in ? q0 + r : 0);
     tc::cp_async4(sRows + (st * 2 * TT + tid) * sizeof(float), src, in ? 4 : 0);
   };
 
-  tc::load_tile<D, 2 * TC_THREADS>(sK, k + b * ksB + hk * ksH, ksS, k0, S, threadIdx.x);
-  tc::load_tile<D, 2 * TC_THREADS>(sV, v + b * vsB + hk * vsH, vsS, k0, S, threadIdx.x);
+  tc::load_tile<D, 2 * TC_THREADS, DT>(sK, k + b * ksB + hk * ksH, ksS, k0, S, threadIdx.x);
+  tc::load_tile<D, 2 * TC_THREADS, DT>(sV, v + b * vsB + hk * vsH, vsS, k0, S, threadIdx.x);
   tc::cp_async_commit();
   if (nw > 0) issue(wg, 0);
   tc::cp_async_commit();
@@ -755,24 +762,24 @@ flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   else
     stash(dv_acc, mine, tid);
   __syncthreads();
-  const int64_t row0 = (((int64_t)b * S + k0 + r0) * Hkv + hk) * D + c2;
+  const int64_t row0 = (((int64_t)b * S + k0 + r0) * Hkv + hk) * DT + c2;
   const int rows = S - k0 - r0;             // rows r0 and r0 + 8 are keys if > 0, > 8
   if (wg == 0)
-    add_store<D>(dk_acc, other, tid, dk + row0, (int64_t)8 * Hkv * D, rows, scale);
+    add_store<D, DT>(dk_acc, other, tid, dk + row0, (int64_t)8 * Hkv * DT, rows, scale);
   else
-    add_store<D>(dv_acc, other, tid, dv + row0, (int64_t)8 * Hkv * D, rows, 1.f);
+    add_store<D, DT>(dv_acc, other, tid, dv + row0, (int64_t)8 * Hkv * DT, rows, 1.f);
 }
 
 struct Strides {
   const long long *q, *k, *v, *o, *dO;
 };
 
-template <typename T, int D>
+template <typename T, int D, int DT = D>
 int launch_dq(const void* q, const void* k, const void* v, const void* o, const void* dO,
               const void* lse, void* dq, void* delta, int B, int S, int Hq, int Hkv,
               Strides st_, int kv_len, int causal, int window, float softcap,
               cudaStream_t st) {
-  auto kern = flash_bwd_dq_kernel<T, D>;
+  auto kern = flash_bwd_dq_kernel<T, D, DT>;
   const size_t smem = DqSmem<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -784,16 +791,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* o, const 
       static_cast<T*>(dq), static_cast<float*>(delta), S, Hq, Hkv, st_.q[0], st_.q[1],
       st_.q[2], st_.k[0], st_.k[1], st_.k[2], st_.v[0], st_.v[1], st_.v[2], st_.o[0],
       st_.o[1], st_.o[2], st_.dO[0], st_.dO[1], st_.dO[2], kv_len, causal, window,
-      softcap, 1.f / sqrtf(static_cast<float>(D)));
+      softcap, 1.f / sqrtf(static_cast<float>(DT)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
+template <typename T, int D, int DT = D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
                const void* lse, const void* delta, void* dk, void* dv, int B, int S,
                int Hq, int Hkv, Strides st_, int kv_len, int causal, int window,
                float softcap, cudaStream_t st) {
-  auto kern = flash_bwd_dkv_kernel<T, D>;
+  auto kern = flash_bwd_dkv_kernel<T, D, DT>;
   const size_t smem = DkvCfg<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -805,16 +812,16 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
       static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), S, Hq,
       Hkv, st_.q[0], st_.q[1], st_.q[2], st_.k[0], st_.k[1], st_.k[2], st_.v[0],
       st_.v[1], st_.v[2], st_.dO[0], st_.dO[1], st_.dO[2], kv_len, causal, window,
-      softcap, 1.f / sqrtf(static_cast<float>(D)));
+      softcap, 1.f / sqrtf(static_cast<float>(DT)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DT = D>
 int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, const void* dO,
                  const void* lse, void* dq, void* delta, int B, int S, int Hq, int Hkv,
                  Strides st_, int kv_len, int causal, int window, float softcap,
                  cudaStream_t st) {
-  auto kern = flash_bwd_dq_kernel_tc<D>;
+  auto kern = flash_bwd_dq_kernel_tc<D, DT>;
   const size_t smem = DqTc<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -826,16 +833,16 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, con
       static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta), B,
       S, Hq, Hkv, st_.q[0], st_.q[1], st_.q[2], st_.k[0], st_.k[1], st_.k[2], st_.v[0],
       st_.v[1], st_.v[2], st_.o[0], st_.o[1], st_.o[2], st_.dO[0], st_.dO[1], st_.dO[2],
-      kv_len, causal, window, softcap, 1.f / sqrtf(static_cast<float>(D)));
+      kv_len, causal, window, softcap, 1.f / sqrtf(static_cast<float>(DT)));
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, int DT = D>
 int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dO,
                   const void* lse, const void* delta, void* dk, void* dv, int B, int S,
                   int Hq, int Hkv, Strides st_, int kv_len, int causal, int window,
                   float softcap, cudaStream_t st) {
-  auto kern = flash_bwd_dkv_kernel_tc<D>;
+  auto kern = flash_bwd_dkv_kernel_tc<D, DT>;
   const size_t smem = DkvTc<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -847,7 +854,7 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dO,
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S,
       Hq, Hkv, st_.q[0], st_.q[1], st_.q[2], st_.k[0], st_.k[1], st_.k[2], st_.v[0],
       st_.v[1], st_.v[2], st_.dO[0], st_.dO[1], st_.dO[2], kv_len, causal, window, softcap,
-      1.f / sqrtf(static_cast<float>(D)));
+      1.f / sqrtf(static_cast<float>(DT)));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -869,20 +876,22 @@ extern "C" int rt_flash_attention_bwd_dq(
   if (bad_args(B, S, Hq, Hkv, kv_len)) return kBadArgs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides s{q_strides, k_strides, v_strides, o_strides, do_strides};
-#define RT_DQ(T_, D_) \
-  launch_dq<T_, D_>(q, k, v, o, dO, lse, dq, delta, B, S, Hq, Hkv, s, kv_len, causal, \
-                    window, softcap, st)
-#define RT_DQ_TC(D_) \
-  launch_dq_tc<D_>(q, k, v, o, dO, lse, dq, delta, B, S, Hq, Hkv, s, kv_len, causal, \
-                   window, softcap, st)
+#define RT_DQ(T_, D_, DT_) \
+  launch_dq<T_, D_, DT_>(q, k, v, o, dO, lse, dq, delta, B, S, Hq, Hkv, s, kv_len, causal, \
+                         window, softcap, st)
+#define RT_DQ_TC(D_, DT_) \
+  launch_dq_tc<D_, DT_>(q, k, v, o, dO, lse, dq, delta, B, S, Hq, Hkv, s, kv_len, causal, \
+                        window, softcap, st)
   if (dtype == kFloat32) {
-    if (D == 64) return RT_DQ(float, 64);
-    if (D == 128) return RT_DQ(float, 128);
-    if (D == 256) return RT_DQ(float, 256);
+    if (D == 64) return RT_DQ(float, 64, 64);
+    if (D == 112) return RT_DQ(float, 128, 112);
+    if (D == 128) return RT_DQ(float, 128, 128);
+    if (D == 256) return RT_DQ(float, 256, 256);
   } else if (dtype == kBFloat16) {
-    if (D == 64) return RT_DQ_TC(64);
-    if (D == 128) return RT_DQ_TC(128);
-    if (D == 256) return RT_DQ(__nv_bfloat16, 256);
+    if (D == 64) return RT_DQ_TC(64, 64);
+    if (D == 112) return RT_DQ_TC(128, 112);
+    if (D == 128) return RT_DQ_TC(128, 128);
+    if (D == 256) return RT_DQ(__nv_bfloat16, 256, 256);
   }
 #undef RT_DQ
 #undef RT_DQ_TC
@@ -900,20 +909,22 @@ extern "C" int rt_flash_attention_bwd_dkv(
   if (bad_args(B, S, Hq, Hkv, kv_len)) return kBadArgs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides s{q_strides, k_strides, v_strides, nullptr, do_strides};
-#define RT_DKV(T_, D_) \
-  launch_dkv<T_, D_>(q, k, v, dO, lse, delta, dk, dv, B, S, Hq, Hkv, s, kv_len, causal, \
-                     window, softcap, st)
-#define RT_DKV_TC(D_) \
-  launch_dkv_tc<D_>(q, k, v, dO, lse, delta, dk, dv, B, S, Hq, Hkv, s, kv_len, causal, \
-                    window, softcap, st)
+#define RT_DKV(T_, D_, DT_) \
+  launch_dkv<T_, D_, DT_>(q, k, v, dO, lse, delta, dk, dv, B, S, Hq, Hkv, s, kv_len, causal, \
+                          window, softcap, st)
+#define RT_DKV_TC(D_, DT_) \
+  launch_dkv_tc<D_, DT_>(q, k, v, dO, lse, delta, dk, dv, B, S, Hq, Hkv, s, kv_len, causal, \
+                         window, softcap, st)
   if (dtype == kFloat32) {
-    if (D == 64) return RT_DKV(float, 64);
-    if (D == 128) return RT_DKV(float, 128);
-    if (D == 256) return RT_DKV(float, 256);
+    if (D == 64) return RT_DKV(float, 64, 64);
+    if (D == 112) return RT_DKV(float, 128, 112);
+    if (D == 128) return RT_DKV(float, 128, 128);
+    if (D == 256) return RT_DKV(float, 256, 256);
   } else if (dtype == kBFloat16) {
-    if (D == 64) return RT_DKV_TC(64);
-    if (D == 128) return RT_DKV_TC(128);
-    if (D == 256) return RT_DKV(__nv_bfloat16, 256);
+    if (D == 64) return RT_DKV_TC(64, 64);
+    if (D == 112) return RT_DKV_TC(128, 112);
+    if (D == 128) return RT_DKV_TC(128, 128);
+    if (D == 256) return RT_DKV(__nv_bfloat16, 256, 256);
   }
 #undef RT_DKV
 #undef RT_DKV_TC

@@ -3,8 +3,9 @@
 // reads, wgmma matrix descriptors, the m64nNk16 products (fp32
 // accumulators) and their fences.
 //
-// The tile layout.  A tile of 64 rows by D bf16 columns (D a multiple of 64)
-// is stored as D/64 column chunks of 64 rows x 128 bytes (8 KB each), one
+// The tile layout.  A tile of 64 rows by D bf16 columns (D a multiple of 64;
+// a head dim of 112 fills a D = 128 tile whose last 16 columns are zero) is
+// stored as D/64 column chunks of 64 rows x 128 bytes (8 KB each), one
 // after the other.  Inside a chunk, row r's 16-byte group j sits at
 // r * 128 + ((j ^ (r & 7)) << 4): the 128-byte swizzle, with every chunk
 // 1024-byte aligned.  The same bytes serve both ways wgmma reads them:
@@ -66,12 +67,13 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// Rows [r0, r0 + 64) of one head of a [.., S, .., D] bf16 tensor (row
+// Rows [r0, r0 + 64) of one head of a [.., S, .., COLS] bf16 tensor (row
 // stride `row_stride` elements, the head dim dense) into the swizzled tile at
 // shared address `dst`, by NT threads of which this is thread t; rows at or
-// past S are zero.  Each thread issues 16-byte copies; a row is read by D/8
-// neighbouring threads.
-template <int D, int NT>
+// past S, and the tile's columns at or past COLS (a head dim below the
+// tile's D, a multiple of 8), are zero.  Each thread issues 16-byte copies; a
+// row is read by D/8 neighbouring threads.
+template <int D, int NT, int COLS = D>
 __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src,
                                           int64_t row_stride, int r0, int S, int t) {
   constexpr int CPR = D / 8;                       // 16-byte groups per row
@@ -80,7 +82,7 @@ __device__ __forceinline__ void load_tile(uint32_t dst, const __nv_bfloat16* src
   for (int it = 0; it < TILE_ROWS * CPR / NT; ++it) {
     const int i = it * NT + t;
     const int r = i / CPR, j = i % CPR;
-    const bool in = r0 + r < S;
+    const bool in = r0 + r < S && (COLS == D || j * 8 < COLS);
     const __nv_bfloat16* g = src + (in ? (int64_t)(r0 + r) * row_stride : 0) + j * 8;
     cp_async16(dst + (j >> 3) * CHUNK_BYTES + r * 128 + (((j & 7) ^ (r & 7)) << 4), g,
                in ? 16 : 0);

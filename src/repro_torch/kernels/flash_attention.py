@@ -7,8 +7,10 @@ kernels ``repro/kernels/flash_attention.py:_attn_fwd_kernel``,
 ``:_attn_bwd_dq_kernel`` and ``:_attn_bwd_dkv_kernel``.  The kernels stream
 K/V (or Q) tiles and mask the ragged edges themselves, so they take any S (no
 padding, and no plain fallback for long sequences).  All three in bf16 at head
-dim 64 and 128 (training and serving prefill) run on the tensor cores (wgmma);
-fp32, and bf16 at head dim 256, run on the fp32 CUDA cores.
+dim 64, 112 and 128 (training and serving prefill) run on the tensor cores
+(wgmma); fp32, and bf16 at head dim 256, run on the fp32 CUDA cores.  Head dim
+112 (Zamba2-7B's shared attention) runs head-dim-128 tiles in instances
+compiled for 112 (zero columns in the tiles, no padded copy).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from repro_torch.kernels.ref import flash_attention_bwd_dq_ref as plain_bwd_dq  
 from repro_torch.kernels.ref import flash_attention_fwd_ref as plain  # noqa: F401
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 112, 128, 256)
 launches = 0           # K3 launches; chip_smoke.py resets and reads it
 bwd_dq_launches = 0    # K4 launches
 bwd_dkv_launches = 0   # K5 launches

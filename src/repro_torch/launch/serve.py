@@ -99,6 +99,10 @@ def main(argv=None, *, params: dict | None = None) -> dict:
             print(json.dumps(r))
         return {"plans": rows}
 
+    if cfg.input_mode != "tokens" or cfg.block_kind != "attn":
+        raise SystemExit(f"{args.arch}: paged serving needs a token-input attention "
+                         f"stack (the recurrent families serve through the dense-cache "
+                         f"steps, core/stepfn.build_prefill_step / build_serve_step)")
     device = resolve_device(args.device)
     if params is None and args.checkpoint_dir:
         full, step = store.load_state(args.checkpoint_dir, storage_template(cfg, _FLAT_FULL))

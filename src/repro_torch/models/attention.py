@@ -1,5 +1,5 @@
-"""Grouped-query attention, training/prefill form (counterpart of
-``repro/models/attention.py``).
+"""Grouped-query attention: training/prefill, and decode against a dense
+cache (counterpart of ``repro/models/attention.py``).
 
 Tensor parallelism (Megatron's, over the model group of an ``AxisCtx``):
 query heads are sharded; KV heads are sharded when ``num_kv_heads % tp ==
@@ -10,9 +10,17 @@ are partial and are summed over the model group when they are reduced
 row-parallel, followed by the block's one all-reduce.
 
 The window is a Python int per layer, so the JAX package's ``lax.cond``
-specialisation on the traced window has no counterpart.  Nor does its plain
-path for ``S > CHUNKED_THRESHOLD``: that exists because the Pallas BlockSpec
-stages whole-S K/V, while the CUDA kernel streams K/V at every S.
+specialisation on the traced window has no counterpart.  Past
+``CHUNKED_THRESHOLD`` the JAX package always takes its query-chunked plain
+path (the Pallas BlockSpec stages whole-S K/V); on the card the CUDA kernel
+streams K/V at every S and stays, while on the CPU the port takes the same
+query-chunked path (``_attend_chunked``) instead of the kernel's plain
+version, whose S x S logits a 32k prefill could not hold.
+
+``attention_decode`` is the dense-cache decode of the JAX package (plain
+tensor code there too): the new token's K/V written into a ``[B, Hkv_l,
+max_seq, hd]`` cache (in place), or into a sliding-window layer's ring of W
+slots, then one fp32 softmax over the cache.
 """
 from __future__ import annotations
 
@@ -21,7 +29,10 @@ import torch
 from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.kernels import ops as kops
 from repro_torch.models.common import (ModelConfig, apply_rope, copy_to_model, dense_init,
-                                       reduce_from_model)
+                                       reduce_from_model, softcap)
+
+NEG_INF = -2.0e38
+CHUNKED_THRESHOLD = 8192
 
 
 def init_attention(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
@@ -65,6 +76,34 @@ def project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, axis: AxisCtx = LOCA
     return q, k, v
 
 
+def _attend_dense(q, k, v, qpos, kpos, window: int, cap: float):
+    """Materialised logits: q [B, Sq, H, hd] against k/v [B, Sk, H, hd]
+    (K/V heads already repeated), causal on the positions [B, Sq] and
+    [B, Sk], windowed when ``window`` > 0; softmax in fp32."""
+    hd = q.shape[-1]
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k).float() * hd ** -0.5
+    logits = softcap(logits, cap)
+    qi, kj = qpos[:, None, :, None], kpos[:, None, None, :]
+    mask = qi >= kj
+    if window > 0:
+        mask = mask & (qi - kj < window)
+    logits = torch.where(mask, logits, torch.full_like(logits, NEG_INF))
+    probs = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.einsum("bhqk,bkhd->bqhd", probs, v)
+
+
+def _attend_chunked(q, k, v, positions, window: int, cap: float, *, block_q: int = 512):
+    """Query-chunked attention (the JAX package's long-sequence path):
+    logits of ``block_q`` queries at a time against every key, O(block_q * S)
+    memory instead of O(S^2).  Exact."""
+    rep = q.shape[2] // k.shape[2]
+    ke = k.repeat_interleave(rep, dim=2)
+    ve = v.repeat_interleave(rep, dim=2)
+    return torch.cat([_attend_dense(q[:, i:i + block_q], ke, ve,
+                                    positions[:, i:i + block_q], positions, window, cap)
+                      for i in range(0, q.shape[1], block_q)], dim=1)
+
+
 def attention_train(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
                     positions: torch.Tensor, window: int,
                     return_kv: bool = False, axis: AxisCtx = LOCAL):
@@ -76,9 +115,50 @@ def attention_train(cfg: ModelConfig, p: dict, x: torch.Tensor, *,
     q, k, v = project_qkv(cfg, p, x, axis)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-    y = kops.flash_attention(q, k, v, causal=True, window=int(window),
-                             softcap=cfg.attn_logit_softcap)
+    if S > CHUNKED_THRESHOLD and not q.is_cuda:
+        y = _attend_chunked(q, k, v, positions, int(window), cfg.attn_logit_softcap)
+    else:
+        y = kops.flash_attention(q, k, v, causal=True, window=int(window),
+                                 softcap=cfg.attn_logit_softcap)
     out = reduce_from_model(y.reshape(B, S, -1) @ p["wo"].to(x.dtype), axis)
     if return_kv:
         return out, k.transpose(1, 2), v.transpose(1, 2)
     return out
+
+
+def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, *, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, window: int, axis: AxisCtx = LOCAL,
+                     ring: bool = False):
+    """x: [B, 1, D]; caches [B, Hkv_l, S_cache, hd]; ``pos`` the new token's
+    position.  Writes the token's K/V into the caches (in place: at ``pos``,
+    or at ``pos % W`` of a ring of W slots, which then holds position ``pos -
+    ((pos - i) mod W)`` in slot i) and returns (y [B, 1, D], k_cache,
+    v_cache)."""
+    B = x.shape[0]
+    hd = cfg.head_dim
+    x = copy_to_model(x, axis)
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q, k_new, v_new = project_qkv(cfg, p, x, axis)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k_new = apply_rope(k_new, positions, cfg.rope_theta)
+    S_c = k_cache.shape[2]
+    slot = pos % S_c if ring else pos
+    k_cache[:, :, slot] = k_new[:, 0].to(k_cache.dtype)
+    v_cache[:, :, slot] = v_new[:, 0].to(v_cache.dtype)
+    rep = q.shape[2] // k_cache.shape[1]
+    kk = k_cache.repeat_interleave(rep, dim=1) if rep > 1 else k_cache   # [B, Hq_l, S, hd]
+    vv = v_cache.repeat_interleave(rep, dim=1) if rep > 1 else v_cache
+    logits = torch.einsum("bqhd,bhkd->bhk", q, kk).float() * hd ** -0.5   # q length 1
+    logits = softcap(logits, cfg.attn_logit_softcap)
+    i = torch.arange(S_c, device=x.device)
+    kpos = pos - (pos - i) % S_c if ring else i
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window > 0:
+        valid = valid & (pos - kpos < window)
+    logits = torch.where(valid[None, None, :], logits, torch.full_like(logits, NEG_INF))
+    m = logits.amax(-1)
+    e = torch.exp(logits - m[..., None])
+    num = torch.einsum("bhk,bhkd->bhd", e, vv.float())
+    y = (num / e.sum(-1)[..., None]).to(x.dtype).reshape(B, 1, -1)
+    out = reduce_from_model(y @ p["wo"].to(y.dtype), axis)
+    return out, k_cache, v_cache

@@ -84,6 +84,10 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def rwkv_inner(self) -> int:
+        return self.rwkv_heads * self.ssm_head_dim
+
     # -- per-layer static tables (plain Python: torch needs no traced form) --
     def layer_windows(self) -> list[int]:
         """Per-layer attention window (0 = full/global attention)."""
@@ -117,13 +121,48 @@ class ModelConfig:
             return self.num_layers // self.hybrid_attn_period
         return 0
 
-    # -- parameter counting (the MFU numerator), attention stacks ---------
-    def params_per_layer(self, *, active_only: bool = False) -> int:
-        """One layer's parameters; ``active_only`` counts the experts a token
-        runs (``experts_per_token`` of them) and the whole router."""
+    # -- the windowed (ring) KV cache of the dense serving steps -----------
+    @property
+    def has_window_cache(self) -> bool:
+        return (self.block_kind == "attn" and self.sliding_window > 0
+                and self.local_global_period > 0)
+
+    def window_cache_tables(self) -> tuple[list[int], list[int]]:
+        """(is_win [L], slot [L]): a ring-buffer or a full-cache slot per layer."""
+        is_win = [int(w > 0) for w in self.layer_windows()]
+        slot, n_w, n_g = [], 0, 0
+        for f in is_win:
+            slot.append(n_w if f else n_g)
+            n_w, n_g = n_w + f, n_g + 1 - f
+        return is_win, slot
+
+    def num_window_slots(self) -> tuple[int, int]:
+        """(windowed slots, global slots)."""
+        if not self.has_window_cache:
+            return 0, self.num_attn_slots()
+        k = self.local_global_period
+        n_w = sum(1 for i in range(self.num_layers) if i % k != k - 1)
+        return n_w, self.num_layers - n_w
+
+    # -- parameter counting (the MFU numerator) ---------------------------
+    def attn_block_params(self) -> int:
         d, h = self.d_model, self.head_dim
-        n = d * h * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * h * d
+        return d * h * (self.num_heads + 2 * self.num_kv_heads) + self.num_heads * h * d
+
+    def params_per_layer(self, *, active_only: bool = False) -> int:
+        """One layer's parameters (matrices only, as the JAX package counts
+        them); ``active_only`` counts the experts a token runs
+        (``experts_per_token`` of them) and the whole router."""
+        d = self.d_model
         mult = 3 if self.glu else 2
+        if self.block_kind == "mamba":
+            heads = self.d_ff // self.ssm_head_dim
+            # in-proj (x, z), B/C (shared across heads), dt proj, out-proj
+            return d * self.d_ff * 2 + d * (2 * self.ssm_state + heads) + self.d_ff * d
+        if self.block_kind == "rwkv":
+            # r, k, v, g, w and time_out; the channel mix's cm_k, cm_v, cm_r
+            return 6 * d * self.rwkv_inner + 2 * d * self.d_ff + d * d
+        n = self.attn_block_params()
         if self.is_moe:
             e = self.experts_per_token if active_only else self.num_experts
             n += e * mult * d * self.d_ff + d * self.num_experts
@@ -133,8 +172,10 @@ class ModelConfig:
         return n + mult * d * self.d_ff
 
     def param_count(self, *, active_only: bool = False) -> int:
-        return (self.num_layers * self.params_per_layer(active_only=active_only)
-                + self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2))
+        n = self.num_layers * self.params_per_layer(active_only=active_only)
+        if self.hybrid_attn_period > 0:     # the shared attention + MLP block, once
+            n += self.attn_block_params() + (3 if self.glu else 2) * self.d_model * self.d_ff
+        return n + self.vocab_size * self.d_model * (1 if self.tie_embeddings else 2)
 
     # -- tensor-parallel head padding (the JAX ModelConfig's, copied) -------
     def padded_for_tp(self, tp: int) -> "ModelConfig":
@@ -173,6 +214,16 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, *,
     var = (x32 - mu).square().mean(-1, keepdim=True)
     y = (x32 - mu) * torch.rsqrt(var + eps)
     return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, *, eps: float = 1e-6,
+             plus_one: bool = False) -> torch.Tensor:
+    """The plain RMSNorm (no kernel): RWKV's own block norms, which the JAX
+    package computes outside its kernel too."""
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(-1, keepdim=True) + eps)
+    s = 1.0 + scale.float() if plus_one else scale.float()
+    return (y * s).to(x.dtype)
 
 
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:

@@ -80,7 +80,7 @@ def traced_layer_costs(cfg: ModelConfig, mb: int, seq: int) -> TracedCosts:
         return torch.empty(shape, dtype=dtype, device="meta")
 
     lshapes = tree.tree_map(lambda s: s[1:], tmpl["layers"])
-    outer_shapes = {k: v for k, v in tmpl.items() if k != "layers"}
+    outer_shapes = {k: v for k, v in tmpl.items() if k not in ("layers", "shared")}
     x = meta((mb, seq, cfg.d_model))
     pos = meta((mb, seq), torch.int32)
     f_layer = roofline.count_dots(

@@ -553,3 +553,41 @@ def test_moe_checkpoints_interchange(tmp_path, jax_no_kernels, first):
     assert x["params"]["layers"]["moe"]["router"].dtype == np.float32
     for u, v in zip(jax.tree.leaves(x), jax.tree.leaves(y)):
         np.testing.assert_allclose(np.asarray(u), np.asarray(v), rtol=0, atol=1e-4)
+
+
+# (loss, grad norm) relative tolerances after the first resumed step:
+# tests/test_torch_ssm.py's TRAIN_TOL (rwkv's group norm at init amplifies
+# rounding; Adam's first normalised update does the rest)
+RECURRENT_TOL = {"rwkv6-3b": (1e-3, 5e-2), "zamba2-7b": (1e-4, 1e-4)}
+
+
+@pytest.mark.parametrize("arch,first", [("rwkv6-3b", "jax"), ("zamba2-7b", "port")])
+def test_recurrent_checkpoints_interchange(tmp_path, jax_no_kernels, arch, first):
+    """A JAX checkpoint of the rwkv6-3b smoke config seeds the port's
+    trainer, and a port checkpoint of zamba2-7b's (its ``shared`` block an
+    outer leaf) seeds JAX's: the second package, ``--resume auto --steps 4``
+    from the first's step-2 checkpoint, takes step 2 with the loss the first
+    took (1e-6) and step 3 within ``RECURRENT_TOL``; both step-4
+    checkpoints hold the same leaves (names, shapes, dtypes)."""
+    argv = ["--arch", arch, "--smoke", "--global-batch", "4", "--seq-len", "16",
+            "--microbatches", "2", "--log-every", "100"]
+    runs = {"jax": lambda a: jtrain.main(argv + a),
+            "port": lambda a: train.main(argv + ["--device", "cpu"] + a)}
+    second = "port" if first == "jax" else "jax"
+    runs[first](["--steps", "4", "--checkpoint-dir", str(tmp_path / "a"), "--checkpoint-every",
+                 "2", "--metrics", str(tmp_path / "a.jsonl")])
+    ref = _steps(tmp_path / "a.jsonl")
+    seeded = _seed_dir(tmp_path / "a", tmp_path / "b", 2)
+    r = runs[second](["--steps", "4", "--checkpoint-dir", seeded, "--resume", "auto",
+                      "--checkpoint-every", "2"])
+    got = {h["step"]: h for h in r["history"]}
+    assert sorted(got) == [2, 3] and r["restarts"] == 0
+    loss_tol, norm_tol = RECURRENT_TOL[arch]
+    np.testing.assert_allclose(got[2]["loss"], ref[2]["loss"], rtol=1e-6)
+    np.testing.assert_allclose(got[2]["grad_norm"], ref[2]["grad_norm"], rtol=norm_tol)
+    np.testing.assert_allclose(got[3]["loss"], ref[3]["loss"], rtol=loss_tol)
+    a, b = (os.path.join(d, "step_00000004") for d in (tmp_path / "a", seeded))
+    assert _entries(a) == _entries(b)
+    names = [e[0] for e in _entries(a)]
+    assert ("params__shared__attn__wq" in names) == (arch == "zamba2-7b")
+    assert ("params__layers__rwkv__u_bonus" in names) == (arch == "rwkv6-3b")

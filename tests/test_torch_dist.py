@@ -1,7 +1,9 @@
 """The port over a data x model grid of processes (gloo, on the CPU) against
 the JAX package: gradients of both schedules in both layouts at meshes 2x1,
 1x2, 2x2 and 1x4 (the last replicates the KV heads); at 1x2, 2x2 and 1x4
-the same for the other dense configs' smoke variants; at 2x2
+the same for the other dense configs' smoke variants; the recurrent families
+(rwkv6-3b and zamba2-7b smoke, rwkv with TP-padded heads at 1x2 and 1x4)
+against the JAX package's own mesh run at 2x1, 1x2, 2x2 and 1x4; at 2x2
 the exact collective schedule, a bf16 reduce wire, the storage layout, a
 3-step trajectory and the §C.3 fused step; a group of one against no group;
 and ``launch.train --mesh 2x1`` under ``torch.distributed.run``.
@@ -80,9 +82,24 @@ OTHER_ARCHS = ("gemma-2b", "gemma2-9b", "granite-20b", "paper-x32")
 OTHER_CASES = [dict(kind="grads", method=m, part=p, arch=a)
                for a in OTHER_ARCHS for m in ("standard", "layered") for p in (True, False)]
 OTHER_MESHES = ("1x2", "2x2", "1x4")
+# the recurrent families, last: rwkv6-3b's smoke config (40 heads), zamba2-7b's
+# at 4 layers (the shared block after layers 1 and 3), and rwkv with 6 heads
+# padded for tp 4 (8 heads, at tp 2 and 4); both schedules in both layouts
+RECURRENT = {"rwkv6-3b": ("2x1", "1x2", "2x2"), "zamba2-7b": ("2x1", "1x2", "2x2"),
+             "rwkv6-3b-padded": ("1x2", "1x4")}
+RECURRENT_CASES = {mesh: [dict(kind="grads", method=m, part=p, arch=a)
+                          for a, meshes in RECURRENT.items() if mesh in meshes
+                          for m in ("standard", "layered") for p in (True, False)]
+                   for mesh in MESHES}
+# relative part of the recurrent gradients' tolerance, of each leaf's scale
+# (tests/test_torch_ssm.py's GRAD_TOL; rwkv's group norm amplifies rounding:
+# the JAX package's own 2x2 run and its one-device gradient differ by 1.0e-3
+# of w_r's scale)
+RECURRENT_TOL = {"rwkv6-3b": 3e-3, "zamba2-7b": 3e-4, "rwkv6-3b-padded": 3e-3}
 CASES = {"2x1": GRAD_CASES, "1x2": GRAD_CASES + OTHER_CASES,
          "2x2": GRAD_CASES + TRAIN_CASES + EXTRA_CASES + OTHER_CASES,
          "1x4": GRAD_CASES + OTHER_CASES}
+CASES = {mesh: c + RECURRENT_CASES[mesh] for mesh, c in CASES.items()}
 
 
 def _env() -> dict:
@@ -191,8 +208,38 @@ def other_configs():
     return out
 
 
+def _recurrent_cfg(arch: str):
+    """(JAX config with its kernels off, the port's) of a recurrent case."""
+    name = arch.removesuffix("-padded")
+    j, t = jconfigs.get_config(name, smoke=True), configs.get_config(name, smoke=True)
+    if name == "zamba2-7b":
+        j, t = (dataclasses.replace(c, num_layers=4) for c in (j, t))
+    if arch.endswith("-padded"):
+        j, t = (dataclasses.replace(c, rwkv_heads=6).padded_for_tp(4) for c in (j, t))
+        assert t.rwkv_heads == 8
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    return dataclasses.replace(j, kernels=False), t
+
+
 @pytest.fixture(scope="module")
-def spawns(tmp_path_factory, weights, other_configs):
+def recurrent_configs():
+    """arch -> (JAX config, port config, JAX weights as numpy, a micro-batched
+    batch with a few masked tokens)."""
+    out = {}
+    for i, arch in enumerate(RECURRENT):
+        jcfg, tcfg = _recurrent_cfg(arch)
+        params = jax.tree.map(np.asarray, JT.init_params(jcfg, jax.random.PRNGKey(30 + i)))
+        toks = np.random.default_rng(40 + i).integers(0, tcfg.vocab_size, (M, 2, 17))
+        mask = np.ones((M, 2, 16), np.int32)
+        mask[:, 1, 12:] = 0
+        out[arch] = (jcfg, tcfg, params, {"tokens": toks[..., :-1].astype(np.int32),
+                                          "labels": toks[..., 1:].astype(np.int32),
+                                          "mask": mask})
+    return out
+
+
+@pytest.fixture(scope="module")
+def spawns(tmp_path_factory, weights, other_configs, recurrent_configs):
     """Every mesh's ranks, started together."""
     tmp = tmp_path_factory.mktemp("dist")
     params, batch = weights
@@ -200,7 +247,7 @@ def spawns(tmp_path_factory, weights, other_configs):
     def expand(c):
         if "arch" not in c:
             return c
-        _, tcfg, p, b = other_configs[c["arch"]]
+        _, tcfg, p, b = (recurrent_configs if c["arch"] in RECURRENT else other_configs)[c["arch"]]
         return dict(c, cfg=dataclasses.asdict(tcfg), params=p, batch=b)
 
     out = {name: Spawn(tmp, name, mesh, [expand(c) for c in CASES[name]], params, batch)
@@ -331,6 +378,76 @@ def other_references(other_configs):
         out[arch] = float(loss(p)), {k: v for k, v in jax.grad(loss)(p).items()
                                      if k != "shared"}
     return out
+
+
+def _jax_mesh_grads(jcfg, mesh_shape, params: dict, batch: dict) -> dict:
+    """The JAX package's own layered, partitioned gradient on a (data, model)
+    mesh of virtual CPU devices (its kernels off), unpartitioned to global
+    numpy leaves."""
+    from repro import compat
+    from repro.core.accumulation import make_grad_fn as jmake_grad_fn
+    from repro.core.partition import host_unpartition_leaf
+    mesh = jax.make_mesh(mesh_shape, ("data", "model"))
+    axis = jstepfn.axis_ctx(mesh)
+    tmpl = jstepfn.full_template(jcfg)
+    grad_fn = jmake_grad_fn(jcfg, axis, JAccumConfig("layered", True, M), tmpl)
+    sspecs = jstepfn.storage_specs(jcfg, axis, True)
+    fn = jax.jit(compat.shard_map(lambda s, b: grad_fn(s, b)[0], mesh=mesh,
+                                  in_specs=(sspecs, jstepfn.batch_specs(jcfg, axis,
+                                                                        microbatched=True)),
+                                  out_specs=sspecs))
+    specs = JT.param_specs(jcfg, axis.tp)
+    storage = jax.tree_util.tree_map_with_path(
+        lambda path, a, sp: zp.host_partition_leaf(a, axis.tp, axis.ndata,
+                                                   stacked=path[0].key == "layers",
+                                                   model_dim=zp.model_dim(tuple(sp))),
+        params, specs)
+    grads = fn(storage, batch)
+    return jax.tree_util.tree_map_with_path(
+        lambda path, c, t, sp: host_unpartition_leaf(np.asarray(c), t.shape, sp, axis.tp,
+                                                     stacked=path[0].key == "layers"),
+        grads, tmpl, specs)
+
+
+@pytest.mark.parametrize("mesh,arch", [(m, a) for a, ms in RECURRENT.items() for m in ms])
+def test_recurrent_grads_match_jax_mesh(spawns, recurrent_configs, mesh, arch):
+    """rwkv6-3b and zamba2-7b (and rwkv with TP-padded heads at 1x2 and 1x4) over
+    data x model ranks, both schedules in both layouts, against the JAX
+    package's own layered partitioned gradient on the same mesh (its kernels
+    off): every leaf at ``RECURRENT_TOL`` of its scale plus 3e-5, the loss
+    equal on every rank; layered and partitioned over a data group, the
+    exact gather and reduce-scatter counts (the outer leaves, a hybrid's
+    shared block among them, once a step).  Which replicated leaves take a
+    partial gradient on a model rank (Mamba's ``w_B``/``w_C``, RWKV's
+    ``mix``; ``transformer.model_partial_leaves``) is what this holds."""
+    jcfg, tcfg, params, batch = recurrent_configs[arch]
+    want = _jax_mesh_grads(jcfg, MESHES[mesh], params, batch)
+    want = {k: v for k, v in want.items() if k != "shared" or v}
+    outs = spawns[mesh].result()
+    tol = RECURRENT_TOL[arch]
+    for i, case in enumerate(CASES[mesh]):
+        if case.get("arch") != arch:
+            continue
+        got = _global(outs, lambda o: o["results"][i]["grads"], MESHES[mesh][1],
+                      case["part"], tcfg)
+        wants = {tuple(p.key for p in path): np.asarray(leaf)
+                 for path, leaf in jax.tree_util.tree_leaves_with_path(want)}
+        pairs = dict(tree.leaves_with_path(got))
+        assert sorted(pairs) == sorted(wants)
+        for path, leaf in pairs.items():
+            w = wants[path]
+            np.testing.assert_array_less(np.abs(leaf - w), 3e-5 + tol * np.abs(w).max(),
+                                         err_msg=f"{case['method']} {case['part']} {path}")
+        assert len({o["results"][i]["loss"] for o in outs}) == 1
+        if case["method"] == "layered" and case["part"] and MESHES[mesh][0] > 1:
+            # one gather per layer leaf and pass, and the outer leaves (a
+            # hybrid's shared block among them) gathered and reduced once
+            n_layer = len(tree.leaves(stepfn.full_template(tcfg)["layers"]))
+            n_outer = len(tree.leaves(stepfn.full_template(tcfg))) - n_layer
+            counts = outs[0]["results"][i]["counts"]
+            L_ = tcfg.num_layers
+            assert counts[("data", "all_gather")][0] == 2 * n_layer * L_ + n_outer
+            assert counts[("data", "reduce_scatter")][0] == n_layer * L_ + n_outer
 
 
 @pytest.mark.parametrize("mesh", OTHER_MESHES)

@@ -5,6 +5,8 @@ neither JAX nor ``repro``, so it runs where JAX is absent:
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -64,6 +66,8 @@ def test_rmsnorm_kernel_matches_plain(cuda, dtype, plus_one):
     ((1, 77, 4, 1, 64), 16, 0.0, True, 70),
     ((1, 96, 4, 4, 256), 24, 50.0, True, 0),
     ((2, 50, 4, 2, 64), 12, 0.0, False, 41),
+    pytest.param((2, 200, 8, 2, 112), 0, 0.0, True, 0, id="hd112-gqa"),
+    pytest.param((1, 77, 4, 4, 112), 16, 30.0, True, 70, id="hd112-window-cap"),
 ])
 def test_flash_kernel_matches_plain(cuda, dtype, shape, window, cap, causal, kv_len):
     B, S, Hq, Hkv, D = shape
@@ -90,9 +94,14 @@ def test_flash_kernel_matches_plain(cuda, dtype, shape, window, cap, causal, kv_
     ((2, 50, 4, 2, 64), 12, 0.0, False, 41),      # non-causal, padded keys
     ((2, 1024, 48, 8, 128), 0, 0.0, True, 0),     # rep 6 (dbrx-132b)
     ((1, 1024, 56, 8, 128), 0, 0.0, True, 0),     # rep 7 (arctic-480b): odd rep
+    # zamba2-7b's shared attention (hd 112) at the training and prefill
+    # shapes, and at rep 4 with a ragged S
+    pytest.param((2, 2048, 32, 32, 112), 0, 0.0, True, 0, id="hd112-train"),
+    pytest.param((8, 512, 32, 32, 112), 0, 0.0, True, 0, id="hd112-prefill"),
+    pytest.param((1, 300, 32, 8, 112), 40, 30.0, True, 290, id="hd112-gqa4"),
 ])
 def test_flash_tensor_core_kernel_matches_plain(cuda, shape, window, cap, causal, kv_len):
-    """bf16 K3 at head dim 64 and 128 runs on the tensor cores and rounds p to
+    """bf16 K3 at head dim 64, 112 and 128 runs on the tensor cores and rounds p to
     bf16 before P V: within the JAX package's bf16 forward tolerance (2e-2) of
     the output scale, lse within 1e-4, and every row within two bf16 ulps of
     its own scale (its largest |out|) of the plain version with p rounded the
@@ -298,6 +307,8 @@ def _flash_bwd_case(cuda, B, S, Hq, Hkv, D, dtype, kw, seed):
     ((2, 2048, 32, 4, 128), 0, 0.0, True, 0),     # the training path's micro-batch
     ((1, 512, 48, 8, 128), 0, 0.0, True, 0),      # rep 6 (dbrx-132b)
     ((1, 512, 56, 8, 128), 0, 0.0, True, 0),      # rep 7 (arctic-480b)
+    pytest.param((2, 2048, 32, 32, 112), 0, 0.0, True, 0, id="hd112-train"),
+    pytest.param((1, 300, 32, 8, 112), 40, 30.0, True, 290, id="hd112-gqa4"),
 ])
 def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, window, cap, causal, kv_len):
     n = (fa.bwd_dq_launches, fa.bwd_dkv_launches)
@@ -311,6 +322,7 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, window, cap, causal, 
     ((2, 2048, 32, 4, 128), 0, 0.0),
     ((2, 300, 16, 1, 128), 40, 30.0),
     ((1, 200, 12, 4, 64), 0, 0.0),
+    pytest.param((1, 300, 32, 8, 112), 0, 0.0, id="hd112"),
 ])
 def test_flash_bwd_kernels_are_deterministic(cuda, shape, window, cap):
     """bf16 K4 and K5 (the tensor-core instances): two launches on the same
@@ -508,3 +520,80 @@ def test_apply_moe_on_card_matches_cpu(cuda, arch):
     assert torch.equal(ids_c, ids_g)
     torch.testing.assert_close(y_g, y_c, rtol=1e-4, atol=1e-4)
     torch.testing.assert_close(a_g, a_c, rtol=1e-4, atol=1e-4)
+
+
+# (losses after step 0, grad norms) relative tolerances, card against CPU:
+# tests/test_torch_ssm.py's TRAIN_TOL (RWKV's group norm at init amplifies
+# the rounding of its output; the JAX package disagrees with itself as much),
+# zamba2's grad norm at 1e-3 (measured on an H100: 8.7e-6 at step 0, 2.8e-4
+# at step 2, after two of Adam's normalised steps)
+RECURRENT_TOL = {"rwkv6-3b": (1e-3, 5e-2), "zamba2-7b": (1e-4, 1e-3)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b"])
+def test_recurrent_train_step_on_card_matches_cpu(cuda, arch):
+    """fp32 smoke configs (zamba2-7b at 4 layers: the shared block twice),
+    layered and partitioned: three steps on the card (K1-K6; K3-K5 at the
+    shared block's head dim) and on the CPU from the same weights.  Step 0's
+    loss at 1e-5, later losses and every grad norm at ``RECURRENT_TOL``; the
+    weights at 1e-5 (zamba2-7b) or within 4 lr (rwkv6-3b: two Adam steps
+    each way), Adam's eps 1e-3 as in ``_train_on_card_and_cpu``."""
+    cfg = configs.get_config(arch, smoke=True)
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    lr = 1e-3
+    step = stepfn.build_train_step(cfg, AccumConfig("layered", True, 2),
+                                   AdamConfig(lr=lr, eps=1e-3, warmup_steps=1, decay_steps=3))
+    data = DataConfig(vocab_size=cfg.vocab_size, seq_len=80, global_batch=4, n_microbatches=2)
+    cpu = stepfn.init_storage(cfg, 0, partitioned=True, device="cpu")
+    runs = {}
+    for dev in ("cpu", cuda):
+        storage = tree.tree_map(lambda t: t.to(dev, copy=True), cpu)
+        opt = adam_init(storage)
+        recs = []
+        for i in range(3):
+            storage, opt, m = step(storage, opt, make_batch(data, i))
+            recs.append((m["loss"].item(), m["grad_norm"].item()))
+        runs[str(dev)] = (recs, storage)
+    (got, sg), (want, sc) = runs[str(cuda)], runs["cpu"]
+    loss_tol, norm_tol = RECURRENT_TOL[arch]
+    for i, ((lg, ng), (lc, nc)) in enumerate(zip(got, want)):
+        np.testing.assert_allclose(lg, lc, rtol=1e-5 if i == 0 else loss_tol,
+                                   err_msg=f"step {i} loss")
+        np.testing.assert_allclose(ng, nc, rtol=norm_tol, err_msg=f"step {i} grad norm")
+    atol = 1e-5 if arch == "zamba2-7b" else 4 * lr
+    for a, b in zip(tree.leaves(sg), tree.leaves(sc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=atol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "zamba2-7b"])
+def test_dense_prefill_decode_on_card_matches_cpu(cuda, arch):
+    """The dense-cache steps, fp32 smoke configs (zamba2-7b at 4 layers, the
+    shared attention at its smoke head dim): a 37-token prefill and 4 greedy
+    decode steps on the card and on the CPU with the same weights; logits at
+    1e-4 of their scale, the greedy tokens and the final recurrent states
+    (1e-4 of their scale) equal."""
+    cfg = configs.get_config(arch, smoke=True)
+    if arch == "zamba2-7b":
+        cfg = dataclasses.replace(cfg, num_layers=4)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, cfg.vocab_size, (3, 37), generator=torch.Generator().manual_seed(1))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = T.to_device(params, dev)
+        cache = T.init_cache(cfg, 3, 41, device=dev)
+        lg, cache = stepfn.build_prefill_step(cfg)(p, cache, {"tokens": toks.to(dev)})
+        logits, greedy = [lg.cpu()], [lg.argmax(-1).cpu()]
+        for _ in range(4):
+            lg, cache = stepfn.build_serve_step(cfg)(p, cache, greedy[-1].to(dev).int())
+            logits.append(lg.cpu())
+            greedy.append(lg.argmax(-1).cpu())
+        out[str(dev)] = (torch.stack(logits), torch.stack(greedy),
+                         tree.tree_map(lambda t: t.float().cpu(), cache["ssm"]))
+    (lc, tc, sc), (lg, tg, sg) = out["cpu"], out[str(cuda)]
+    assert torch.equal(tc, tg)
+    torch.testing.assert_close(lg, lc, rtol=0, atol=1e-4 * max(1.0, float(lc.abs().max())))
+    for a, b in zip(tree.leaves(sg), tree.leaves(sc)):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-4 * max(1.0, float(b.abs().max())))

@@ -237,14 +237,16 @@ def test_plan_cli_paper_mode_matches_jax(tmp_path):
         "modular/layered/part"
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-9b", "dbrx-132b", "arctic-480b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "gemma2-9b", "dbrx-132b", "arctic-480b",
+                                  "rwkv6-3b", "zamba2-7b"])
 def test_search_serving_matches_jax(arch):
     a = [p.row() for p in searchlib.search_serving(configs.get_config(arch))]
     assert a == [p.row() for p in jsearch.search_serving(jconfigs.get_config(arch))]
     assert serve.main(["--arch", arch, "--plan"]) == jserve.main(["--arch", arch, "--plan"])
 
 
-@pytest.mark.parametrize("arch", ["yi-6b", "dbrx-132b", "arctic-480b"])
+@pytest.mark.parametrize("arch", ["yi-6b", "dbrx-132b", "arctic-480b", "rwkv6-3b",
+                                  "zamba2-7b"])
 def test_model_flops_match_jax(arch):
     """6ND and 2ND at the active parameters (an MoE layer's routed experts
     and its router), as the JAX roofline counts them."""
@@ -253,7 +255,7 @@ def test_model_flops_match_jax(arch):
         assert roofline.model_flops_train(cfg, 8, 2048) == \
             jroofline.model_flops_train(jcfg, 8, 2048)
         assert roofline.model_flops_decode(cfg, 16) == jroofline.model_flops_decode(jcfg, 16)
-    if arch != "yi-6b":
+    if cfg.is_moe:
         assert cfg.param_count(active_only=True) < cfg.param_count()
 
 
@@ -272,6 +274,52 @@ def test_traced_layer_costs_match_jax(arch, smoke, kernels):
     ref = jvalidate.traced_layer_costs(
         dataclasses.replace(jconfigs.get_config(arch, smoke=smoke), kernels=kernels), mb, seq)
     assert dataclasses.asdict(tc) == dataclasses.asdict(ref)
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_recurrent_layer_costs_against_jax(smoke):
+    """RWKV-6: the counter counts the JAX walk's dot flops less the two
+    elementwise products of the chunked engine that JAX's einsum lowers to
+    dot_generals with no contracting dim (q_t k_s over every pair of a chunk,
+    the pairwise decays then contracted; and q_t u k_t of the bonus): 2 B t s
+    H dk and 2 B S H dk a layer (ROADMAP.md §3, 3.2% of the smoke layer,
+    0.18% at full width).  Mamba-2 hybrid: the JAX walk fails on a hybrid
+    layer (it passes an empty shared block, whose branch ``lax.cond``
+    traces); the port's counts a layer without its shared block, as JAX's
+    would, and leaves the shared block out of the outer bytes, as JAX's
+    does."""
+    mb, seq = (2, 64) if smoke else (1, 512)
+    cfg = configs.get_config("rwkv6-3b", smoke=smoke)
+    tc = V.traced_layer_costs(cfg, mb, seq)
+    ref = jvalidate.traced_layer_costs(jconfigs.get_config("rwkv6-3b", smoke=smoke), mb, seq)
+    chunk, H, dk = min(64, seq), cfg.rwkv_heads, cfg.ssm_head_dim
+    extra = 2 * mb * seq * chunk * H * dk + 2 * mb * seq * H * dk
+    assert tc.flops_fwd_layer + extra == ref.flops_fwd_layer
+    assert dataclasses.asdict(dataclasses.replace(tc, flops_fwd_layer=ref.flops_fwd_layer)) \
+        == dataclasses.asdict(ref)
+    z = configs.get_config("zamba2-7b", smoke=smoke)
+    with pytest.raises(KeyError):
+        jvalidate.traced_layer_costs(jconfigs.get_config("zamba2-7b", smoke=smoke), mb, seq)
+    zc = V.traced_layer_costs(z, mb, seq)
+    d, f, st, heads = z.d_model, z.d_ff, z.ssm_state, z.d_ff // z.ssm_head_dim
+    proj = 2 * mb * seq * (2 * d * f + d * (2 * st + heads) + f * d)
+    assert zc.flops_fwd_layer > proj and zc.outer_bytes == 4 * 2 * z.vocab_size * d + 4 * d
+
+
+def test_recurrent_plan_documents():
+    """``launch.plan``'s one-card documents for both families: rwkv6-3b's
+    ranks as JAX's (same winner, scores within the counter's 3.2% above);
+    zamba2-7b's builds, where the JAX package's fails on the hybrid layer."""
+    kw = dict(devices=1, stage_options=(1, 2))
+    doc = planlib.smoke_plan_document("rwkv6-3b", **kw, **TPU)
+    jdoc = jplan.smoke_plan_document("rwkv6-3b", **kw)
+    assert doc["execution"] == jdoc["execution"]
+    for a, b in zip(doc["plans"], jdoc["plans"]):
+        assert a["score_step_s"] == pytest.approx(b["score_step_s"], rel=0.033)
+    z = planlib.smoke_plan_document("zamba2-7b", **kw, **TPU)
+    assert z["execution"]["arch"] == "zamba2-7b" and z["plans"][0]["score_step_s"] > 0
+    with pytest.raises(KeyError):
+        jplan.smoke_plan_document("zamba2-7b", **kw)
 
 
 def test_counter_sees_kernels_as_opaque_calls():
