@@ -106,16 +106,36 @@ nonzero and prints no result:
      6 layers), fp32, card against CPU: prefill logits, the greedy tokens of
      4 decode steps and the final recurrent state; (c) ``launch.train`` at
      full width, layered and partitioned, 8 x 2048 tokens in 4 micro-batches,
-     5 steps, exact K1-K6 counts: rwkv6-3b at full depth (52.3 GB of fp32
-     state), zamba2-7b cut to 12 layers (the shared block twice, its gradient
-     summed over both); (d) the §C.3 fused step on that cut, its first loss
+     5 steps, exact K1-K6 counts: rwkv6-3b cut to 8 of its 32 layers (full
+     depth until PR 20: 21.2 s a step, the script's longest run), zamba2-7b
+     cut to 12 layers (the shared block twice, its gradient summed over
+     both), then one more step of rwkv6-3b profiled; (d) the §C.3 fused step on that cut, its first loss
      equal to (c)'s, then one fused step profiled; (e) K1/K2 at rwkv6-3b's
      training rows [4096, 2560] and both archs' decode rows [8, d_model]
      against their plain versions.  Phase 2 also holds K1-K5 at zamba2-7b's
      shapes (K1/K2 on [4096, 3584]; K3-K5 at head dim 112: the training
      shape [2, 2048, 32, 112], the prefill shape [8, 512, 32, 112], GQA at
      rep 4, fp32) with K3-K5's times, bounds and SDPA's;
- 12. the ``kernels`` line (launches over phases 4-11), and as the last line
+ 12. the pipeline for every family and the two input modes, with the
+     earlier phases' tensors freed first: (a) the pipeline at one stage on a
+     world-size-1 NCCL group for zamba2-7b cut to 12 layers (the shared block
+     twice) and dbrx-132b at phase 10's training cut (1 layer, 8 of 16
+     experts), the router's aux weight 0 (the pipeline drops the aux loss):
+     step 0's gradient of modular and split 1f1b, leaf by leaf, against the
+     layered schedule's (relative L2 1e-6), then 3 steps of each against the
+     layered trajectory (step 0's loss equal, later steps within phase 7's
+     tolerances or 5x a control's reading: the layered run with every
+     gradient and weight moved by one fp32 ulp), exact K1-K6 launches; (b)
+     ``launch.train`` at full width: musicgen-large at full depth (48 layers,
+     frame embeddings, 8 x 2048) and llava-next-mistral-7b cut to 8 layers
+     (a 2880-position vision prefix and 1216 text tokens, 4 x 4096), 5
+     steps, exact K1-K6 launches, tok/s and MFU over every position; (c)
+     both archs at full width, 2 layers, fp32, one gradient pass on the card
+     and on the CPU (llava's prefix cut to 64 positions); (d) K1-K5 at both
+     archs' training micro-batches against their plain versions (musicgen's
+     MHA at head dim 64, rep 1; llava's GQA at rep 4), K3-K5's times beside
+     SDPA's and the bound;
+ 13. the ``kernels`` line (launches over phases 4-12), and as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -1378,18 +1398,42 @@ PIPE_RUNS = (("modular", "modular", False, TRAIN_STEPS, False, 2e-4, 5e-3),
 PIPE_GNORM0_RTOL, PIPE_GRAD_RTOL = 1e-6, 1e-6
 
 
-def pipeline_launches(table, k_c: int, M: int, n_adamw: int) -> dict:
-    """K1-K6 launches of one step from the table: every F, B, Bd and Bw unit
-    runs its chunk's k_c layers forward (2 norms and an attention each); B,
-    Bd and Bw run their backward (2 norm backwards, K4 and K5 each); the head
-    runs the final norm and its backward once per micro-batch; K6 updates
-    ``n_adamw`` leaves."""
-    n = {k: sum(row[0] == k for row in table.kind) for k in range(5)}
-    fwd = k_c * (n[1] + n[2] + n[3] + n[4])
-    bwd = k_c * (n[2] + n[3] + n[4])
-    return {"rmsnorm": 2 * fwd + M, "rmsnorm_bwd": 2 * bwd + M, "flash_attention_fwd": fwd,
-            "flash_attention_bwd_dq": bwd, "flash_attention_bwd_dkv": bwd,
-            "adamw": n_adamw}
+def layer_launches(cfg, l: int) -> tuple[int, int]:
+    """(K1 calls, K3 calls) of global layer ``l``'s forward on one
+    micro-batch, each with its backward in a backward pass: an attention
+    layer's two norms and attention, a Mamba layer's one norm, none in RWKV
+    (its block norms are plain), and after a flagged layer the shared
+    block's two norms and attention; LayerNorm has no kernel."""
+    flag = cfg.attn_layer_flags()[l]
+    norms, attn = {"attn": (2, 1), "mamba": (1, 0), "rwkv": (0, 0)}[cfg.block_kind]
+    norms, attn = norms + 2 * flag, attn + flag
+    return (0 if cfg.norm == "layernorm" else norms), attn
+
+
+def pipeline_launches(cfg, table, M: int, n_adamw: int) -> dict:
+    """K1-K6 launches of one pipelined step at one stage from the table:
+    every F, B, Bd and Bw unit runs its chunk's layers forward, B, Bd and Bw
+    their backward too (``layer_launches``); the head runs the final norm
+    and its backward once per micro-batch; K6 updates ``n_adamw`` leaves."""
+    k_c = table.layers_per_chunk
+    out = dict.fromkeys(("rmsnorm", "rmsnorm_bwd", "flash_attention_fwd",
+                         "flash_attention_bwd_dq", "flash_attention_bwd_dkv"), 0)
+    for t in range(table.n_ticks):
+        kind, v = table.kind[t][0], table.unit_v[t][0]
+        if kind == 0:
+            continue
+        for l in range(v * k_c, (v + 1) * k_c):
+            n, a = layer_launches(cfg, l)
+            out["rmsnorm"] += n
+            out["flash_attention_fwd"] += a
+            if kind != 1:
+                out["rmsnorm_bwd"] += n
+                out["flash_attention_bwd_dq"] += a
+                out["flash_attention_bwd_dkv"] += a
+    head = 0 if cfg.norm == "layernorm" else M
+    out["rmsnorm"] += head
+    out["rmsnorm_bwd"] += head
+    return dict(out, adamw=n_adamw)
 
 
 def on_card(batch: dict) -> dict:
@@ -1501,7 +1545,7 @@ def phase_pipeline(torch, smi, phase5, t_group):
                 want_coll = {"data all_gather": pred["all_gather_data"],
                              "data reduce_scatter": pred["psum_scatter_data"],
                              "stage send": rings, "stage recv": rings}
-                want_k = pipeline_launches(table, spec.layers_per_chunk, M,
+                want_k = pipeline_launches(cfg, table, M,
                                            N_LAYER_LEAVES + all_k6 * N_OUTER_LEAVES)
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
@@ -2250,31 +2294,31 @@ def phase_moe(torch, np, smi) -> dict:
 RECURRENT_SERVE = ("rwkv6-3b", "zamba2-7b")                 # full width and depth
 SERVE_B, SERVE_S, SERVE_STEPS = 8, 512, 64
 RECURRENT_PARITY = {"rwkv6-3b": 2, "zamba2-7b": 6}         # layers (6: the shared block runs)
-# launch.train at full width: rwkv6-3b at full depth (52.3 GB of fp32 state),
-# zamba2-7b cut to 12 layers (the shared block after layers 5 and 11; 36.8 GB)
-RECURRENT_TRAIN = {"rwkv6-3b": 0, "zamba2-7b": 12}
+# launch.train at full width: rwkv6-3b cut to 8 of its 32 layers (its full
+# depth's 5 steps and profiled step took 127 s of the script), zamba2-7b cut
+# to 12 layers (the shared block after layers 5 and 11; 36.8 GB); rwkv6-3b's
+# run is profiled one more step
+RECURRENT_TRAIN = {"rwkv6-3b": 8, "zamba2-7b": 12}
+RECURRENT_PROFILED = "rwkv6-3b"
 FUSED_FAMILY_STEPS = 2
 
 
 def family_step_launches(cfg, M: int) -> dict:
-    """K1-K6 launches of one layered step of a recurrent stack at M
-    micro-batches: RWKV's block norms are plain (the JAX package's
-    ``rms_norm``), so only the final norm runs K1/K2 (the head, forward and
-    backward per micro-batch); a Mamba layer's norm runs K1 twice (forward,
-    recompute) and K2 once per micro-batch, the shared block's two norms and
-    its attention likewise after each flagged layer; K6 once per storage
-    leaf."""
+    """K1-K6 launches of one layered step of any stack at M micro-batches:
+    each layer's kernels (``layer_launches``) forward, recomputed and
+    back-propagated per micro-batch, the final norm forward and backward per
+    micro-batch (none with LayerNorm), K6 once per storage leaf."""
     from repro_torch import tree
     from repro_torch.core import stepfn
-    n_sh = sum(cfg.attn_layer_flags())
-    leaves = len(tree.leaves(stepfn.full_template(cfg)))
-    if cfg.block_kind == "rwkv":
-        return {"rmsnorm": M, "rmsnorm_bwd": M, "flash_attention_fwd": 0,
-                "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0, "adamw": leaves}
-    L = cfg.num_layers
-    return {"rmsnorm": 2 * M * L + 4 * M * n_sh + M, "rmsnorm_bwd": M * L + 2 * M * n_sh + M,
-            "flash_attention_fwd": 2 * M * n_sh, "flash_attention_bwd_dq": M * n_sh,
-            "flash_attention_bwd_dkv": M * n_sh, "adamw": leaves}
+    n = a = 0
+    for l in range(cfg.num_layers):
+        dn, da = layer_launches(cfg, l)
+        n, a = n + dn, a + da
+    head = 0 if cfg.norm == "layernorm" else M
+    return {"rmsnorm": 2 * M * n + head, "rmsnorm_bwd": M * n + head,
+            "flash_attention_fwd": 2 * M * a, "flash_attention_bwd_dq": M * a,
+            "flash_attention_bwd_dkv": M * a,
+            "adamw": len(tree.leaves(stepfn.full_template(cfg)))}
 
 
 def serve_launches(cfg, calls: int) -> dict:
@@ -2285,6 +2329,68 @@ def serve_launches(cfg, calls: int) -> dict:
     n_sh = sum(cfg.attn_layer_flags())
     per = (cfg.num_layers if cfg.block_kind == "mamba" else 0) + 2 * n_sh + 1
     return {"rmsnorm": per * calls, "flash_attention_fwd": n_sh}
+
+
+def attention_times(torch, F, cfg, B: int, S: int, errs: dict, label: str) -> dict:
+    """K3, K4 and K5 at q [B, S, Hq, hd], k/v [B, S, Hkv, hd] of ``cfg``, bf16,
+    causal: each kernel's ms, its bound and SDPA's ms (forward; backward dq,
+    dk and dv together), with ``errs``' max_abs_err from ``shape_checks``;
+    printed, one line a kernel."""
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    q, do = (torch.randn(B, S, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    es = q.element_size()
+    pairs = B * Hq * S * (S + 1) // 2
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    gqa = {"enable_gqa": True} if Hkv != Hq else {}
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, **gqa)
+
+    def sdpa_fwd_bwd():
+        torch.autograd.grad(sdpa(), [qt, kt, vt], dot)
+
+    sdpa_fwd = cuda_ms(torch, sdpa, 20)
+    sdpa_bwd = cuda_ms(torch, sdpa_fwd_bwd, 10) - cuda_ms(torch, sdpa, 10)
+    io = 4 * B * Hq * S
+    rows = {
+        "flash_attention_fwd": dict(
+            max_abs_err=errs["flash_attention_fwd"],
+            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 20),
+            library_ms=sdpa_fwd,
+            bound=bound(es * (2 * q.numel() + 2 * k.numel()) + io, 4 * D * pairs, "bfloat16")),
+        "flash_attention_bwd_dq": dict(
+            max_abs_err=errs["flash_attention_bwd_dq"],
+            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do), 20),
+            library_ms=sdpa_bwd,
+            bound=bound(es * (4 * q.numel() + 2 * k.numel()) + 2 * io, 6 * D * pairs,
+                        "bfloat16")),
+        "flash_attention_bwd_dkv": dict(
+            max_abs_err=errs["flash_attention_bwd_dkv"],
+            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta),
+                       20),
+            library_ms=sdpa_bwd,
+            bound=bound(es * (2 * q.numel() + 4 * k.numel()) + 2 * io, 8 * D * pairs,
+                        "bfloat16"))}
+    for name, r in rows.items():
+        say(f"  time {name} at {label}, q [{B}, {S}, {Hq}, {D}] k/v [{B}, {S}, {Hkv}, {D}] "
+            f"bf16 causal: kernel_ms={r['ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+            f"({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.0f}%) library_ms (SDPA"
+            f"{'' if name.endswith('fwd') else ' backward, dq dk dv together'})="
+            f"{r['library_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}")
+    bwd = rows["flash_attention_bwd_dq"]["ms"] + rows["flash_attention_bwd_dkv"]["ms"]
+    say(f"  {label}: K3 {rows['flash_attention_fwd']['ms'] / sdpa_fwd:.2f}x SDPA's forward, "
+        f"K4 + K5 {bwd:.4f} ms, {bwd / sdpa_bwd:.2f}x SDPA's backward")
+    del q, k, v, do, out, lse, delta, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return rows
 
 
 def hd112_checks(torch, F, failures) -> dict:
@@ -2299,7 +2405,6 @@ def hd112_checks(torch, F, failures) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
-    from repro_torch.kernels import flash_attention as fa
     say("K3-K5 at head dim 112 (zamba2-7b's shared attention; the tensor-core instances in "
         "bf16, the CUDA-core ones in fp32; phase 2's tolerances)")
     cfg = configs.get_config("zamba2-7b")
@@ -2322,53 +2427,7 @@ def hd112_checks(torch, F, failures) -> dict:
     n_tc = sum(c for name, c in launched.items() if "_tc<128, 112>" in name)
     if n_tc != 3 * sum(dt == torch.bfloat16 for *_, dt, _ in cases):
         failures.append(f"hd 112: the bf16 cases ran {n_tc} tensor-core launches")
-    g = torch.Generator(device="cuda").manual_seed(SEED)
-    B, S, Hq, D = 2, 2048, cfg.num_heads, cfg.head_dim
-    q, k, v, do = (torch.randn(B, S, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
-                   for _ in range(4))
-    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
-    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
-    es = q.element_size()
-    pairs = B * Hq * S * (S + 1) // 2
-    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    dot = do.transpose(1, 2).contiguous()
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-
-    def sdpa_fwd_bwd():
-        torch.autograd.grad(sdpa(), [qt, kt, vt], dot)
-
-    sdpa_fwd = cuda_ms(torch, sdpa, 20)
-    sdpa_bwd = cuda_ms(torch, sdpa_fwd_bwd, 10) - cuda_ms(torch, sdpa, 10)
-    io = 4 * B * Hq * S
-    out_rows = {
-        "flash_attention_fwd": dict(
-            max_abs_err=errs["flash_attention_fwd"],
-            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 20),
-            library_ms=sdpa_fwd,
-            bound=bound(es * (2 * q.numel() + 2 * k.numel()) + io, 4 * D * pairs, "bfloat16")),
-        "flash_attention_bwd_dq": dict(
-            max_abs_err=errs["flash_attention_bwd_dq"],
-            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do), 20),
-            library_ms=sdpa_bwd,
-            bound=bound(es * (4 * q.numel() + 2 * k.numel()) + 2 * io, 6 * D * pairs,
-                        "bfloat16")),
-        "flash_attention_bwd_dkv": dict(
-            max_abs_err=errs["flash_attention_bwd_dkv"],
-            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta),
-                       20),
-            library_ms=sdpa_bwd,
-            bound=bound(es * (2 * q.numel() + 4 * k.numel()) + 2 * io, 8 * D * pairs,
-                        "bfloat16"))}
-    for name, r in out_rows.items():
-        say(f"  time {name} at hd 112, q [{B}, {S}, {Hq}, {D}] k/v [{B}, {S}, {k.shape[2]}, "
-            f"{D}] bf16 causal: kernel_ms={r['ms']:.4f} bound_ms={r['bound'][0]:.4f} "
-            f"({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.0f}%) library_ms (SDPA"
-            f"{'' if name.endswith('fwd') else ' backward, dq dk dv together'})="
-            f"{r['library_ms']:.4f}")
-    del q, k, v, do, out, lse, delta, qt, kt, vt, dot
-    return out_rows
+    return attention_times(torch, F, cfg, 2, 2048, errs, "hd 112")
 
 
 def recurrent_profile(torch, label: str, fn, n: int) -> None:
@@ -2527,8 +2586,9 @@ def recurrent_parity(torch, np) -> None:
 def train_recurrent(torch, smi, arch: str, layers: int) -> tuple[dict, dict]:
     """(c) ``launch.train`` at ``arch``'s full width (``layers`` = 0: full
     depth), layered, partitioned, 8 x 2048 tokens in 4 micro-batches, 5
-    steps: exact K1-K6 launches, finite loss and grad norm; at full depth,
-    then one more step of the run's state profiled."""
+    steps: exact K1-K6 launches, finite loss and grad norm; for
+    ``RECURRENT_PROFILED``, then one more step of the run's state
+    profiled."""
     from repro_torch import configs
     from repro_torch.core import stepfn
     from repro_torch.core.accumulation import AccumConfig
@@ -2546,7 +2606,8 @@ def train_recurrent(torch, smi, arch: str, layers: int) -> tuple[dict, dict]:
     say(f"  before training {arch}: {free_card(torch)}")
     torch.cuda.reset_peak_memory_stats()
     reset_counts(counters)
-    res = train.main(argv, keep_state=not layers)
+    profiled = arch == RECURRENT_PROFILED
+    res = train.main(argv, keep_state=profiled)
     torch.cuda.synchronize()
     counts = read_counts(counters)
     per_step = family_step_launches(cfg, TRAIN_MB)
@@ -2571,7 +2632,7 @@ def train_recurrent(torch, smi, arch: str, layers: int) -> tuple[dict, dict]:
         problems.append(f"{arch}: launch counts {counts} != {want}")
     if problems:
         raise AssertionError("; ".join(problems))
-    if not layers:
+    if profiled:
         try:
             state = res.pop("state")
             step = stepfn.build_train_step(cfg, AccumConfig("layered", True, TRAIN_MB),
@@ -2693,6 +2754,343 @@ def recurrent_norm_checks(torch) -> None:
         raise AssertionError(f"kernels at phase 11's shapes: {failures}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: the pipeline for every family, and the two input modes
+# ---------------------------------------------------------------------------
+# (a) one stage on a world-size-1 NCCL group: zamba2-7b cut to 12 layers (the
+# shared block after layers 5 and 11; one 12-layer chunk under 1f1b runs it
+# twice) and dbrx-132b at phase 10's training cut (1 layer, 8 of its 16
+# experts: the fp32 state of 16 is more than a card holds), the router's aux
+# weight 0 in every run: the pipeline drops the aux loss, as the JAX
+# executor does.  Runs: (label, schedule, split backward, later steps' loss
+# and grad-norm tolerances against the layered trajectory: phase 7's, or
+# CONTROL_FACTOR times the control's reading at the step where that is
+# larger).  The control is the layered trajectory with every gradient
+# element, and every weight after the update, moved by one fp32 ulp, up,
+# down or not at random, each step: how far rounding alone takes this
+# model's later steps on this card (the pipeline's gradients differ from the
+# layered ones in their fp32 sums' order, its outer leaves' update from K6's
+# in the rounding of the tree-map AdamW).  Its readings at step 2 on an H100
+# 80GB HBM3 at 700 W (zamba2-7b loss 2.6e-4, grad norm 1.7e-2; dbrx-132b
+# 1.5e-3 and 1.5e-3) put phase 7's 2e-4 out of reach of rounding alone at
+# this lr.
+FAMILY_PIPE = {"zamba2-7b": dict(num_layers=12),
+               "dbrx-132b": dict(num_layers=1, num_experts=MOE_TRAIN_EXPERTS,
+                                 router_aux_weight=0.0)}
+FAMILY_PIPE_RUNS = (("modular", "modular", False, 2e-4, 5e-3),
+                    ("1f1b split", "1f1b", True, 2e-4, 3e-3))
+CONTROL_FACTOR = 5
+FAMILY_PIPE_STEPS = 3
+# (b) launch.train at full width, layered and partitioned, 4 micro-batches:
+# musicgen-large at full depth (48 layers, 2.424 B parameters) on 8 x 2048
+# frames; llava-next-mistral-7b cut to 8 of its 32 layers (2.007 B; full
+# depth's fp32 state, 115.9 GB, is more than a card holds) on 4 sequences
+# of 4096 positions (the 2880-position vision prefix and 1216 text tokens)
+MODES_TRAIN = {"musicgen-large": ["--global-batch", "8", "--seq-len", "2048"],
+               "llava-next-mistral-7b": ["--layers", "8", "--global-batch", "4",
+                                         "--seq-len", "4096"]}
+# (c) card against CPU: 2 layers, fp32, 2 micro-batches of 1 x 128 positions;
+# llava's vision prefix cut to 64 of them (the CPU's time)
+MODES_PARITY = {"musicgen-large": {}, "llava-next-mistral-7b": {"vision_prefix_len": 64}}
+# (d) K3-K5 at the two archs' training micro-batches (batch, positions)
+MODES_ATTENTION = {"musicgen-large": (2, 2048), "llava-next-mistral-7b": (1, 4096)}
+
+
+def family_pipeline(torch, smi, arch: str, axis) -> dict:
+    """(a) ``arch``'s cut (``FAMILY_PIPE``) at one stage: step 0's gradient
+    of modular and split 1f1b, leaf by leaf, against the layered schedule's
+    on the same weights and batch (relative L2 within phase 7's 1e-6; the
+    hybrid's shared block non-zero), then the layered trajectory, its
+    control (gradients and weights moved by an ulp) and each pipelined one,
+    ``FAMILY_PIPE_STEPS`` steps: step 0's loss equal, its grad norm to
+    1e-6, later steps within the run's tolerance (``FAMILY_PIPE_RUNS``);
+    the K1-K6 launches of each pipelined step exactly the table's.  Returns
+    the pipelined runs' launches."""
+    from repro_torch import configs, tree
+    from repro_torch.core import pipeline as pp
+    from repro_torch.core import stepfn
+    from repro_torch.core.accumulation import AccumConfig, make_grad_fn
+    from repro_torch.core.schedules import PipeSpec
+    from repro_torch.data.synthetic import DataConfig, batch_for
+    from repro_torch.optim.adam import AdamConfig, adam_init, adam_step
+
+    cfg = dataclasses.replace(configs.get_config(arch), **FAMILY_PIPE[arch])
+    L, M = cfg.num_layers, TRAIN_MB
+    template = stepfn.full_template(cfg)
+    n_layer = len(tree.leaves(template["layers"]))
+    opt_cfg = AdamConfig(lr=3e-3, warmup_steps=1, decay_steps=FAMILY_PIPE_STEPS)
+    data = DataConfig(cfg.vocab_size, 2048, 8, M, seed=SEED)
+    counters = train_counters()
+    total = dict.fromkeys(counters, 0)
+    problems = []
+    specs = {label: PipeSpec(n_stages=1, layers_per_stage=L, n_microbatches=M, schedule=sc,
+                             split_backward=sp) for label, sc, sp, *_ in FAMILY_PIPE_RUNS}
+    say(f"  {arch}: width {cfg.d_model}, {L} layers, {cfg.param_count() / 1e9:.3f} B "
+        f"parameters; before the gradient check: {free_card(torch)}")
+
+    # step 0's gradients, leaf by leaf
+    batch = on_card(batch_for(cfg, data, 0, axis))
+    st = stepfn.init_storage(cfg, SEED, partitioned=True, device="cuda", axis=axis)
+    ref, ref_m = make_grad_fn(cfg, AccumConfig("layered", True, M), template, axis=axis)(st, batch)
+    ref = dict(tree.leaves_with_path(ref))
+    del st
+    pst = stepfn.init_pipeline_storage(cfg, SEED, specs["modular"], partitioned=True,
+                                       device="cuda", axis=axis)
+    for label, spec in specs.items():
+        grads, m = pp.make_pipeline_grad_fn(cfg, spec, template, partitioned=True,
+                                            axis=axis)(pst, batch)
+        errs = {}
+        for k, g in tree.leaves_with_path(grads):
+            r = ref[k].reshape(-1)
+            errs["/".join(k)] = ((g.reshape(-1) - r).norm() / r.norm()).item()
+        worst = max(errs, key=errs.get)
+        shared = {k: e for k, e in errs.items() if k.startswith("shared/")}
+        say(f"  {arch} {label} (V {spec.tick_table().n_chunks} chunks of "
+            f"{spec.tick_table().layers_per_chunk} layers): step 0's gradient against the "
+            f"layered schedule's, leaf by leaf: {sum(e == 0.0 for e in errs.values())} of "
+            f"{len(errs)} leaves bitwise equal, worst relative L2 {errs[worst]:.2e} ({worst})"
+            + (f", the shared block's worst {max(shared.values()):.2e}" if shared else "")
+            + f"; loss {m['loss'].item():.6f} against {ref_m['loss'].item():.6f}")
+        if errs[worst] > PIPE_GRAD_RTOL or m["loss"].item() != ref_m["loss"].item():
+            problems.append(f"{arch} {label}: step 0's gradient off the layered one ({worst} "
+                            f"{errs[worst]:.2e} > {PIPE_GRAD_RTOL})")
+        if any(g.abs().max().item() == 0 for k, g in tree.leaves_with_path(grads)
+               if k[0] == "shared"):
+            problems.append(f"{arch} {label}: a shared-block gradient is zero")
+        del grads
+    del pst, ref, batch
+
+    def run(label, step, storage):
+        opt = adam_init(storage)
+        recs = []
+        reset_counts(counters)
+        for i in range(FAMILY_PIPE_STEPS):
+            b = batch_for(cfg, data, i, axis)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            storage, opt, m = step(storage, opt, b)
+            loss = m["loss"].item()
+            recs.append(dict(loss=loss, grad_norm=m["grad_norm"].item(),
+                             dt=time.perf_counter() - t0,
+                             peak=torch.cuda.max_memory_allocated() / 1e9))
+        torch.cuda.synchronize()
+        counts = read_counts(counters)
+        say(f"  {arch} {label}: " + ", ".join(
+            f"step {i} {r['dt']:.3f} s loss {r['loss']:.6f} grad norm {r['grad_norm']:.6f}"
+            for i, r in enumerate(recs)) + f"; max memory allocated "
+            f"{max(r['peak'] for r in recs):.2f} GB")
+        return recs, counts
+
+    def against(recs):
+        return ([rel(r["loss"], b["loss"]) for r, b in zip(recs, base)],
+                [rel(r["grad_norm"], b["grad_norm"]) for r, b in zip(recs, base)])
+
+    torch.cuda.reset_peak_memory_stats()
+    layered = stepfn.build_train_step(cfg, AccumConfig("layered", True, M), opt_cfg, axis=axis)
+    base, _ = run("layered", layered, stepfn.init_storage(cfg, SEED, partitioned=True,
+                                                           device="cuda", axis=axis))
+    del layered
+    grad_fn = make_grad_fn(cfg, AccumConfig("layered", True, M), template, axis=axis)
+    reduce = stepfn.make_sq_reduce(cfg, axis, True)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+
+    def ulp_noise(t):
+        ulps = torch.randint(-1, 2, t.shape, generator=gen, device="cuda", dtype=torch.int32)
+        t.mul_(1 + ulps.float() * 2.0 ** -23)
+
+    def control(storage, opt, b):
+        grads, metrics = grad_fn(storage, on_card(b))
+        for g in tree.leaves(grads):
+            ulp_noise(g)
+        storage, opt, om = adam_step(opt_cfg, storage, opt, grads, sq_reduce=reduce, fused=True)
+        for p in tree.leaves(storage):
+            ulp_noise(p)
+        return storage, opt, dict(metrics, **om)
+
+    ctrl, _ = run("layered, gradients and weights moved by an ulp (the control)", control,
+                  stepfn.init_storage(cfg, SEED, partitioned=True, device="cuda", axis=axis))
+    del grad_fn
+    free_card(torch)
+    cl, cg = against(ctrl)
+    say(f"  {arch} control against the layered trajectory: loss rel diffs "
+        f"{[f'{d:.1e}' for d in cl]}, grad norm {[f'{d:.1e}' for d in cg]}")
+    for label, _, _, loss_tol, gnorm_tol in FAMILY_PIPE_RUNS:
+        spec = specs[label]
+        table = spec.tick_table()
+        want = {k: v * FAMILY_PIPE_STEPS
+                for k, v in pipeline_launches(cfg, table, M, n_layer).items()}
+        torch.cuda.reset_peak_memory_stats()
+        step = stepfn.build_pipeline_train_step(cfg, spec, opt_cfg, partitioned=True, axis=axis)
+        recs, counts = run(f"pipeline {label}", step, stepfn.init_pipeline_storage(
+            cfg, SEED, spec, partitioned=True, device="cuda", axis=axis))
+        del step
+        free_card(torch)
+        total = {k: total[k] + counts[k] for k in total}
+        dl, dg = against(recs)
+        tl = [max(loss_tol, CONTROL_FACTOR * d) for d in cl]
+        tg = [max(gnorm_tol, CONTROL_FACTOR * d) for d in cg]
+        say(f"  {arch} pipeline {label} on {smi} against the layered trajectory: loss rel "
+            f"diffs {[f'{d:.1e}' for d in dl]} (step 0 exact, then tol "
+            f"{[f'{t:.1e}' for t in tl[1:]]}), grad norm {[f'{d:.1e}' for d in dg]} (step 0 "
+            f"tol {PIPE_GNORM0_RTOL}, then {[f'{t:.1e}' for t in tg[1:]]}); launches {counts} "
+            f"(want {want})")
+        if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) for r in recs):
+            problems.append(f"{arch} {label}: non-finite loss or grad norm")
+        if dl[0] != 0.0 or dg[0] > PIPE_GNORM0_RTOL:
+            problems.append(f"{arch} {label}: step 0 off the layered step")
+        if any(d > t for d, t in zip(dl[1:] + dg[1:], tl[1:] + tg[1:])):
+            problems.append(f"{arch} {label}: later steps off the layered trajectory")
+        if counts != want:
+            problems.append(f"{arch} {label}: launch counts {counts} != {want}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
+def train_mode(torch, smi, arch: str) -> dict:
+    """(b) ``launch.train`` of ``arch`` at full width (``MODES_TRAIN``),
+    layered, partitioned, 4 micro-batches, 5 steps: exact K1-K6 launches,
+    finite losses and grad norms, tok/s and MFU over every position."""
+    from repro_torch import configs
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--microbatches", str(TRAIN_MB), "--steps", str(TRAIN_STEPS),
+            "--lr", "3e-3", "--seed", str(SEED), *MODES_TRAIN[arch]]
+    cfg = configs.get_config(arch)
+    if "--layers" in argv:
+        cfg = dataclasses.replace(cfg, num_layers=int(argv[argv.index("--layers") + 1]))
+    B = int(argv[argv.index("--global-batch") + 1])
+    S = int(argv[argv.index("--seq-len") + 1])
+    counters = train_counters()
+    say(f"  before training {arch}: {free_card(torch)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    res = train.main(argv)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    per_step = family_step_launches(cfg, TRAIN_MB)
+    want = {k: v * TRAIN_STEPS for k, v in per_step.items()}
+    for r in res["records"]:
+        say(f"  step {r['step']}: {r['step_time_s']:.3f} s, {r['tokens_per_s']:.0f} tok/s, "
+            f"MFU {100 * r['mfu']:.2f}% (6ND), loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.4f}, max memory allocated {r['peak_mem_gb']:.2f} GB")
+    steady = res["records"][1:]
+    say(f"  {arch} training on {smi}: input mode {cfg.input_mode}, width {cfg.d_model}, "
+        f"{cfg.num_layers} layers, {cfg.param_count() / 1e9:.3f} B parameters "
+        f"({16 * cfg.param_count() / 1e9:.1f} GB of fp32 state), layered + partitioned, "
+        f"{B} x {S} positions in {TRAIN_MB} micro-batches; steady mean "
+        f"{sum(r['step_time_s'] for r in steady) / len(steady):.3f} s, "
+        f"{sum(r['tokens_per_s'] for r in steady) / len(steady):.0f} tok/s, MFU "
+        f"{100 * sum(r['mfu'] for r in steady) / len(steady):.2f}%, max memory allocated "
+        f"{max(r['peak_mem_gb'] for r in res['records']):.2f} GB")
+    say(f"  launches over {TRAIN_STEPS} steps {counts}; per step {per_step}")
+    problems = []
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in res["records"]):
+        problems.append(f"{arch}: non-finite loss or grad norm")
+    if counts != want:
+        problems.append(f"{arch}: launch counts {counts} != {want}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
+def modes_parity(torch) -> None:
+    """(c) Both archs at full width, 2 layers, fp32 (``MODES_PARITY``), one
+    set of weights made on the CPU and copied to the card: one layered,
+    partitioned gradient pass on each; the loss to 1e-5 and the grad norm to
+    1e-4 relative, every gradient leaf to 1e-4 of its scale (phase 3's
+    tolerances of the loss, the grad norm and the moments, which hold the
+    gradient); musicgen's embedding gradient zero on both."""
+    from repro_torch import configs, tree
+    from repro_torch.core import stepfn
+    from repro_torch.core.accumulation import AccumConfig, make_grad_fn
+    from repro_torch.data.synthetic import DataConfig, batch_for
+
+    for arch, over in MODES_PARITY.items():
+        t0 = time.perf_counter()
+        cfg = dataclasses.replace(configs.get_config(arch), num_layers=2, dtype="float32",
+                                  **over)
+        grad_fn = make_grad_fn(cfg, AccumConfig("layered", True, 2), stepfn.full_template(cfg))
+        batch = batch_for(cfg, DataConfig(cfg.vocab_size, 128, 2, 2, seed=SEED), 0)
+        st = {"cpu": stepfn.init_storage(cfg, SEED, partitioned=True, device="cpu")}
+        st["cuda"] = tree.tree_map(lambda t: t.to("cuda", copy=True), st["cpu"])
+        out = {}
+        for dev in ("cuda", "cpu"):
+            grads, m = grad_fn(st.pop(dev), {k: v.to(dev) for k, v in batch.items()})
+            grads = {k: g.float().cpu() for k, g in tree.leaves_with_path(grads)}
+            out[dev] = (m["loss"].item(), math.sqrt(sum(g.square().sum().item()
+                                                        for g in grads.values())), grads)
+        (lg, ng, gg), (lc, nc, gc) = out["cuda"], out["cpu"]
+        errs = {"/".join(k): (gg[k] - g).abs().max().item() / max(g.abs().max().item(), 1e-30)
+                for k, g in gc.items()}
+        worst = max(errs, key=errs.get)
+        unused = cfg.input_mode == "embeddings"        # the frames leave embed unused
+        say(f"  {arch} width {cfg.d_model}, 2 layers, fp32, {dict(over) or 'as published'}, "
+            f"2 x 1 x 128 positions, one layered partitioned gradient pass: loss card {lg:.6f} "
+            f"cpu {lc:.6f}, grad norm card {ng:.6f} cpu {nc:.6f}; worst leaf {worst} "
+            f"{errs[worst]:.2e} of its scale (tol 1e-4)"
+            + (f"; embed gradient zero on both: "
+               f"{all(not o[2][('embed',)].any() for o in out.values())}" if unused else "")
+            + f"; {time.perf_counter() - t0:.1f} s")
+        if not (math.isfinite(lg) and abs(lg - lc) <= 1e-5 * abs(lc)
+                and abs(ng - nc) <= 1e-4 * abs(nc) and errs[worst] <= 1e-4):
+            raise AssertionError(f"{arch}: card and CPU gradients disagree")
+        if unused and any(o[2][("embed",)].any() for o in out.values()):
+            raise AssertionError(f"{arch}: the unused embedding has a gradient")
+        del st, out
+
+
+def modes_kernel_checks(torch, F) -> None:
+    """(d) K3-K5 (and K1/K2 on the rows) at both archs' training
+    micro-batches against their plain versions with phase 2's
+    training-shape tolerances: musicgen's MHA at head dim 64 (rep 1),
+    llava's GQA at rep 4 and 4096 positions; then their times beside SDPA's
+    and the bound."""
+    from repro_torch import configs
+    failures = []
+    for arch, (B, S) in MODES_ATTENTION.items():
+        cfg = configs.get_config(arch)
+        errs = {}
+        failures += shape_checks(torch, cfg, B, S, f"{arch} training", errs=errs)
+        attention_times(torch, F, cfg, B, S, errs, f"{arch}'s training shape")
+    if failures:
+        raise AssertionError(f"kernels at phase 12's shapes: {failures}")
+
+
+def phase_families(torch, F, smi) -> dict:
+    """(a) the pipeline at one stage for zamba2-7b and dbrx-132b on a
+    world-size-1 NCCL group, (b) ``launch.train`` of musicgen-large and
+    llava-next-mistral-7b at full width, (c) card against CPU for both, (d)
+    K3-K5 at their shapes.  Returns the launches of (a) and (b)."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import dist
+    say(f"  at the start of phase 12: {free_card(torch)}")
+    counts = {}
+
+    def add(c):
+        for name, n in c.items():
+            counts[name] = counts.get(name, 0) + n
+
+    t0 = time.perf_counter()
+    with one_rank_launch():
+        axis = dist.from_env(1, 1, torch.device("cuda"), nstage=1)
+        try:
+            for arch in FAMILY_PIPE:
+                add(family_pipeline(torch, smi, arch, axis))
+                say(f"  (a) {arch} {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+        finally:
+            tdist.destroy_process_group()
+    parts = [(f"b {a}", lambda a=a: add(train_mode(torch, smi, a))) for a in MODES_TRAIN]
+    parts += [("c", lambda: modes_parity(torch)), ("d", lambda: modes_kernel_checks(torch, F))]
+    for part, fn in parts:
+        t0 = time.perf_counter()
+        fn()
+        say(f"  ({part}) {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+    return counts
+
+
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -2786,16 +3184,22 @@ def main() -> int:
         t0 = time.perf_counter()
         recurrent_counts = phase_recurrent(torch, np, smi)
         say(f"[phase 11] the recurrent families ok; {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        family_counts = phase_families(torch, F, smi)
+        say(f"[phase 12] the pipeline for every family and the two input modes ok; "
+            f"{time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
 
     # launches: the serving run's, the training run's, phases 6's, 7's, 8's,
-    # 9's (the plan-driven run's), 10's (the MoE serving and training runs)
-    # and 11's (the recurrent families' serving and training runs)
+    # 9's (the plan-driven run's), 10's (the MoE serving and training runs),
+    # 11's (the recurrent families' serving and training runs) and 12's (the
+    # families' pipelines and the input modes' training runs)
     counts = {name: sum(c.get(name, 0) for c in (
         serve_counts, train_counts, group_counts, pipe_counts, sup_counts, plan_counts,
-        moe_counts, recurrent_counts)) for name in KERNELS}
+        moe_counts, recurrent_counts, family_counts)) for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],
@@ -2808,7 +3212,7 @@ def main() -> int:
              "hd112_library_ms": rows[name]["hd112"]["library_ms"]}
             if "hd112" in rows[name] else {})}
         for name, (src, rep) in KERNELS.items()]}
-    say(f"[phase 12] total {time.perf_counter() - t_all:.1f} s")
+    say(f"[phase 13] total {time.perf_counter() - t_all:.1f} s")
     say(smi)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,8 +1,9 @@
-"""Architecture registry: ``--arch <id>`` resolution (the token-input
-families the port runs so far: dense and mixture-of-experts attention stacks,
-the attention-free RWKV-6 and the Mamba-2 hybrid; the multimodal input modes
-come later).  ``paper-*`` configs resolve
-but are kept out of ``list_archs()``, as in the JAX registry."""
+"""Architecture registry: ``--arch <id>`` resolution for every entry point,
+in the JAX registry's order (dense and mixture-of-experts attention stacks,
+the attention-free RWKV-6, the Mamba-2 hybrid, and the two input modes beside
+tokens: musicgen-large's frame embeddings and llava-next's vision prefix).
+``paper-*`` configs resolve but are kept out of ``list_archs()``, as in the
+JAX registry."""
 from __future__ import annotations
 
 import importlib
@@ -15,6 +16,8 @@ ARCHS = {
     "zamba2-7b": "zamba2_7b",
     "granite-20b": "granite_20b",
     "gemma-2b": "gemma_2b",
+    "musicgen-large": "musicgen_large",
+    "llava-next-mistral-7b": "llava_next_mistral_7b",
     "rwkv6-3b": "rwkv6_3b",
     "gemma2-9b": "gemma2_9b",
     "arctic-480b": "arctic_480b",

@@ -99,11 +99,9 @@ def pipeline_storage_from_numpy(cfg: ModelConfig, tree: dict, spec, *, partition
     ``[K, chunk]`` block ``[s, :, m, d, :]`` of
     ``partition.to_partitioned_stage_stack`` when ``partitioned``, else its
     model shard of ``[s]`` of ``partition.to_stage_stack``, ``[K, ...]``; the
-    outer leaves in full (their model shards), never chunked, as the JAX
-    package's ``partitioned_stage_param_specs`` keeps them."""
-    if tree.get("shared"):
-        raise NotImplementedError("the pipeline of the hybrid families is not ported yet "
-                                  "(ROADMAP.md, item 7)")
+    outer leaves (a hybrid's ``shared`` block among them) in full (their
+    model shards), never chunked, as the JAX package's
+    ``partitioned_stage_param_specs`` keeps them."""
     specs = T.param_specs(cfg, axis.tp)
     lspecs = T.layer_specs(cfg, axis.tp)
     s, d = axis.stage_index, axis.data_index
@@ -127,5 +125,5 @@ def pipeline_storage_from_numpy(cfg: ModelConfig, tree: dict, spec, *, partition
     outer = {k: ptree.tree_map(lambda a, sp: _tensor(shard(np.asarray(a, np.float32),
                                                            zp.model_dim(sp)),
                                                      torch.float32, device), v, specs[k])
-             for k, v in tree.items() if k not in ("layers", "shared")}
+             for k, v in tree.items() if k != "layers" and (k != "shared" or v)}
     return dict(outer, layers=layers)

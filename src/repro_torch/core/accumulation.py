@@ -179,9 +179,10 @@ def make_adapters(cfg: ModelConfig, axis: AxisCtx, acc: AccumConfig,
 
 
 def _accumulate(accs, grads) -> None:
-    """fp32 accumulators += gradients (of any dtype)."""
+    """fp32 accumulators += gradients (of any dtype; None: an unused leaf)."""
     for a, g in zip(accs, grads):
-        a.add_(g)
+        if g is not None:
+            a.add_(g)
 
 
 # ---------------------------------------------------------------------------
@@ -217,8 +218,8 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
     aux_ct = cfg.router_aux_weight / (M * L * axis.ndata)
 
     def setup(batch):
-        if batch["tokens"].shape[0] != M:
-            raise ValueError(f"batch has {batch['tokens'].shape[0]} micro-batches, "
+        if batch["labels"].shape[0] != M:
+            raise ValueError(f"batch has {batch['labels'].shape[0]} micro-batches, "
                              f"the schedule {M}")
         ntok = batch["mask"].float().sum()
         if axis.data is not None:
@@ -291,7 +292,8 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
             wrt = tree.leaves(outer_in) + [t for lp in layers_in for t in tree.leaves(lp)]
             dests = tree.leaves({k: grads[k] for k in okeys}) + [
                 t for l in range(L) for t in tree.leaves(layer_dest(grads["layers"], l))]
-            _accumulate(dests, torch.autograd.grad(loss, wrt))
+            # frame embeddings leave the embedding unused: its gradient stays 0
+            _accumulate(dests, torch.autograd.grad(loss, wrt, allow_unused=True))
             nlls.append(nll.detach())
             auxs = add_aux(auxs, aux)
         if not part:   # one sum per leaf over the data group, at the end
@@ -403,10 +405,9 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
 
         # embed backward
         for mb, dx in zip(mbs, dxs):
-            with torch.enable_grad():
-                x, _ = T.embed_inputs(cfg, outer, mb, axis)
-            (de,) = torch.autograd.grad(x, [outer["embed"]], dx)
-            a_outer["embed"].add_(de)
+            de = T.embed_grad(cfg, outer, mb, dx, axis)
+            if de is not None:
+                a_outer["embed"].add_(de)
         g_outer = ad.reduce(a_outer, layer=False)
         del a_outer
         grads = g_outer if grads_l is None else dict(g_outer, layers=grads_l)

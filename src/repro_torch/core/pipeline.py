@@ -34,10 +34,24 @@ right after the stage's last B or Bw unit of that chunk; its accumulator and
 weights are freed then.  The counts are the JAX executor's
 (``TickTable.predicted_collectives``).  Replicated storage (``[K, ...]``)
 all-reduces each layer leaf over the data group at the end of the pass.  The
-outer leaves (embedding, head, final norm) are held whole on every stage and
-never chunked; only stage 0, which runs the embedding and the head, makes
-their compute copies.  Their gradients are summed over the stage group and
-then the data group.
+outer leaves (embedding, head, final norm, a hybrid's ``shared`` block) are
+held whole on every stage and never chunked; stage 0, which runs the
+embedding and the head, makes their compute copies, and every stage makes
+one of ``shared``, which runs after each flagged layer of its chunks.  Their
+gradients are summed over the stage group and then the data group: the
+shared block's in one fp32 accumulator a stage over every flagged layer its
+B and Bw units take (a Bd unit takes ``x`` only), as the JAX executor's
+``dsh`` carry; each flagged layer's use comes back apart and is added in
+fp32, as the layered schedule adds it (the JAX executor sums a chunk's uses
+in ``cfg.dtype`` inside its ``jax.vjp``).
+
+Every family runs: an MoE layer's router aux loss is dropped, as the JAX
+executor drops it (``x2, _aux = T.apply_layer(...)``), so the pipelined loss
+is the token loss alone; the expert stacks are ZeRO-chunked like any layer
+leaf (the pipeline has no expert group).  Each input mode runs: the
+activation's length is the labels' (a vlm batch's vision prefix and text),
+and the embedding's gradient is ``transformer.embed_grad``'s (none from
+frame embeddings).
 """
 from __future__ import annotations
 
@@ -61,15 +75,6 @@ def _last_weight_ticks(table, s: int) -> dict:
     return last
 
 
-def check_pipelinable(cfg: ModelConfig) -> None:
-    """Raises for the stacks the executor does not run yet (the JAX
-    package's runs them, the shared block's gradient summed over stages)."""
-    if cfg.block_kind != "attn" or cfg.is_moe:
-        raise NotImplementedError(f"{cfg.name}: the port pipelines dense attention stacks "
-                                  f"only so far; the pipeline with MoE and with the "
-                                  f"recurrent families is ROADMAP.md item 7")
-
-
 def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned: bool,
                           axis: AxisCtx, recorder=None, table=None):
     """Returns ``grad_fn(storage, batch) -> (grads like storage, metrics)``
@@ -82,7 +87,6 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
     ``obs.trace.TickRecorder``) times this stage's unit of each tick, its
     compute only (the tick profiler, ``obs.trace.measure_tick_timeline``);
     without one the pass records nothing and adds no sync."""
-    check_pipelinable(cfg)
     if axis.stage is None or axis.data is None:
         raise ValueError("the pipeline runs on the stage and data groups of "
                          "dist.make_axis")
@@ -99,7 +103,7 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
     res_slot, _ = table.residual_slots()
     last_w = _last_weight_ticks(table, s)
     segments = table.gather_segments()
-    windows = cfg.layer_windows()
+    windows, flags, _ = T.layer_tables(cfg)
     dt = cfg.torch_dtype
     head_key = "embed" if cfg.tie_embeddings else "head"
     specs = T.param_specs(cfg, axis.tp)
@@ -153,21 +157,24 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
 
     def grad_fn(storage: dict, batch: dict):
         device = storage["embed"].device
-        if batch["tokens"].shape[0] != M:
-            raise ValueError(f"batch has {batch['tokens'].shape[0]} micro-batches, "
+        if batch["labels"].shape[0] != M:
+            raise ValueError(f"batch has {batch['labels'].shape[0]} micro-batches, "
                              f"the schedule {M}")
         mbs = [{k: b[m] for k, b in batch.items()} for m in range(M)]
         ntok = batch["mask"].float().sum()
         axis.all_reduce(ntok, "data")                 # the global token count
         inv_n = 1.0 / ntok
         okeys = [k for k in storage if k != "layers"]
-        # only stage 0 runs the embedding and the head
+        # only stage 0 runs the embedding and the head; every stage, the
+        # shared block
         outer = {k: tree.tree_map(lambda t: t.to(dt, copy=True).requires_grad_(), storage[k])
-                 for k in okeys} if s == 0 else {}
+                 for k in okeys if s == 0 or k == "shared"}
+        shared = outer.get("shared")
         a_outer = {k: tree.tree_map(lambda t: torch.zeros(t.shape, dtype=torch.float32,
                                                           device=device), storage[k])
                    for k in okeys}
-        B_, Sq = batch["tokens"].shape[1:]
+        # the activation's length: a vlm batch's vision prefix and its text
+        B_, Sq = batch["labels"].shape[1:]
         act_shape = (B_, Sq, cfg.d_model)
         pos = torch.arange(Sq, dtype=torch.int32, device=device).expand(B_, Sq)
         act, cot, res, dX0 = {}, {}, {}, {}
@@ -182,15 +189,49 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
                                     storage["layers"])
         wbuf, accs, nlls = {}, {}, {}
 
-        def run_chunk(v: int, x: torch.Tensor) -> torch.Tensor:
+        def run_chunk(v: int, x: torch.Tensor, sh: list | None = None) -> torch.Tensor:
+            """Chunk v's layers (``sh``: the shared block each runs, when
+            not ``shared``); an MoE layer's aux loss is dropped."""
             g = v * S + s
             for j, lp in enumerate(wbuf[v]):
                 x, _ = T.apply_layer(cfg, lp, x, positions=pos, window=windows[g * k_c + j],
-                                     axis=axis)
+                                     axis=axis, shared=shared if sh is None else sh[j],
+                                     shared_flag=flags[g * k_c + j])
             return x
 
         def weights(v: int) -> list:
             return [w for lp in wbuf[v] for w in tree.leaves(lp)]
+
+        def shared_uses(v: int) -> list | None:
+            """One alias of the shared block (its storage, a leaf of its
+            own) per layer of chunk v that runs it, so that each use's
+            gradient comes back apart and is added in fp32, as the layered
+            schedule adds each layer's; None when no layer does."""
+            g = v * S + s
+            if shared is None or not any(flags[g * k_c:(g + 1) * k_c]):
+                return None
+            return [tree.tree_map(lambda t: t.detach().requires_grad_(), shared)
+                    if flags[g * k_c + j] else None for j in range(k_c)]
+
+        def weight_grads(v: int, x: torch.Tensor, dy: torch.Tensor, *, dgrad: bool):
+            """The B (``dgrad``) / Bw unit: chunk v recomputed from ``x``
+            and its backward; the weight gradients into the chunk's
+            accumulator, each shared-block use's into ``a_outer``.  Returns
+            dx under ``dgrad``."""
+            sh = shared_uses(v)
+            uses = [u for u in sh or () if u is not None]
+            with torch.enable_grad():
+                y = run_chunk(v, x, sh)
+            wrt = weights(v)
+            gs = torch.autograd.grad(y, ([x] if dgrad else []) + wrt
+                                     + [t for u in uses for t in tree.leaves(u)], dy)
+            del y
+            dx, gs = (gs[0], gs[1:]) if dgrad else (None, gs)
+            add_weight_grads(v, gs[:len(wrt)])
+            sh_acc = tree.leaves(a_outer["shared"]) if uses else []
+            for i, gg in enumerate(gs[len(wrt):]):
+                sh_acc[i % len(sh_acc)].add_(gg)
+            return dx
 
         def add_weight_grads(v: int, gw) -> None:
             """Layer-major grads (k_c layers of the leaves in ``paths``
@@ -227,25 +268,21 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
             elif kind in (simlib.TICK_B, simlib.TICK_BDGRAD):
                 x = act.pop((v, mb)).detach().requires_grad_()
                 dy = cot.pop((v, mb))
-                with torch.enable_grad():
-                    y = run_chunk(v, x)
                 if kind == simlib.TICK_B:
-                    dx, *gw = torch.autograd.grad(y, [x] + weights(v), dy)
-                    add_weight_grads(v, gw)
+                    dx = weight_grads(v, x, dy, dgrad=True)
                 else:
+                    with torch.enable_grad():
+                        y = run_chunk(v, x)
                     (dx,) = torch.autograd.grad(y, [x], dy)
+                    del y
                     res[res_slot[t][s]] = (x.detach(), dy)
-                del y
                 if g == 0:
                     dX0[mb] = dx
                 else:
                     sends.append((dx.contiguous(), prv))
             elif kind == simlib.TICK_BWGRAD:
                 x, dy = res.pop(res_slot[t][s])
-                with torch.enable_grad():
-                    y = run_chunk(v, x)
-                add_weight_grads(v, torch.autograd.grad(y, weights(v), dy))
-                del y
+                weight_grads(v, x, dy, dgrad=False)
             if timed:
                 recorder.end()
             if last_w.get(v) == t:
@@ -300,10 +337,9 @@ def make_pipeline_grad_fn(cfg: ModelConfig, spec, template: dict, *, partitioned
 
         # the embedding's backward (stage 0), then the reductions
         for m, dx in sorted(dX0.items()):
-            with torch.enable_grad():
-                x, _ = T.embed_inputs(cfg, outer, mbs[m], axis)
-            (de,) = torch.autograd.grad(x, [outer["embed"]], dx)
-            a_outer["embed"].add_(de)
+            de = T.embed_grad(cfg, outer, mbs[m], dx, axis)
+            if de is not None:
+                a_outer["embed"].add_(de)
         for a in tree.leaves(a_outer):
             axis.all_reduce(a, "stage")
             axis.all_reduce(a, "data")

@@ -2,7 +2,11 @@
 ``repro/data/synthetic.py``): an order-1 latent Markov token stream with
 per-sequence drift plus noise, so training shows a real loss decrease while
 staying offline and seeded.  The stream is numpy's, so a batch is bit-equal
-to the JAX package's for the same config and step.
+to the JAX package's for the same config and step.  The two modality
+frontends are stubs, as in the JAX package: musicgen's precomputed frame
+embeddings (``make_audio_batch``) and llava's projected patch embeddings
+prepended to the text tokens (``make_vlm_batch``), both fp32
+``[M, B/M, S|P, d_model]`` from numpy's normal stream.
 """
 from __future__ import annotations
 
@@ -53,12 +57,42 @@ def make_batch(cfg: DataConfig, step: int) -> dict:
             "mask": torch.ones(tokens.shape, dtype=torch.int32)}
 
 
+def make_audio_batch(cfg: DataConfig, model: ModelConfig, step: int) -> dict:
+    """MusicGen-style: precomputed EnCodec frame embeddings ``embeds``
+    ``[M, B/M, S, d_model]`` fp32 and the codec labels of ``make_batch``."""
+    rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, step, 1]))
+    B, S, M = cfg.global_batch, cfg.seq_len, cfg.n_microbatches
+    embeds = rng.standard_normal((M, B // M, S, model.d_model), np.float32)
+    base = make_batch(cfg, step)
+    return {"embeds": torch.from_numpy(embeds), "labels": base["labels"],
+            "mask": base["mask"]}
+
+
+def make_vlm_batch(cfg: DataConfig, model: ModelConfig, step: int) -> dict:
+    """LLaVA-style: ``vision_embeds`` ``[M, B/M, P, d_model]`` fp32 (P =
+    ``vision_prefix_len``) before ``seq_len - P`` text tokens; the labels and
+    the mask are 0 over the vision prefix, so the loss covers the text."""
+    P = model.vision_prefix_len
+    S_text = cfg.seq_len - P
+    if S_text <= 0:
+        raise ValueError(f"seq_len {cfg.seq_len} leaves no text after the {P}-position "
+                         f"vision prefix")
+    rng = np.random.default_rng(np.random.SeedSequence([cfg.seed, step, 2]))
+    B, M = cfg.global_batch, cfg.n_microbatches
+    base = make_batch(dataclasses.replace(cfg, seq_len=S_text), step)
+    vis = rng.standard_normal((M, B // M, P, model.d_model), np.float32)
+    pad = torch.zeros((M, B // M, P), dtype=torch.int32)
+    return {"tokens": base["tokens"], "vision_embeds": torch.from_numpy(vis),
+            "labels": torch.cat([pad, base["labels"]], dim=-1),
+            "mask": torch.cat([pad, base["mask"]], dim=-1)}
+
+
 def local_rows(batch: dict, axis: AxisCtx) -> dict:
     """This rank's rows of a micro-batched global batch: the micro-batch dim
-    ``[M, B/M, S]`` split over the data group in rank order, as the JAX
+    ``[M, B/M, ...]`` split over the data group in rank order, as the JAX
     package's ``batch_specs`` shard it; every rank of a model group gets the
     same rows."""
-    mb = batch["tokens"].shape[1]
+    mb = batch["labels"].shape[1]
     if mb % axis.ndata:
         raise ValueError(f"micro-batch of {mb} rows does not split over {axis.ndata} "
                          f"data ranks")
@@ -68,7 +102,12 @@ def local_rows(batch: dict, axis: AxisCtx) -> dict:
 
 def batch_for(model: ModelConfig, cfg: DataConfig, step: int,
               axis: AxisCtx = LOCAL) -> dict:
-    """This rank's rows of the global batch of ``step``."""
-    if model.input_mode != "tokens":
-        raise NotImplementedError(f"input mode {model.input_mode!r} is not ported yet")
-    return local_rows(make_batch(cfg, step), axis)
+    """This rank's rows of the global batch of ``step``, in ``model``'s
+    input mode."""
+    if model.input_mode == "embeddings":
+        batch = make_audio_batch(cfg, model, step)
+    elif model.input_mode == "vlm":
+        batch = make_vlm_batch(cfg, model, step)
+    else:
+        batch = make_batch(cfg, step)
+    return local_rows(batch, axis)

@@ -99,7 +99,10 @@ def main(argv=None, *, params: dict | None = None) -> dict:
             print(json.dumps(r))
         return {"plans": rows}
 
-    if cfg.input_mode != "tokens" or cfg.block_kind != "attn":
+    if cfg.input_mode != "tokens":
+        raise SystemExit(f"{args.arch}: paged serving needs token inputs (the "
+                         f"{cfg.input_mode!r} input mode trains only, as in the JAX package)")
+    if cfg.block_kind != "attn":
         raise SystemExit(f"{args.arch}: paged serving needs a token-input attention "
                          f"stack (the recurrent families serve through the dense-cache "
                          f"steps, core/stepfn.build_prefill_step / build_serve_step)")

@@ -208,7 +208,6 @@ def main(argv=None, *, keep_state: bool = False) -> dict:
         cfg = dataclasses.replace(cfg, num_layers=args.layers)
     spec = table = None
     if args.stages > 1:
-        pp.check_pipelinable(cfg)
         if args.schedule not in KNOWN_SCHEDULES:
             ap.error(f"--schedule {args.schedule!r} is not executable; the tick-table "
                      f"executor runs: {', '.join(simlib.EXECUTABLE_SCHEDULES)} (aliases: "

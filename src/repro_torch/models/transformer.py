@@ -183,13 +183,35 @@ def head_weight(cfg: ModelConfig, params: dict) -> torch.Tensor:
 
 
 def embed_inputs(cfg: ModelConfig, params: dict, batch: dict, axis: AxisCtx = LOCAL):
-    """Returns (x [B, S, D], positions [B, S]) for token inputs."""
-    if cfg.input_mode != "tokens":
-        raise NotImplementedError(f"input mode {cfg.input_mode!r} is not ported yet")
-    x = embed_tokens(cfg, params["embed"], batch["tokens"], axis)
+    """Returns (x [B, S, D] in ``cfg.dtype``, positions [B, S]).  Input modes:
+    ``tokens`` ({tokens}); ``embeddings`` ({embeds}, the audio frontend's
+    frames, cast: ``params["embed"]`` is not used); ``vlm`` ({tokens,
+    vision_embeds}: the projected patches, cast, before the token embeddings,
+    the positions running over both)."""
+    if cfg.input_mode == "embeddings":
+        x = batch["embeds"].to(cfg.torch_dtype)
+    else:
+        x = embed_tokens(cfg, params["embed"], batch["tokens"], axis)
+        if cfg.input_mode == "vlm":
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
     B, S = x.shape[:2]
     positions = torch.arange(S, dtype=torch.int32, device=x.device).expand(B, S)
     return x, positions
+
+
+def embed_grad(cfg: ModelConfig, params: dict, batch: dict, dx: torch.Tensor,
+               axis: AxisCtx = LOCAL) -> torch.Tensor | None:
+    """The embedding's gradient from ``dx``, the cotangent of
+    ``embed_inputs``' output (the lookup recomputed): None in the
+    ``embeddings`` mode, which does not use the embedding (the JAX
+    package's gradient there is zeros); in the ``vlm`` mode the vision
+    prefix's cotangent is dropped (it is data's)."""
+    if cfg.input_mode == "embeddings":
+        return None
+    dx = dx[..., dx.shape[-2] - batch["tokens"].shape[-1]:, :]
+    with torch.enable_grad():
+        x = embed_tokens(cfg, params["embed"], batch["tokens"], axis)
+    return torch.autograd.grad(x, [params["embed"]], dx)[0]
 
 
 def layer_tables(cfg: ModelConfig):

@@ -223,7 +223,8 @@ def from_full_state(full: PyTree, cfg: ModelConfig, layout: MeshLayout) -> PyTre
     """Full-layout tree -> storage in ``layout`` (host numpy arrays).
     Partitioned layouts widen to fp32 (exact); replicated layouts cast to
     the template dtype."""
-    full = {k: v for k, v in ptree.tree_map(_np, full).items() if k != "shared"}
+    # the other stacks' empty ``shared`` subtree (the JAX tree's) is dropped
+    full = {k: v for k, v in ptree.tree_map(_np, full).items() if k != "shared" or v}
     tmpl = _full_template(cfg)
     tp = layout.model
     if layout.stages > 1:

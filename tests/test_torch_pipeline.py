@@ -349,10 +349,10 @@ def _spec(mesh, case) -> PipeSpec:
                     schedule=case["schedule"], split_backward=case.get("split", False))
 
 
-def _assemble(outs, mesh, case_i: int, case: dict, tcfg=TCFG) -> dict:
+def _assemble(outs, mesh, case_i: int, case: dict, tcfg=TCFG, spec=None) -> dict:
     """The ranks' gradients (``results[case_i]``) -> global numpy leaves in
-    the JAX tree's layout.  Ranks that must hold equal values are checked
-    equal."""
+    the JAX tree's layout (``spec``: the case's pipeline, ``_spec``'s by
+    default).  Ranks that must hold equal values are checked equal."""
     S, D, tp = mesh
     by = {(o["stage_index"], o["data_index"], o["model_index"]): o["results"][case_i]["grads"]
           for o in outs}
@@ -398,7 +398,7 @@ def _assemble(outs, mesh, case_i: int, case: dict, tcfg=TCFG) -> dict:
     got = {k: tree.tree_map_with_path(lambda p, sp: outer((k, *p), sp), specs[k])
            for k in specs if k != "layers"}
     stacks = tree.tree_map_with_path(layer, lspecs)
-    spec = _spec(mesh, case)
+    spec = _spec(mesh, case) if spec is None else spec
     if case["part"]:
         shapes = tree.tree_map(lambda s: s[1:], tmpl["layers"])
         got["layers"] = zp.from_partitioned_stage_stack(stacks, spec, shapes, lspecs=lspecs,

@@ -548,15 +548,18 @@ def test_param_count_equals_jax(arch, billions):
 
 
 @pytest.mark.parametrize("arch", list(ARCHS))
-def test_train_cli_on_cpu(arch):
+def test_train_cli_on_cpu(arch, monkeypatch, capsys):
     """``launch.train`` trains both families on the CPU; ``--stages 2``
-    refuses them by the ROADMAP item before any process is asked for."""
+    outside the launcher stops at the one refusal left before any process
+    group exists, the process count (the pipeline runs both families)."""
     out = train.main(["--arch", arch, "--smoke", "--device", "cpu", "--steps", "2",
                       "--seq-len", "16", "--global-batch", "4"])
     assert out["steps"] == 2 and all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
                                      for r in out["records"])
-    with pytest.raises(NotImplementedError, match="item 7"):
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(SystemExit):
         train.main(["--arch", arch, "--smoke", "--device", "cpu", "--stages", "2"])
+    assert "2 stages of --mesh 1x1 need 2 processes" in capsys.readouterr().err
 
 
 def test_flash_plain_at_head_dim_112_matches_pallas():

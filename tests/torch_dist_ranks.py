@@ -21,7 +21,7 @@ from repro_torch import tree
 from repro_torch.convert import storage_from_numpy
 from repro_torch.core import dist, stepfn
 from repro_torch.core.accumulation import AccumConfig, make_grad_fn
-from repro_torch.data.synthetic import DataConfig, local_rows, make_batch
+from repro_torch.data.synthetic import DataConfig, batch_for, local_rows
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adam import AdamConfig, adam_init
 
@@ -54,18 +54,21 @@ def run_grads(job, case, axis):
 
 
 def run_train(job, case, axis):
-    """``case["steps"]`` steps of the classic or the fused train step."""
-    cfg = ModelConfig(**job["cfg"])
+    """``case["steps"]`` steps of the classic or the fused train step, on
+    the batches of the config's input mode.  A case may bring its own config
+    and weights."""
+    cfg = ModelConfig(**case.get("cfg", job["cfg"]))
     data = DataConfig(**case["data"])
     acc = AccumConfig("layered", True, data.n_microbatches)
     build = stepfn.build_fused_train_step if case["fused"] else stepfn.build_train_step
     step = build(cfg, acc, AdamConfig(**case["opt"]), axis=axis)
-    storage = storage_from_numpy(cfg, job["params"], partitioned=True, axis=axis)
+    storage = storage_from_numpy(cfg, case.get("params", job["params"]), partitioned=True,
+                                 axis=axis)
     opt = adam_init(storage)
     recs = []
     for i in range(case["steps"]):
         axis.reset_counts()
-        storage, opt, m = step(storage, opt, local_rows(make_batch(data, i), axis))
+        storage, opt, m = step(storage, opt, batch_for(cfg, data, i, axis))
         recs.append({k: m[k].item() for k in ("loss", "grad_norm", "lr")}
                     | {"counts": _counts(axis)})
     return {"records": recs, "storage": _numpy(storage)}
