@@ -7,8 +7,9 @@ RWKV-6 at its smoke depth of 2 (one layer a stage; see below); and at
 2x1x1 zamba2 at 8 layers under 1f1b, whose one chunk a stage runs the
 shared block twice (each use's gradient added apart, in fp32).
 
-On gloo, stage x data x model meshes 2x1x1 and 2x2x2 (one spawn a mesh
-running every case, ``tests/torch_pipeline_ranks.py``): modular and split
+On gloo, stage x data x model meshes 2x1x1 and 2x2x2, and 2x1x2 for the
+recurrent families (one spawn a mesh running its cases,
+``tests/torch_pipeline_ranks.py``): modular and split
 1f1b in both layouts, gradients and loss against ``jax.grad`` of the JAX
 model's token loss over the global token count, with the router's aux loss
 left out, as the pipeline (JAX's and the port's) drops it; at 2x2x2,
@@ -71,14 +72,17 @@ FAMILIES = ("dbrx-132b", "rwkv6-3b", "zamba2-7b", "musicgen-large", "llava-next-
 VARIANTS = dict({a: (a, 4) for a in FAMILIES}, **{"rwkv6-3b": ("rwkv6-3b", 2),
                                                  "zamba2-7b-8": ("zamba2-7b", 8)})
 M, ROWS, SEQ = 4, 2, 16                  # micro-batches, rows of each, positions
-MESHES = {"2x1x1": (2, 1, 1), "2x2x2": (2, 2, 2)}
+MESHES = {"2x1x1": (2, 1, 1), "2x1x2": (2, 1, 2), "2x2x2": (2, 2, 2)}
 SCHEDULES = [("modular", False), ("1f1b", True)]
 CASES = [dict(kind="pgrads", arch=a, schedule=sc, split=sp, part=p)
          for a in FAMILIES for sc, sp in SCHEDULES for p in (False, True)]
 # 2x1x1 only, after CASES
 DEEP_CASES = [dict(kind="pgrads", arch="zamba2-7b-8", schedule="1f1b", split=sp, part=p)
               for sp in (False, True) for p in (False, True)]
-MESH_CASES = {"2x1x1": CASES + DEEP_CASES, "2x2x2": CASES}
+# 2x1x2: the recurrent families' leaves that are partial on a model rank
+# (Mamba's w_B/w_C, RWKV's mix) summed over the model group alone
+PARTIAL_CASES = [c for c in CASES if c["arch"] in ("rwkv6-3b", "zamba2-7b")]
+MESH_CASES = {"2x1x1": CASES + DEEP_CASES, "2x1x2": PARTIAL_CASES, "2x2x2": CASES}
 GRAD_PARAMS = [(mesh, i) for mesh, cs in MESH_CASES.items() for i in range(len(cs))]
 
 
