@@ -221,6 +221,15 @@ def _gated_update(c: AdamConfig, storage: dict, opt: dict, grads: dict, metrics:
     return storage, opt, dict(metrics, **om, grad_norm=gnorm)
 
 
+def _step_parts(step, grad_fn, sq_reduce, fused):
+    """``step`` with its parts as attributes, for a check that holds one
+    part at a time: ``grad_fn(storage, batch) -> (grads, metrics)``, and
+    the update's ``sq_reduce`` and ``fused`` (``optim.adam.global_norm``'s
+    and ``adam_update``'s arguments); ``step`` is the one, then the other."""
+    step.grad_fn, step.sq_reduce, step.fused = grad_fn, sq_reduce, fused
+    return step
+
+
 def build_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
                      axis: AxisCtx = LOCAL, gate=None):
     """Returns ``step(storage, opt, batch) -> (storage, opt, metrics)``.
@@ -232,7 +241,7 @@ def build_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
     as the JAX package does.  ``gate(loss, grad_norm) -> bool``, when given,
     is asked after the global norm and before the update (the supervisor's
     anomaly gate, ``_gated_update``); without it the step makes no extra
-    host sync."""
+    host sync.  The step's parts are its attributes (``_step_parts``)."""
     if acc.expert_parallel and cfg.is_moe:
         axis = with_expert_group(axis)
     grad_fn = make_grad_fn(cfg, acc, full_template(cfg), axis=axis)
@@ -244,7 +253,7 @@ def build_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
         return _gated_update(opt_cfg, storage, opt, grads, metrics, reduce=reduce,
                              fused=acc.partitioned, gate=gate)
 
-    return step
+    return _step_parts(step, grad_fn, reduce, acc.partitioned)
 
 
 def build_fused_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
@@ -465,7 +474,8 @@ def build_pipeline_train_step(cfg: ModelConfig, spec, opt_cfg: AdamConfig, *,
     partitioned layer chunks; the outer leaves, and replicated layers, take
     the tree-map update, as in the JAX package.  ``gate`` as in
     ``build_train_step``; ``table``, the tick table to run (a plan's),
-    ``spec.tick_table()`` when not given."""
+    ``spec.tick_table()`` when not given.  The step's parts are its
+    attributes (``_step_parts``)."""
     grad_fn = pp.make_pipeline_grad_fn(cfg, spec, full_template(cfg), partitioned=partitioned,
                                        axis=axis, table=table)
     reduce = make_pipeline_sq_reduce(cfg, axis, partitioned)
@@ -476,4 +486,4 @@ def build_pipeline_train_step(cfg: ModelConfig, spec, opt_cfg: AdamConfig, *,
         return _gated_update(opt_cfg, storage, opt, grads, metrics, reduce=reduce,
                              fused=fused, gate=gate)
 
-    return step
+    return _step_parts(step, grad_fn, reduce, fused)

@@ -349,12 +349,14 @@ def _spec(mesh, case) -> PipeSpec:
                     schedule=case["schedule"], split_backward=case.get("split", False))
 
 
-def _assemble(outs, mesh, case_i: int, case: dict, tcfg=TCFG, spec=None) -> dict:
-    """The ranks' gradients (``results[case_i]``) -> global numpy leaves in
-    the JAX tree's layout (``spec``: the case's pipeline, ``_spec``'s by
-    default).  Ranks that must hold equal values are checked equal."""
+def _assemble(outs, mesh, case_i: int, case: dict, tcfg=TCFG, spec=None,
+              key: str = "grads") -> dict:
+    """The ranks' gradients (``results[case_i][key]``, or another tree in
+    the pipeline storage's layout) -> global numpy leaves in the JAX tree's
+    layout (``spec``: the case's pipeline, ``_spec``'s by default).  Ranks
+    that must hold equal values are checked equal."""
     S, D, tp = mesh
-    by = {(o["stage_index"], o["data_index"], o["model_index"]): o["results"][case_i]["grads"]
+    by = {(o["stage_index"], o["data_index"], o["model_index"]): o["results"][case_i][key]
           for o in outs}
     specs, lspecs = T.param_specs(tcfg, tp), T.layer_specs(tcfg, tp)
     tmpl = stepfn.full_template(tcfg)

@@ -19,7 +19,7 @@ from repro_torch.core import pipeline as pp
 from repro_torch import tree
 from repro_torch.core import stepfn
 from repro_torch.core.schedules import PipeSpec
-from repro_torch.data.synthetic import DataConfig, batch_for, local_rows, make_batch
+from repro_torch.data.synthetic import DataConfig, batch_for, local_rows
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adam import AdamConfig, adam_init
 from repro_torch.resilience import reshard
@@ -51,12 +51,15 @@ def run_pgrads(job, case, axis):
 
 
 def run_ptrain(job, case, axis):
-    """``case["steps"]`` pipelined train steps from the job's weights; the
-    parameters ``gather_pipeline_params`` gives before the first."""
-    cfg = ModelConfig(**job["cfg"])
+    """``case["steps"]`` pipelined train steps from the job's weights (or
+    the case's, of its config) on its input mode's batches; the parameters
+    ``gather_pipeline_params`` gives before the first, and this rank's
+    storage after the last."""
+    cfg = ModelConfig(**case.get("cfg", job["cfg"]))
     data = DataConfig(**case["data"])
     spec = _spec(cfg, axis, case, data.n_microbatches)
-    storage = pipeline_storage_from_numpy(cfg, job["params"], spec, partitioned=True, axis=axis)
+    storage = pipeline_storage_from_numpy(cfg, case.get("params", job["params"]), spec,
+                                          partitioned=True, axis=axis)
     params = stepfn.gather_pipeline_params(cfg, storage, spec, partitioned=True, axis=axis)
     step = stepfn.build_pipeline_train_step(cfg, spec, AdamConfig(**case["opt"]),
                                             partitioned=True, axis=axis)
@@ -64,12 +67,13 @@ def run_ptrain(job, case, axis):
     recs = []
     for i in range(case["steps"]):
         axis.reset_counts()
-        storage, opt, m = step(storage, opt, local_rows(make_batch(data, i), axis))
+        storage, opt, m = step(storage, opt, batch_for(cfg, data, i, axis))
         recs.append({k: m[k].item() for k in ("loss", "grad_norm", "lr")}
                     | {"counts": _counts(axis)})
     return {"records": recs,
             "params": dict({k: _numpy(v) for k, v in params.items() if k != "layers"},
-                           layers=[_numpy(lp) for lp in params["layers"]])}
+                           layers=[_numpy(lp) for lp in params["layers"]]),
+            "storage": _numpy(storage)}
 
 
 def run_pckpt(job, case, axis):
