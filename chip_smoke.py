@@ -135,7 +135,22 @@ nonzero and prints no result:
      archs' training micro-batches against their plain versions (musicgen's
      MHA at head dim 64, rep 1; llava's GQA at rep 4), K3-K5's times beside
      SDPA's and the bound;
- 13. the ``kernels`` line (launches over phases 4-12), and as the last line
+ 13. serving over a group, on a world-size-1 NCCL group (every collective
+     issued), each run against the one-rank steps on the same weights and
+     inputs, the two called in turns: (a) Yi-6B at full depth, bf16, phase
+     4's weights, 8 ragged prompts through the paged prefill and 32 greedy
+     decode steps of ``build_paged_serve_step``; (b) dbrx-132b at phase 10's
+     cut in the serving layout (``stepfn.init_serve_params``), prefill and 8
+     steps; (c) rwkv6-3b and zamba2-7b at full depth through the dense-cache
+     ``build_prefill_step`` / ``build_serve_step`` over the group, 8 x 128
+     prefill and 8 steps, and the caches they leave; (d) a sequence-sharded
+     dense cache (one shard, ``stepfn.shard_cache``) of a 4000-token Yi-6B
+     prefix, 16 steps against the unsharded cache.  Greedy tokens equal and
+     logits within 1e-5 of their scale at every call, exact collectives
+     (2 L + 1 model all-reduces and one logits all-gather a call for an
+     attention stack; 3 L seq all-reduces a sequence-sharded step) and exact
+     K1/K3/K7 launches of the group's calls; decode ms a step of both;
+ 14. the ``kernels`` line (launches over phases 4-13), and as the last line
      ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
 """
 from __future__ import annotations
@@ -3084,6 +3099,308 @@ def phase_families(torch, F, smi) -> dict:
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: serving over groups (a world-size-1 NCCL group)
+# ---------------------------------------------------------------------------
+GROUP_PAGED = {
+    # arch: (layers (0: all), prompt lengths, greedy decode steps); (a) Yi-6B at
+    # full depth on phase 4's weights, (b) dbrx-132b at phase 10's cut
+    "yi-6b": (0, [512, 131, 256, 77, 400, 64, 300, 200], 32),
+    "dbrx-132b": (8, [64, 512, 128, 320, 256, 96, 448, 200], 8),
+}
+GROUP_DENSE = (8, 128, 8)                    # (c): rows, prompt length, decode steps
+SEQ_PREFIX, SEQ_CTX, SEQ_STEPS = 4000, 4096, 16      # (d): Yi-6B, one row
+GROUP_TOL = 1e-5                             # logits, relative to their largest |value|
+
+
+def kernel_launches():
+    """The serving kernels' counters, K1, K3, K7."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    return {"rmsnorm": rn.launches, "flash_attention_fwd": fa.launches,
+            "paged_attention_decode": pa.launches}
+
+
+def group_turns(torch, axis, runs: dict, n_calls: int, counted: dict, want) -> dict:
+    """Call ``runs[k](i, logits)`` for i in range(n_calls), the one-rank run
+    and the group's in turns, each call synchronised and timed on the host;
+    ``logits`` is that run's previous call's (None first).  The group's
+    calls alone add their K1/K3/K7 launches to ``counted`` (every counter
+    read just before and just after each call) and have their collective
+    counts held to ``want(i)``.  Returns run -> (logits per call, ms per
+    call); fails on a count."""
+    out = {k: ([], []) for k in runs}
+    for i in range(n_calls):
+        for k, fn in runs.items():
+            torch.cuda.synchronize()
+            before = kernel_launches()
+            axis.reset_counts()
+            t0 = time.perf_counter()
+            lg = fn(i, out[k][0][-1] if out[k][0] else None)
+            torch.cuda.synchronize()
+            out[k][1].append(1e3 * (time.perf_counter() - t0))
+            out[k][0].append(lg.float())
+            if k != "group":
+                continue
+            for name, n in kernel_launches().items():
+                counted[name] = counted.get(name, 0) + n - before[name]
+            got = {f"{g} {op}": v for (g, op), v in axis.counts.items()}
+            if got != want(i):
+                raise AssertionError(f"group call {i}: collectives {got} != {want(i)}")
+    return out
+
+
+def group_agreement(torch, smi, label: str, out: dict, first_decode: int) -> None:
+    """The group's greedy tokens equal the one-rank run's at every call and
+    its logits agree within ``GROUP_TOL`` of their scale; prints both runs'
+    decode ms a step (calls from ``first_decode`` on, the first of them
+    dropped: it warms the decode shapes) and the group's extra."""
+    one, grp = (torch.stack(out[k][0]) for k in ("one rank", "group"))
+    same = torch.equal(one.argmax(-1), grp.argmax(-1))
+    err = ((grp - one).abs().max() / one.abs().max()).item()
+    finite = bool(torch.isfinite(grp).all())
+    ms = {k: out[k][1][first_decode + 1:] for k in out}
+    mean = {k: sum(v) / len(v) for k, v in ms.items()}
+    med = {k: sorted(v)[len(v) // 2] for k, v in ms.items()}
+    say(f"  {label} on {smi}: {len(out['group'][1])} calls; greedy tokens equal {same}, "
+        f"logits max rel err {err:.3e} (tol {GROUP_TOL:g}); decode ms a step "
+        f"(mean / median over {len(ms['group'])}) one rank {mean['one rank']:.3f} / "
+        f"{med['one rank']:.3f}, group {mean['group']:.3f} / {med['group']:.3f}, the group's "
+        f"extra {mean['group'] - mean['one rank']:+.3f} ms "
+        f"({100 * (mean['group'] / mean['one rank'] - 1):+.2f}%); "
+        f"first calls ms one rank {[round(x, 1) for x in out['one rank'][1][:first_decode + 1]]}, "
+        f"group {[round(x, 1) for x in out['group'][1][:first_decode + 1]]}")
+    if not (same and err <= GROUP_TOL and finite):
+        raise AssertionError(f"{label}: the group run left the one-rank run "
+                             f"(tokens equal {same}, err {err:.3e}, finite {finite})")
+
+
+def model_collectives(n_reduce: int, reduce_bytes: int, gather_bytes: int, **extra) -> dict:
+    return {"model all_reduce": [n_reduce, n_reduce * reduce_bytes],
+            "model all_gather": [1, gather_bytes], **extra}
+
+
+def group_paged(torch, np, smi, arch: str, axis, counted: dict):
+    """``GROUP_PAGED[arch]``: one set of weights (``stepfn.init_serve_params``
+    on the group: at one rank every block is whole), the same ragged prompts
+    and block tables through the one-rank paged steps and the group's
+    (``build_paged_prefill_fn`` over ``stepfn.serve_axis``,
+    ``build_paged_serve_step``), a prefill and greedy decode steps in turns;
+    exact collectives and K1/K3/K7 launches a call.  Returns the weights
+    (Yi-6B's are phase 4's: ``init_params``' for the seed)."""
+    from repro_torch import configs
+    from repro_torch.core import stepfn
+    from repro_torch.core.dist import LOCAL
+    from repro_torch.serving import steps
+    from repro_torch.serving.cache import PagedCacheConfig, init_paged_cache
+
+    layers, prompts, n_steps = GROUP_PAGED[arch]
+    cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
+    sax = stepfn.serve_axis(cfg, axis)
+    t0 = time.perf_counter()
+    params = stepfn.init_serve_params(cfg, SEED, axis=sax, device="cuda")
+    torch.cuda.synchronize()
+    say(f"  {arch}, {cfg.num_layers} layers, bf16: weights in {time.perf_counter() - t0:.1f} s; "
+        f"{free_card(torch)}")
+    R, bs = len(prompts), 16
+    S = -(-max(prompts) // bs) * bs
+    maxb = -(-(S + n_steps) // bs)
+    pcfg = PagedCacheConfig(num_blocks=R * maxb, block_size=bs, max_blocks_per_seq=maxb)
+    rng = np.random.default_rng(SEED)
+    toks = np.zeros((R, S), np.int32)
+    for i, n in enumerate(prompts):
+        toks[i, :n] = rng.integers(0, cfg.vocab_size, n)
+    toks = torch.from_numpy(toks).cuda()
+    lens = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    tables = torch.arange(R * maxb, dtype=torch.int32, device="cuda").view(R, maxb)
+    caches = {"one rank": init_paged_cache(cfg, pcfg, "cuda"),
+              "group": init_paged_cache(cfg, pcfg, "cuda", sax)}
+    fns = {"one rank": (steps.build_paged_prefill_fn(cfg, LOCAL), steps.build_paged_decode_fn(cfg)),
+           "group": (steps.build_paged_prefill_fn(cfg, sax),
+                     steps.build_paged_serve_step(cfg, axis=axis))}
+
+    def run(k):
+        prefill, decode = fns[k]
+
+        def call(i, prev):
+            if i == 0:
+                lg, caches[k] = prefill(params, caches[k], {"tokens": toks, "lens": lens}, tables)
+            else:
+                lg, caches[k] = decode(params, caches[k], tables, lens + i - 1,
+                                       prev.argmax(-1).int())
+            return lg
+        return call
+
+    L, D, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    elt = params["embed"].element_size()
+
+    def want(i):
+        rows = R * (S if i == 0 else 1)
+        return model_collectives(2 * L + 1, rows * D * elt, R * V * 4)
+
+    before = dict(counted)
+    out = group_turns(torch, axis, {k: run(k) for k in fns}, n_steps + 1, counted, want)
+    group_agreement(torch, smi, f"{arch} paged, {R} prompts {prompts}, prefill + {n_steps} "
+                    f"decode steps", out, 1)
+    got = {k: counted.get(k, 0) - before.get(k, 0) for k in counted}
+    launches = {"rmsnorm": (2 * L + 1) * (n_steps + 1), "flash_attention_fwd": L,
+                "paged_attention_decode": L * n_steps}
+    say(f"  {arch} group launches {got} expected {launches}; collectives a decode step "
+        f"{want(1)}, the prefill's {want(0)}"
+        + ("; no all-to-all: at one data rank every expert is local" if cfg.is_moe else ""))
+    if got != launches:
+        raise AssertionError(f"{arch}: group launches {got} != {launches}")
+    return params
+
+
+def group_dense(torch, np, smi, arch: str, axis, counted: dict) -> None:
+    """(c) ``arch`` at full width and depth through ``stepfn.build_prefill_step``
+    and ``build_serve_step``, one rank and over the group, in turns: a
+    prefill of ``GROUP_DENSE`` rows and greedy decode steps."""
+    from repro_torch import configs, tree
+    from repro_torch.core import stepfn
+    from repro_torch.models import transformer as T
+
+    B, S, n_steps = GROUP_DENSE
+    cfg = configs.get_config(arch)
+    sax = stepfn.serve_axis(cfg, axis)
+    t0 = time.perf_counter()
+    params = stepfn.init_serve_params(cfg, SEED, axis=sax, device="cuda")
+    torch.cuda.synchronize()
+    say(f"  {arch}, {cfg.num_layers} layers, bf16: weights in {time.perf_counter() - t0:.1f} s; "
+        f"{free_card(torch)}")
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32)).cuda()
+    caches = {"one rank": T.init_cache(cfg, B, S + n_steps, device="cuda"),
+              "group": T.init_cache(cfg, B, S + n_steps, sax, device="cuda")}
+    fns = {"one rank": (stepfn.build_prefill_step(cfg), stepfn.build_serve_step(cfg)),
+           "group": (stepfn.build_prefill_step(cfg, axis=axis),
+                     stepfn.build_serve_step(cfg, axis=axis))}
+
+    def run(k):
+        prefill, serve = fns[k]
+
+        def call(i, prev):
+            if i == 0:
+                lg, caches[k] = prefill(params, caches[k], {"tokens": toks})
+            else:
+                lg, caches[k] = serve(params, caches[k], prev.argmax(-1).int())
+            return lg
+        return call
+
+    L, D, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
+    n_sh = sum(cfg.attn_layer_flags()) if cfg.hybrid_attn_period > 0 else 0
+    n_red = 1 + L + 2 * n_sh if cfg.block_kind == "mamba" else 1 + 2 * L
+    elt = params["embed"].element_size()
+
+    def want(i):
+        return model_collectives(n_red, B * (S if i == 0 else 1) * D * elt, B * V * 4)
+
+    before = dict(counted)
+    out = group_turns(torch, axis, {k: run(k) for k in fns}, n_steps + 1, counted, want)
+    group_agreement(torch, smi, f"{arch} dense cache, {B} x {S} prefill + {n_steps} decode "
+                    f"steps", out, 1)
+    # the recurrent states and KV slots the two runs leave behind
+    one, grp = (tree.leaves({n: v for n, v in caches[k].items() if n != "pos"}) for k in fns)
+    state_err = max(((b.float() - a.float()).abs().max() / a.float().abs().max().clamp(min=1e-30))
+                    .item() for a, b in zip(one, grp))
+    say(f"  {arch} caches after the run: max rel err {state_err:.3e} (tol {GROUP_TOL:g})")
+    if not state_err <= GROUP_TOL:
+        raise AssertionError(f"{arch}: the group's cache left the one-rank one ({state_err:.3e})")
+    k1 = (L if cfg.block_kind == "mamba" else 0) + 2 * n_sh + 1
+    launches = {"rmsnorm": k1 * (n_steps + 1), "flash_attention_fwd": n_sh}
+    got = {k: counted.get(k, 0) - before.get(k, 0) for k in launches}
+    say(f"  {arch} group launches {got} expected {launches}; collectives a decode step "
+        f"{want(1)}, the prefill's {want(0)}")
+    if got != launches:
+        raise AssertionError(f"{arch}: group launches {got} != {launches}")
+
+
+def group_seq(torch, np, smi, params, axis, counted: dict) -> None:
+    """(d) Yi-6B (phase 4's weights), one row: a one-rank prefill of
+    ``SEQ_PREFIX`` tokens into a dense cache of ``SEQ_CTX`` positions, that
+    cache copied and cut by ``stepfn.shard_cache(seq_shard=True)`` (one
+    shard over the group of one), then greedy decode steps against the
+    unsharded cache (``build_serve_step``) and the sequence-sharded one
+    (``build_serve_step(seq_shard=True)``: the softmax's max, sum and
+    weighted sum reduced over the seq group), in turns."""
+    from repro_torch import configs
+    from repro_torch.core import stepfn
+    from repro_torch.models import transformer as T
+
+    cfg = configs.get_config("yi-6b")
+    rng = np.random.default_rng(SEED)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, SEQ_PREFIX)).astype(
+        np.int32)).cuda()
+    whole = T.init_cache(cfg, 1, SEQ_CTX, device="cuda")
+    lg0, whole = stepfn.build_prefill_step(cfg)(params, whole, {"tokens": toks})
+    caches = {"one rank": whole,
+              "group": stepfn.shard_cache(cfg, {k: v if k == "pos" else v.clone()
+                                                for k, v in whole.items()},
+                                          axis, seq_shard=True)}
+    fns = {"one rank": stepfn.build_serve_step(cfg),
+           "group": stepfn.build_serve_step(cfg, axis=axis, seq_shard=True)}
+
+    def run(k):
+        def call(i, prev):
+            lg, caches[k] = fns[k](params, caches[k], (lg0 if prev is None else prev)
+                                   .argmax(-1).int())
+            return lg
+        return call
+
+    L, D, V, H, hd = cfg.num_layers, cfg.d_model, cfg.vocab_size, cfg.num_heads, cfg.head_dim
+
+    elt = params["embed"].element_size()
+
+    def want(i):
+        return model_collectives(2 * L + 1, D * elt, V * 4,
+                                 **{"seq all_reduce": [3 * L, L * H * 4 * (2 + hd)]})
+
+    before = dict(counted)
+    out = group_turns(torch, axis, {k: run(k) for k in fns}, SEQ_STEPS, counted, want)
+    group_agreement(torch, smi, f"yi-6b sequence-sharded dense cache (one shard), "
+                    f"{SEQ_PREFIX}-token prefix in {SEQ_CTX} positions, {SEQ_STEPS} decode "
+                    f"steps", out, 0)
+    launches = {"rmsnorm": (2 * L + 1) * SEQ_STEPS}
+    got = {k: counted.get(k, 0) - before.get(k, 0) for k in launches}
+    say(f"  seq group launches {got} expected {launches}; collectives a step {want(0)}")
+    if got != launches or caches["group"]["pos"] != SEQ_PREFIX + SEQ_STEPS:
+        raise AssertionError(f"sequence-sharded decode: launches {got} != {launches} "
+                             f"or position {caches['group']['pos']}")
+
+
+def phase_group_serving(torch, np, smi) -> dict:
+    """(a)-(d) on one world-size-1 NCCL group; returns the group calls' K1,
+    K3 and K7 launches."""
+    import torch.distributed as tdist
+
+    from repro_torch.core import dist
+    say(f"  at the start of phase 13: {free_card(torch)}")
+    counted: dict = {}
+    with one_rank_launch():
+        axis = dist.from_env(1, 1, torch.device("cuda"))
+        try:
+            t0 = time.perf_counter()
+            params = group_paged(torch, np, smi, "yi-6b", axis, counted)
+            say(f"  (a) {time.perf_counter() - t0:.1f} s")
+            t0 = time.perf_counter()
+            group_seq(torch, np, smi, params, axis, counted)
+            del params
+            say(f"  (d) {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+            t0 = time.perf_counter()
+            group_paged(torch, np, smi, "dbrx-132b", axis, counted)
+            say(f"  (b) {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+            for arch in RECURRENT_SERVE:
+                t0 = time.perf_counter()
+                group_dense(torch, np, smi, arch, axis, counted)
+                say(f"  (c) {arch} {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+        finally:
+            tdist.destroy_process_group()
+    return counted
+
+
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -3182,17 +3499,22 @@ def main() -> int:
         family_counts = phase_families(torch, F, smi)
         say(f"[phase 12] the pipeline for every family and the two input modes ok; "
             f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        group_serve_counts = phase_group_serving(torch, np, smi)
+        say(f"[phase 13] serving over a group ok; {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
 
     # launches: the serving run's, the training run's, phases 6's, 7's, 8's,
     # 9's (the plan-driven run's), 10's (the MoE serving and training runs),
-    # 11's (the recurrent families' serving and training runs) and 12's (the
-    # families' pipelines and the input modes' training runs)
+    # 11's (the recurrent families' serving and training runs), 12's (the
+    # families' pipelines and the input modes' training runs) and 13's (the
+    # group serving calls)
     counts = {name: sum(c.get(name, 0) for c in (
         serve_counts, train_counts, group_counts, pipe_counts, sup_counts, plan_counts,
-        moe_counts, recurrent_counts, family_counts)) for name in KERNELS}
+        moe_counts, recurrent_counts, family_counts, group_serve_counts)) for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],
@@ -3205,7 +3527,7 @@ def main() -> int:
              "hd112_library_ms": rows[name]["hd112"]["library_ms"]}
             if "hd112" in rows[name] else {})}
         for name, (src, rep) in KERNELS.items()]}
-    say(f"[phase 13] total {time.perf_counter() - t_all:.1f} s")
+    say(f"[phase 14] total {time.perf_counter() - t_all:.1f} s")
     say(smi)
     say(json.dumps(line))
     say(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,9 @@
 The JAX tree (``repro.models.transformer.init_params``) stacks the layers on
 a leading ``[L, ...]`` dim; pass it with numpy leaves (for example
 ``jax.tree.map(np.asarray, params)``).  ``params_from_numpy`` makes the
-serving parameters: matrices in ``cfg.dtype``; norm parameters, an MoE router
-and the recurrent blocks' vectors (``ssm.FP32_LEAVES``) fp32, as
+serving parameters (``serve_params_from_numpy`` a rank's block of them):
+matrices in ``cfg.dtype``; norm parameters, an MoE router and the
+recurrent blocks' vectors (``ssm.FP32_LEAVES``) fp32, as
 ``transformer.init_params`` makes them; a hybrid's ``shared`` block likewise.
 ``storage_from_numpy``
 makes the fp32 training storage (MoE expert stacks ``[L, E, D, F]`` chunked,
@@ -57,6 +58,38 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict:
             lambda path, v: _tensor(v, _layer_dtype(path, dt), device), tree["shared"])
     if not cfg.tie_embeddings:
         params["head"] = _tensor(tree["head"], dt, device)
+    return params
+
+
+def serve_params_from_numpy(cfg: ModelConfig, tree: dict, axis: AxisCtx = LOCAL,
+                            device="cpu") -> dict:
+    """The JAX parameter tree -> this rank's serving parameters: its block
+    of every leaf by ``transformer.serve_param_specs`` (the vocabulary, heads
+    and hidden dims over the model group; an MoE layer's experts over the
+    data group too), in ``params_from_numpy``'s dtypes.  With ``LOCAL`` it
+    is ``params_from_numpy``."""
+    dt = cfg.torch_dtype
+    specs = T.serve_param_specs(cfg, axis.tp)
+
+    def cut(a, spec, dtype):
+        return zp.block_of(torch.tensor(np.asarray(a, np.float32)), spec,
+                           axis).to(device=device, dtype=dtype)
+
+    def layer(i):
+        return ptree.tree_map_with_path(
+            lambda path, a, sp: cut(a[i], sp[1:], _layer_dtype(path, dt)),
+            tree["layers"], specs["layers"])
+
+    params = {"embed": cut(tree["embed"], specs["embed"], dt),
+              "layers": [layer(i) for i in range(cfg.num_layers)],
+              "final_norm": ptree.tree_map(lambda a, sp: cut(a, sp, torch.float32),
+                                           tree["final_norm"], specs["final_norm"])}
+    if tree.get("shared"):
+        params["shared"] = ptree.tree_map_with_path(
+            lambda path, a, sp: cut(a, sp, _layer_dtype(path, dt)), tree["shared"],
+            specs["shared"])
+    if not cfg.tie_embeddings:
+        params["head"] = cut(tree["head"], specs["head"], dt)
     return params
 
 

@@ -13,7 +13,9 @@ of its stage and data row: the Megatron shards) and one stage group (the
 ranks at its data and model position in every stage: the pipeline's rings).
 Under expert parallelism the data group also holds the MoE experts: its
 ``expert`` group is the data group, and tokens reach their experts through
-all-to-alls over it.
+all-to-alls over it.  Serving a sequence-sharded dense cache splits the
+cache's sequence dim over the data group: its ``seq`` group is the data
+group, and the decode softmax reduces over it.
 
 ``AxisCtx()``, with no groups, is the one-process path: no collective is
 issued and every "gather" is a cast.  A group of size 1 still issues every
@@ -48,12 +50,16 @@ class AxisCtx:
     stage: dist.ProcessGroup | None = None   # pipeline stages (the rings)
     expert: dist.ProcessGroup | None = None  # MoE experts: the data group under
                                              # expert parallelism, else None
+    seq: dist.ProcessGroup | None = None     # the dense cache's sequence dim: the
+                                             # data group under seq_shard, else None
     tp: int = 1                              # size of the model group
     ndata: int = 1                           # size of the data group
     nstage: int = 1                          # size of the stage group
     data_index: int = 0                      # d
     model_index: int = 0                     # m
     stage_index: int = 0                     # s
+    nseq: int = 1                            # size of the seq group
+    seq_index: int = 0                       # this rank's shard of the sequence
     stage_ranks: tuple = ()                  # global ranks of the stage group, by s
     # (group name, op) -> [calls, bytes]
     counts: dict = dataclasses.field(default_factory=dict)
@@ -80,6 +86,16 @@ class AxisCtx:
         red = dist.ReduceOp.SUM if op == "sum" else dist.ReduceOp.MAX
         dist.all_reduce(t, op=red, group=getattr(self, group))
         self._count(group, "all_reduce", t)
+
+    def gather_last(self, x: torch.Tensor, group: str) -> torch.Tensor:
+        """``[..., n]`` blocks of the group's ranks -> ``[..., size * n]``,
+        concatenated on the last dim in rank order (vocab-sharded logits
+        made whole).  The gather stacks the blocks on a new leading dim, so
+        the result is that dim moved next to the last, then merged."""
+        size = dist.get_world_size(getattr(self, group))
+        out = torch.empty((size, *x.shape), dtype=x.dtype, device=x.device)
+        self.all_gather(out, x.contiguous(), group)
+        return out.movedim(0, -2).reshape(*x.shape[:-1], size * x.shape[-1])
 
     def all_to_all(self, out: torch.Tensor, inp: torch.Tensor, group: str) -> None:
         """``out`` (contiguous) <- block ``i`` of every rank ``i``'s ``inp``,
@@ -157,6 +173,15 @@ def with_expert_group(axis: AxisCtx) -> AxisCtx:
     """``axis`` with its data group as the expert group (expert
     parallelism over the data group; the JAX package's ``expert="data"``)."""
     return dataclasses.replace(axis, expert=axis.data)
+
+
+def with_seq_group(axis: AxisCtx) -> AxisCtx:
+    """``axis`` with its data group as the seq group (a sequence-sharded
+    dense cache; the JAX package's ``seq="data"``).  Without a data group
+    the cache is one shard, and ``axis`` is returned as it is."""
+    if axis.data is None:
+        return axis
+    return dataclasses.replace(axis, seq=axis.data, nseq=axis.ndata, seq_index=axis.data_index)
 
 
 def make_axis(ndata: int, tp: int, nstage: int = 1) -> AxisCtx:

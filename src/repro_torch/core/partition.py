@@ -79,16 +79,25 @@ def expert_resident_spec(path: tuple, tp: int) -> tuple:
     return (None, "data", m, None) if path[-1] == "w_down" else (None, "data", None, m)
 
 
-def resident_shard(full: torch.Tensor, spec: tuple, axis: AxisCtx) -> torch.Tensor:
-    """A global resident leaf -> this rank's block, fp32: its share of the
-    ``"data"`` dim (its experts) and of the ``"model"`` dim."""
+def block_of(full: torch.Tensor, spec: tuple, axis: AxisCtx) -> torch.Tensor:
+    """A global leaf -> this rank's block, contiguous, in its dtype: its
+    share of each ``"data"`` dim and of the ``"model"`` dim (the serving
+    layout, ``transformer.serve_param_specs``; the resident experts)."""
     x = full
     for i, ax in enumerate(spec):
         n, j = {"data": (axis.ndata, axis.data_index),
                 "model": (axis.tp, axis.model_index)}.get(ax, (1, 0))
         if n > 1:
+            if x.shape[i] % n:
+                raise ValueError(f"dim {i} of {tuple(full.shape)} does not split {n} ways")
             x = x.chunk(n, i)[j]
-    return x.float().contiguous()
+    return x.contiguous()
+
+
+def resident_shard(full: torch.Tensor, spec: tuple, axis: AxisCtx) -> torch.Tensor:
+    """A global resident leaf -> this rank's block, fp32: its share of the
+    ``"data"`` dim (its experts) and of the ``"model"`` dim."""
+    return block_of(full, spec, axis).float()
 
 
 def chunk_size(local_numel: int, n_data: int) -> int:

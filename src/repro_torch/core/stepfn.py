@@ -16,9 +16,10 @@ from repro_torch import tree
 from repro_torch.core import partition as zp
 from repro_torch.core import pipeline as pp
 from repro_torch.core.accumulation import AccumConfig, make_grad_fn, outer_keys
-from repro_torch.core.dist import LOCAL, AxisCtx, with_expert_group
+from repro_torch.core.dist import LOCAL, AxisCtx, with_expert_group, with_seq_group
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as T
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import ModelConfig, dense_init, init_norm
 from repro_torch.optim.adam import AdamConfig, adam_update, global_norm, leaf_update, step_scalars
 
 
@@ -302,39 +303,102 @@ def build_fused_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConf
 
 
 # ---------------------------------------------------------------------------
-# The dense-cache serving steps (single rank)
+# The dense-cache serving steps
 # ---------------------------------------------------------------------------
-ROADMAP_GROUP_SERVING = ("serving over a model or data group and sequence-sharded decode "
-                         "are not ported yet (ROADMAP.md, item 6)")
-
-
-def _single_rank(axis: AxisCtx, seq_shard: bool = False) -> None:
-    if seq_shard or axis.tp > 1 or axis.ndata > 1 or axis.nstage > 1:
-        raise NotImplementedError(ROADMAP_GROUP_SERVING)
+def serve_axis(cfg: ModelConfig, axis: AxisCtx = LOCAL, *, seq_shard: bool = False) -> AxisCtx:
+    """The groups the serving steps run over: ``axis``, with the data group
+    as the expert group for an MoE config that has more than one data rank
+    (its experts spread over it, ``transformer.serve_param_specs``), and as
+    the seq group under ``seq_shard`` (``dist.with_seq_group``; without a
+    data group the cache is one shard).  As the JAX package's builders set
+    ``expert`` and ``seq``."""
+    if cfg.is_moe and axis.ndata > 1:
+        axis = with_expert_group(axis)
+    return with_seq_group(axis) if seq_shard else axis
 
 
 def cache_specs(cfg: ModelConfig, axis: AxisCtx = LOCAL, *, seq_shard: bool = False) -> dict:
-    """The JAX package's sharding of the dense cache, on one rank: every dim
-    whole (None).  Keys as ``transformer.init_cache``'s."""
-    _single_rank(axis, seq_shard)
+    """The dense cache's layout (the JAX package's placements), keys as
+    ``transformer.init_cache``'s: rows over the data group, KV heads and
+    recurrent heads over the model group; under ``seq_shard`` the KV slots'
+    sequence dim over the data group instead and every row on every rank;
+    the sliding-window rings split by rows only, never by sequence."""
+    dp = "data" if axis.data is not None else None
+    m = "model" if axis.tp > 1 else None
+    rows = None if seq_shard else dp
     specs: dict = {"pos": ()}
-    kv = (None,) * 5
     if cfg.num_attn_slots() > 0:
+        kv = (None, None, m, dp, None) if seq_shard else (None, dp, m, None, None)
         specs.update(k=kv, v=kv)
         if cfg.has_window_cache:
-            specs.update(kw=kv, vw=kv)
+            specs.update(kw=(None, rows, m, None, None), vw=(None, rows, m, None, None))
     if cfg.block_kind == "mamba":
-        specs["ssm"] = kv
+        specs["ssm"] = (None, rows, m, None, None)
     elif cfg.block_kind == "rwkv":
-        specs["ssm"] = {"S": kv, "x_tm": (None,) * 3, "x_cm": (None,) * 3}
+        specs["ssm"] = {"S": (None, rows, m, None, None), "x_tm": (None, rows, None),
+                        "x_cm": (None, rows, None)}
     return specs
+
+
+def shard_cache(cfg: ModelConfig, cache: dict, axis: AxisCtx = LOCAL, *,
+                seq_shard: bool = False) -> dict:
+    """A whole cache (``transformer.init_cache`` of every row and position,
+    one process) -> this rank's block of it by ``cache_specs``, for a
+    serving run that starts from a filled cache.  A KV head replicated over
+    the model group (fewer KV heads than model ranks) is this rank's copy
+    of its GQA group's head."""
+    specs = cache_specs(cfg, axis, seq_shard=seq_shard)
+    rep = attn_mod.local_counts(cfg, axis.tp)[2] if cfg.num_attn_slots() else False
+
+    def cut(path, t, sp):
+        if rep and path[0] in ("k", "v", "kw", "vw"):
+            kv = attn_mod.replicated_kv_head(cfg, axis)
+            t, sp = t[:, :, kv:kv + 1], tuple(None if a == "model" else a for a in sp)
+        return zp.block_of(t, sp, axis)
+
+    out = tree.tree_map_with_path(cut, {k: v for k, v in cache.items() if k != "pos"},
+                                  {k: v for k, v in specs.items() if k != "pos"})
+    return dict(out, pos=cache["pos"])
+
+
+def init_serve_params(cfg: ModelConfig, seed: int, *, axis: AxisCtx = LOCAL,
+                      device="cuda") -> dict:
+    """Random serving weights from ``seed`` in ``cfg.dtype``, this rank's
+    block of each leaf (``transformer.serve_param_specs``), drawn on
+    ``device``: every rank draws every leaf, one layer at a time, in
+    ``transformer.init_params``' order, and keeps its block, so the blocks
+    are those of ``init_params``' weights for the same seed and the host
+    never holds the model."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    specs = T.serve_param_specs(cfg, axis.tp)
+    lspecs = tree.tree_map(lambda sp: sp[1:], specs["layers"])
+    vocab = (cfg.vocab_size, cfg.d_model)
+
+    def cut(t, sp):
+        return zp.block_of(t, sp, axis)
+
+    params = {"embed": cut(dense_init(gen, vocab, cfg.torch_dtype, device, scale=0.02),
+                           specs["embed"])}
+    params["layers"] = [tree.tree_map(cut, T.init_layer(cfg, gen, device), lspecs)
+                        for _ in range(cfg.num_layers)]
+    params["final_norm"] = init_norm(cfg, cfg.d_model, device)
+    if cfg.hybrid_attn_period > 0:
+        params["shared"] = tree.tree_map(cut, T.init_shared(cfg, gen, device), specs["shared"])
+    if not cfg.tie_embeddings:
+        params["head"] = cut(dense_init(gen, vocab, cfg.torch_dtype, device, scale=0.02),
+                             specs["head"])
+    return params
 
 
 def build_serve_step(cfg: ModelConfig, *, axis: AxisCtx = LOCAL, seq_shard: bool = False):
     """Returns ``serve(params, cache, tokens [B]) -> (logits [B, V], cache)``:
     one greedy-decode step against the dense cache (``transformer.decode_step``,
-    the cache updated in place)."""
-    _single_rank(axis, seq_shard)
+    the cache updated in place) on this rank's rows (every row under
+    ``seq_shard``) and its block of the weights
+    (``transformer.serve_param_specs``); the logits' vocabulary is whole on
+    every rank.  The cache is ``transformer.init_cache(cfg, rows, max_seq,
+    serve_axis(cfg, axis, seq_shard=seq_shard))``."""
+    axis = serve_axis(cfg, axis, seq_shard=seq_shard)
 
     def serve(params, cache, tokens):
         return T.decode_step(cfg, params, cache, tokens, axis)
@@ -344,9 +408,9 @@ def build_serve_step(cfg: ModelConfig, *, axis: AxisCtx = LOCAL, seq_shard: bool
 
 def build_prefill_step(cfg: ModelConfig, *, axis: AxisCtx = LOCAL):
     """Returns ``prefill(params, cache, batch) -> (logits [B, V], cache)``
-    (``transformer.prefill_step``: the KV cache written for positions
-    [0, S), the recurrent states to their end state)."""
-    _single_rank(axis)
+    (``transformer.prefill_step`` on this rank's rows: the KV cache written
+    for positions [0, S), the recurrent states to their end state)."""
+    axis = serve_axis(cfg, axis)
 
     def prefill(params, cache, batch):
         return T.prefill_step(cfg, params, cache, batch, axis)

@@ -20,7 +20,10 @@ version, whose S x S logits a 32k prefill could not hold.
 ``attention_decode`` is the dense-cache decode of the JAX package (plain
 tensor code there too): the new token's K/V written into a ``[B, Hkv_l,
 max_seq, hd]`` cache (in place), or into a sliding-window layer's ring of W
-slots, then one fp32 softmax over the cache.
+slots, then one fp32 softmax over the cache.  Over a seq group
+(``AxisCtx.seq``) each rank holds one contiguous shard of the sequence: the
+rank owning the position writes the token, and the softmax's max, sum and
+weighted sum are reduced over the group.
 """
 from __future__ import annotations
 
@@ -60,6 +63,13 @@ def local_counts(cfg: ModelConfig, tp: int) -> tuple[int, int, bool]:
     return cfg.num_heads // tp, 1, True
 
 
+def replicated_kv_head(cfg: ModelConfig, axis: AxisCtx) -> int:
+    """With the KV heads replicated over the model group, the one KV head
+    this rank's query heads use (the head its cache holds)."""
+    hq_l = cfg.num_heads // axis.tp
+    return (axis.model_index * hq_l) // (cfg.num_heads // cfg.num_kv_heads)
+
+
 def project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, axis: AxisCtx = LOCAL):
     """x: [B, S, D] -> q [B, S, Hq_l, hd], k/v [B, S, Hkv_l, hd] (this
     rank's heads)."""
@@ -71,7 +81,7 @@ def project_qkv(cfg: ModelConfig, p: dict, x: torch.Tensor, axis: AxisCtx = LOCA
     v = (x @ p["wv"].to(x.dtype)).view(B, S, -1, hd)
     if kv_rep:
         # every KV head projected; keep the one this rank's q heads map to
-        kv_idx = (axis.model_index * hq_l) // (cfg.num_heads // cfg.num_kv_heads)
+        kv_idx = replicated_kv_head(cfg, axis)
         k, v = k[:, :, kv_idx:kv_idx + 1], v[:, :, kv_idx:kv_idx + 1]
     return q, k, v
 
@@ -133,7 +143,8 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, *, k_cache: tor
     position.  Writes the token's K/V into the caches (in place: at ``pos``,
     or at ``pos % W`` of a ring of W slots, which then holds position ``pos -
     ((pos - i) mod W)`` in slot i) and returns (y [B, 1, D], k_cache,
-    v_cache)."""
+    v_cache).  With ``axis.seq`` a (non-ring) cache is this rank's shard,
+    positions ``[seq_index * S_cache, (seq_index + 1) * S_cache)``."""
     B = x.shape[0]
     hd = cfg.head_dim
     x = copy_to_model(x, axis)
@@ -142,23 +153,34 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, *, k_cache: tor
     q = apply_rope(q, positions, cfg.rope_theta)
     k_new = apply_rope(k_new, positions, cfg.rope_theta)
     S_c = k_cache.shape[2]
-    slot = pos % S_c if ring else pos
-    k_cache[:, :, slot] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, :, slot] = v_new[:, 0].to(v_cache.dtype)
+    sharded = axis.seq is not None and not ring      # rings are never seq-sharded
+    start = axis.seq_index * S_c if sharded else 0
+    slot = pos % S_c if ring else pos - start
+    if 0 <= slot < S_c:                               # only the owning shard writes
+        k_cache[:, :, slot] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, :, slot] = v_new[:, 0].to(v_cache.dtype)
     rep = q.shape[2] // k_cache.shape[1]
     kk = k_cache.repeat_interleave(rep, dim=1) if rep > 1 else k_cache   # [B, Hq_l, S, hd]
     vv = v_cache.repeat_interleave(rep, dim=1) if rep > 1 else v_cache
     logits = torch.einsum("bqhd,bhkd->bhk", q, kk).float() * hd ** -0.5   # q length 1
     logits = softcap(logits, cfg.attn_logit_softcap)
     i = torch.arange(S_c, device=x.device)
-    kpos = pos - (pos - i) % S_c if ring else i
+    kpos = pos - (pos - i) % S_c if ring else start + i
     valid = (kpos >= 0) & (kpos <= pos)
     if window > 0:
         valid = valid & (pos - kpos < window)
     logits = torch.where(valid[None, None, :], logits, torch.full_like(logits, NEG_INF))
     m = logits.amax(-1)
+    if sharded:
+        # a shard with no live key has m = NEG_INF; the group's max is a
+        # live logit, so its exp below is exp(NEG_INF - m) = 0
+        axis.all_reduce(m, "seq", op="max")
     e = torch.exp(logits - m[..., None])
-    num = torch.einsum("bhk,bhkd->bhd", e, vv.float())
-    y = (num / e.sum(-1)[..., None]).to(x.dtype).reshape(B, 1, -1)
+    denom = e.sum(-1)
+    num = torch.einsum("bhk,bhkd->bhd", e, vv.float()).contiguous()
+    if sharded:
+        axis.all_reduce(denom, "seq")
+        axis.all_reduce(num, "seq")
+    y = (num / denom[..., None]).to(x.dtype).reshape(B, 1, -1)
     out = reduce_from_model(y @ p["wo"].to(y.dtype), axis)
     return out, k_cache, v_cache

@@ -382,11 +382,15 @@ def lm_head_loss(cfg: ModelConfig, head: torch.Tensor, x: torch.Tensor,
     return nll.sum()
 
 
-def lm_logits(cfg: ModelConfig, head: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """[..., D] -> fp32 logits [..., V]: the product in x's dtype, then the
-    final softcap in fp32."""
-    logits = (x @ head.to(x.dtype).t()).float()
-    return softcap(logits, cfg.final_logit_softcap)
+def lm_logits(cfg: ModelConfig, head: torch.Tensor, x: torch.Tensor,
+              axis: AxisCtx = LOCAL) -> torch.Tensor:
+    """[..., D] -> fp32 logits: the product in x's dtype, then the final
+    softcap in fp32.  ``head`` is this rank's ``[V_local, D]`` rows; over a
+    model group the ranks' ``[..., V_local]`` blocks are gathered into the
+    whole ``[..., V]`` (the serving steps' logits).  Without ``axis`` the
+    logits stay this rank's block (``lm_head_loss``)."""
+    logits = softcap((x @ head.to(x.dtype).t()).float(), cfg.final_logit_softcap)
+    return logits if axis.model is None else axis.gather_last(logits, "model")
 
 
 # ---------------------------------------------------------------------------

@@ -7,7 +7,12 @@ there, each rank runs its own experts on the tokens routed to them, and the
 combine folds into the block's model all-reduce.  Under expert parallelism
 (``AxisCtx.expert``, the data group) the experts are spread over the data
 group with their hidden dim over the model group, and tokens travel to their
-experts through two all-to-alls (``_apply_moe_a2a``).
+experts through two all-to-alls (``_apply_moe_a2a``).  The serving layout
+(``transformer.serve_param_specs``) is that one too: its experts over the
+data group when there are several data ranks; with one, every expert is
+local and only its hidden dim is split over the model group, and the
+one-hot path runs them.  The branch is read from the weights' shapes
+(``E > E_l``), not from the config, as in the JAX package.
 
 The router runs in fp32 on the block's input before it enters the model
 group (Megatron's f), so its gradient, the load-balance term's included, is

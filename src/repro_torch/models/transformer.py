@@ -159,6 +159,36 @@ def param_specs(cfg: ModelConfig, tp: int) -> dict:
     return _strip_model(specs) if tp == 1 else specs
 
 
+def serve_layer_overrides(cfg: ModelConfig) -> dict | None:
+    """Serving: an MoE layer's expert stacks over the data group on their
+    expert dim and over the model group on their hidden dim (a 2-D layout
+    that fits a large MoE on the serving ranks; tokens reach their experts
+    by all-to-all over the data group), the router replicated, a dense
+    residual FFN Megatron-split.  None for a layer without experts."""
+    if not cfg.is_moe:
+        return None
+    moe = {"router": (None, None), "w_up": ("data", None, "model"),
+           "w_down": ("data", "model", None)}
+    if cfg.glu:
+        moe["w_gate"] = ("data", None, "model")
+    if cfg.moe_dense_residual:
+        moe["dense"] = _mlp_specs(cfg)
+    return moe
+
+
+def serve_param_specs(cfg: ModelConfig, tp: int) -> dict:
+    """``param_specs`` with ``serve_layer_overrides`` in the layers: the
+    serving steps' parameter layout.  A dim named "data" is split over the
+    data group, "model" over the model group (dropped at ``tp`` 1)."""
+    specs = param_specs(cfg, tp)
+    over = serve_layer_overrides(cfg)
+    if over is None:
+        return specs
+    over = tree.tree_map(lambda sp: (None, *sp), over)
+    return dict(specs, layers=dict(specs["layers"],
+                                   moe=_strip_model(over) if tp == 1 else over))
+
+
 def model_partial_leaves(cfg: ModelConfig, tp: int) -> frozenset:
     """Paths of the layer leaves that are replicated over the model group
     but used on one rank's share only, so that each rank's gradient is
@@ -304,11 +334,15 @@ def loss_fn(cfg: ModelConfig, params: dict, batch: dict, *, remat: bool = True,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, axis: AxisCtx = LOCAL,
                device="cpu") -> dict:
-    """This rank's cache: ``pos`` (the next position, a Python int), the KV
-    slots (``num_attn_slots``; a sliding-window stack's local layers get
-    rings of ``min(W, max_seq)`` slots, ``kw``/``vw``) and the recurrent
-    state of every layer (``ssm``: fp32 Mamba states, or RWKV's fp32 ``S``
-    and its token-shift rows ``x_tm``/``x_cm``)."""
+    """This rank's cache for ``batch`` rows (its own: the data group splits
+    the rows, except under a seq group, where every rank holds every row):
+    ``pos`` (the next position, a Python int), the KV slots
+    (``num_attn_slots``; ``max_seq / nseq`` positions a rank over a seq
+    group; a sliding-window stack's local layers get rings of ``min(W,
+    max_seq)`` slots, ``kw``/``vw``, never sequence-sharded) and the
+    recurrent state of every layer (``ssm``: fp32 Mamba states, or RWKV's
+    fp32 ``S`` and its token-shift rows ``x_tm``/``x_cm``), with this
+    rank's heads of the model group."""
     dt = cfg.torch_dtype
 
     def zeros(*shape, dtype=dt):
@@ -316,10 +350,12 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, axis: AxisCtx = LOCAL
 
     cache: dict = {"pos": 0}
     if cfg.num_attn_slots() > 0:
+        if max_seq % axis.nseq:
+            raise ValueError(f"max_seq {max_seq} does not split over {axis.nseq} seq shards")
         hkv_l = (cfg.num_kv_heads // axis.tp if cfg.num_kv_heads % axis.tp == 0 else 1)
         n_w, n_g = cfg.num_window_slots()
-        cache["k"] = zeros(n_g, batch, hkv_l, max_seq, cfg.head_dim)
-        cache["v"] = zeros(n_g, batch, hkv_l, max_seq, cfg.head_dim)
+        cache["k"] = zeros(n_g, batch, hkv_l, max_seq // axis.nseq, cfg.head_dim)
+        cache["v"] = zeros(n_g, batch, hkv_l, max_seq // axis.nseq, cfg.head_dim)
         if cfg.has_window_cache:
             W = min(cfg.sliding_window, max_seq)
             cache["kw"] = zeros(n_w, batch, hkv_l, W, cfg.head_dim)
@@ -409,25 +445,31 @@ def prefill_step(cfg: ModelConfig, params: dict, cache: dict, batch: dict,
     """Full-sequence prefill of ``batch["tokens"]`` [B, S]: runs the stack,
     writes the KV slots at positions [0, S) (the rings: their last W
     positions) and every layer's recurrent end state, and returns
-    (last-position logits [B, V] fp32, cache); ``cache["pos"]`` becomes S."""
+    (last-position logits [B, V] fp32, cache); ``cache["pos"]`` becomes S.
+    The cache is whole in the sequence: a sequence-sharded one is filled by
+    decode steps (the JAX package's prefill has no seq axis either)."""
+    if axis.seq is not None:
+        raise ValueError("prefill writes an unsharded cache; decode fills a "
+                         "sequence-sharded one")
     x, positions = embed_inputs(cfg, params, batch, axis)
     x = _cached_layers(cfg, params, cache, x, positions, axis, decode=False)
     x = apply_norm(cfg, params["final_norm"], x[:, -1:].contiguous())
     cache["pos"] = positions.shape[1]
-    return lm_logits(cfg, head_weight(cfg, params), x)[:, 0], cache
+    return lm_logits(cfg, head_weight(cfg, params), x, axis)[:, 0], cache
 
 
 @torch.no_grad()
 def decode_step(cfg: ModelConfig, params: dict, cache: dict, tokens: torch.Tensor,
                 axis: AxisCtx = LOCAL):
-    """tokens [B] at position ``cache["pos"]`` -> (logits [B, V] fp32, cache),
+    """tokens [B] at position ``cache["pos"]`` -> (logits [B, V] fp32, the
+    vocabulary whole on every rank of a model group; cache),
     the recurrent states advanced by one step (``ssm.linear_attention_step``)
     and the token's K/V written; ``cache["pos"]`` advances by one."""
     x = embed_tokens(cfg, params["embed"], tokens[:, None], axis)
     x = _cached_layers(cfg, params, cache, x, None, axis, decode=True)
     x = apply_norm(cfg, params["final_norm"], x)
     cache["pos"] += 1
-    return lm_logits(cfg, head_weight(cfg, params), x)[:, 0], cache
+    return lm_logits(cfg, head_weight(cfg, params), x, axis)[:, 0], cache
 
 
 def to_device(params: dict, device) -> dict:

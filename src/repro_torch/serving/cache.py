@@ -15,6 +15,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models.common import ModelConfig
 
 
@@ -40,11 +41,15 @@ class PagedCacheConfig:
         return -(-n_tokens // self.block_size)
 
 
-def init_paged_cache(cfg: ModelConfig, pcfg: PagedCacheConfig, device) -> dict:
-    """Zeroed K and V pools for the attention stack on ``device``."""
+def init_paged_cache(cfg: ModelConfig, pcfg: PagedCacheConfig, device,
+                     axis: AxisCtx = LOCAL) -> dict:
+    """Zeroed K and V pools for the attention stack on ``device``: this
+    rank's KV heads of the model group (``local_kv_heads``), every block (the
+    pool is the same on every data rank: block tables name blocks, not
+    rows)."""
     if cfg.block_kind != "attn":
         raise ValueError(f"paged serving needs block_kind='attn' (got {cfg.block_kind!r})")
-    shape = (cfg.num_attn_slots(), pcfg.num_blocks + 1, cfg.num_kv_heads,
+    shape = (cfg.num_attn_slots(), pcfg.num_blocks + 1, local_kv_heads(cfg, axis.tp),
              pcfg.block_size, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=cfg.torch_dtype, device=device),
             "v": torch.zeros(shape, dtype=cfg.torch_dtype, device=device)}

@@ -43,7 +43,7 @@ from repro.optim.adam import adam_init as jadam_init
 from repro_torch import configs, tree
 from repro_torch.convert import params_from_numpy, storage_from_numpy
 from repro_torch.core import partition as zp
-from repro_torch.core import stepfn
+from repro_torch.core import dist, stepfn
 from repro_torch.core.accumulation import AccumConfig, make_grad_fn
 from repro_torch.data.synthetic import DataConfig, make_batch
 from repro_torch.kernels import ops as kops
@@ -488,14 +488,19 @@ def test_dense_prefill_and_decode_match_jax(fam):
 
 
 def test_dense_steps_refuse_groups():
-    """A model group or a sequence-sharded cache is not served yet, and says
-    so by the ROADMAP item; the paged entry point refuses the families as
-    the JAX package's does."""
+    """The dense-cache steps take a group axis and a sequence-sharded cache
+    (``tests/test_torch_serve_dist.py`` holds them on gloo): a model group
+    of 2 and ``seq_shard`` without a data group are accepted, the latter as
+    one shard of the whole cache; the paged entry point refuses the families
+    as the JAX package's does."""
     _, tcfg = _fam("hybrid")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        stepfn.build_serve_step(tcfg, seq_shard=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        stepfn.cache_specs(tcfg, seq_shard=True)
+    group = dist.AxisCtx(model=object(), tp=2)
+    assert callable(stepfn.build_serve_step(tcfg, axis=group))
+    assert callable(stepfn.build_serve_step(tcfg, seq_shard=True))
+    assert callable(stepfn.build_prefill_step(tcfg, axis=group))
+    specs = stepfn.cache_specs(tcfg, group, seq_shard=True)
+    assert specs["k"] == (None, None, "model", None, None)
+    assert specs["ssm"] == (None, None, "model", None, None)
     with pytest.raises(SystemExit, match="attention stack"):
         serve.main(["--arch", "zamba2-7b", "--smoke", "--device", "cpu"])
 
