@@ -140,7 +140,7 @@ nonzero and prints no result:
      inputs, the two called in turns: (a) Yi-6B at full depth, bf16, phase
      4's weights, 8 ragged prompts through the paged prefill and 32 greedy
      decode steps of ``build_paged_serve_step``; (b) dbrx-132b at phase 10's
-     cut in the serving layout (``stepfn.init_serve_params``), prefill and 8
+     cut in the serving layout (``transformer.init_params`` on the group), prefill and 8
      steps; (c) rwkv6-3b and zamba2-7b at full depth through the dense-cache
      ``build_prefill_step`` / ``build_serve_step`` over the group, 8 x 128
      prefill and 8 steps, and the caches they leave; (d) a sequence-sharded
@@ -3182,7 +3182,7 @@ def model_collectives(n_reduce: int, reduce_bytes: int, gather_bytes: int, **ext
 
 
 def group_paged(torch, np, smi, arch: str, axis, counted: dict):
-    """``GROUP_PAGED[arch]``: one set of weights (``stepfn.init_serve_params``
+    """``GROUP_PAGED[arch]``: one set of weights (``transformer.init_params``
     on the group: at one rank every block is whole), the same ragged prompts
     and block tables through the one-rank paged steps and the group's
     (``build_paged_prefill_fn`` over ``stepfn.serve_axis``,
@@ -3192,6 +3192,7 @@ def group_paged(torch, np, smi, arch: str, axis, counted: dict):
     from repro_torch import configs
     from repro_torch.core import stepfn
     from repro_torch.core.dist import LOCAL
+    from repro_torch.models import transformer as T
     from repro_torch.serving import steps
     from repro_torch.serving.cache import PagedCacheConfig, init_paged_cache
 
@@ -3200,7 +3201,7 @@ def group_paged(torch, np, smi, arch: str, axis, counted: dict):
     cfg = dataclasses.replace(cfg, num_layers=layers or cfg.num_layers)
     sax = stepfn.serve_axis(cfg, axis)
     t0 = time.perf_counter()
-    params = stepfn.init_serve_params(cfg, SEED, axis=sax, device="cuda")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda", sax)
     torch.cuda.synchronize()
     say(f"  {arch}, {cfg.num_layers} layers, bf16: weights in {time.perf_counter() - t0:.1f} s; "
         f"{free_card(torch)}")
@@ -3267,7 +3268,7 @@ def group_dense(torch, np, smi, arch: str, axis, counted: dict) -> None:
     cfg = configs.get_config(arch)
     sax = stepfn.serve_axis(cfg, axis)
     t0 = time.perf_counter()
-    params = stepfn.init_serve_params(cfg, SEED, axis=sax, device="cuda")
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda", sax)
     torch.cuda.synchronize()
     say(f"  {arch}, {cfg.num_layers} layers, bf16: weights in {time.perf_counter() - t0:.1f} s; "
         f"{free_card(torch)}")

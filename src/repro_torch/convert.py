@@ -3,7 +3,7 @@
 The JAX tree (``repro.models.transformer.init_params``) stacks the layers on
 a leading ``[L, ...]`` dim; pass it with numpy leaves (for example
 ``jax.tree.map(np.asarray, params)``).  ``params_from_numpy`` makes the
-serving parameters (``serve_params_from_numpy`` a rank's block of them):
+serving parameters (or a rank's block of them):
 matrices in ``cfg.dtype``; norm parameters, an MoE router and the
 recurrent blocks' vectors (``ssm.FP32_LEAVES``) fp32, as
 ``transformer.init_params`` makes them; a hybrid's ``shared`` block likewise.
@@ -38,36 +38,12 @@ def _layer_dtype(path: tuple, dt: torch.dtype) -> torch.dtype:
     return torch.float32 if fp32 else dt
 
 
-def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu") -> dict:
-    dt = cfg.torch_dtype
-
-    def norm(p):
-        return {k: _tensor(v, torch.float32, device) for k, v in p.items()}
-
-    def layer(i):
-        return ptree.tree_map_with_path(
-            lambda path, v: _tensor(v[i], _layer_dtype(path, dt), device), tree["layers"])
-
-    params = {
-        "embed": _tensor(tree["embed"], dt, device),
-        "layers": [layer(i) for i in range(cfg.num_layers)],
-        "final_norm": norm(tree["final_norm"]),
-    }
-    if tree.get("shared"):
-        params["shared"] = ptree.tree_map_with_path(
-            lambda path, v: _tensor(v, _layer_dtype(path, dt), device), tree["shared"])
-    if not cfg.tie_embeddings:
-        params["head"] = _tensor(tree["head"], dt, device)
-    return params
-
-
-def serve_params_from_numpy(cfg: ModelConfig, tree: dict, axis: AxisCtx = LOCAL,
-                            device="cpu") -> dict:
-    """The JAX parameter tree -> this rank's serving parameters: its block
-    of every leaf by ``transformer.serve_param_specs`` (the vocabulary, heads
-    and hidden dims over the model group; an MoE layer's experts over the
-    data group too), in ``params_from_numpy``'s dtypes.  With ``LOCAL`` it
-    is ``params_from_numpy``."""
+def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu",
+                      axis: AxisCtx = LOCAL) -> dict:
+    """The JAX parameter tree -> the serving parameters; with a group
+    ``axis``, this rank's block of every leaf by
+    ``transformer.serve_param_specs`` (the vocabulary, heads and hidden dims
+    over the model group; an MoE layer's experts over the data group too)."""
     dt = cfg.torch_dtype
     specs = T.serve_param_specs(cfg, axis.tp)
 

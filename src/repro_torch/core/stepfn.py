@@ -19,7 +19,7 @@ from repro_torch.core.accumulation import AccumConfig, make_grad_fn, outer_keys
 from repro_torch.core.dist import LOCAL, AxisCtx, with_expert_group, with_seq_group
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as T
-from repro_torch.models.common import ModelConfig, dense_init, init_norm
+from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adam import AdamConfig, adam_update, global_norm, leaf_update, step_scalars
 
 
@@ -359,35 +359,6 @@ def shard_cache(cfg: ModelConfig, cache: dict, axis: AxisCtx = LOCAL, *,
     out = tree.tree_map_with_path(cut, {k: v for k, v in cache.items() if k != "pos"},
                                   {k: v for k, v in specs.items() if k != "pos"})
     return dict(out, pos=cache["pos"])
-
-
-def init_serve_params(cfg: ModelConfig, seed: int, *, axis: AxisCtx = LOCAL,
-                      device="cuda") -> dict:
-    """Random serving weights from ``seed`` in ``cfg.dtype``, this rank's
-    block of each leaf (``transformer.serve_param_specs``), drawn on
-    ``device``: every rank draws every leaf, one layer at a time, in
-    ``transformer.init_params``' order, and keeps its block, so the blocks
-    are those of ``init_params``' weights for the same seed and the host
-    never holds the model."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    specs = T.serve_param_specs(cfg, axis.tp)
-    lspecs = tree.tree_map(lambda sp: sp[1:], specs["layers"])
-    vocab = (cfg.vocab_size, cfg.d_model)
-
-    def cut(t, sp):
-        return zp.block_of(t, sp, axis)
-
-    params = {"embed": cut(dense_init(gen, vocab, cfg.torch_dtype, device, scale=0.02),
-                           specs["embed"])}
-    params["layers"] = [tree.tree_map(cut, T.init_layer(cfg, gen, device), lspecs)
-                        for _ in range(cfg.num_layers)]
-    params["final_norm"] = init_norm(cfg, cfg.d_model, device)
-    if cfg.hybrid_attn_period > 0:
-        params["shared"] = tree.tree_map(cut, T.init_shared(cfg, gen, device), specs["shared"])
-    if not cfg.tie_embeddings:
-        params["head"] = cut(dense_init(gen, vocab, cfg.torch_dtype, device, scale=0.02),
-                             specs["head"])
-    return params
 
 
 def build_serve_step(cfg: ModelConfig, *, axis: AxisCtx = LOCAL, seq_shard: bool = False):

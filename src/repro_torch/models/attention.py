@@ -156,7 +156,7 @@ def attention_decode(cfg: ModelConfig, p: dict, x: torch.Tensor, *, k_cache: tor
     sharded = axis.seq is not None and not ring      # rings are never seq-sharded
     start = axis.seq_index * S_c if sharded else 0
     slot = pos % S_c if ring else pos - start
-    if 0 <= slot < S_c:                               # only the owning shard writes
+    if not sharded or 0 <= slot < S_c:                # only the owning shard writes
         k_cache[:, :, slot] = k_new[:, 0].to(k_cache.dtype)
         v_cache[:, :, slot] = v_new[:, 0].to(v_cache.dtype)
     rep = q.shape[2] // k_cache.shape[1]

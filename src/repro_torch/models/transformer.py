@@ -21,6 +21,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import tree
+from repro_torch.core import partition as zp
 from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import mlp as mlp_mod
@@ -60,22 +61,35 @@ def init_shared(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
             "mlp": mlp_mod.init_mlp(cfg, generator, device)}
 
 
-def init_params(cfg: ModelConfig, generator: torch.Generator, device) -> dict:
+def init_params(cfg: ModelConfig, generator: torch.Generator, device,
+                axis: AxisCtx = LOCAL) -> dict:
     """Random weights, drawn from ``generator`` (which must live on
     ``device``): the embedding, the layers one by one, a hybrid's shared
-    block, the final norm and the head."""
+    block, the final norm and the head.  With a group ``axis``, this rank's
+    block of each leaf by ``serve_param_specs`` (the serving layout): every
+    rank draws every leaf in the same order, one layer at a time, and keeps
+    its block, so the blocks are those of the whole weights for the same
+    seed and no rank ever holds the model."""
     dt = cfg.torch_dtype
+    specs = serve_param_specs(cfg, axis.tp)
+    lspecs = tree.tree_map(lambda sp: sp[1:], specs["layers"])
+
+    def cut(t, spec):
+        return zp.block_of(t, spec, axis)
+
     params = {
-        "embed": dense_init(generator, (cfg.vocab_size, cfg.d_model), dt, device,
-                            scale=0.02),
-        "layers": [init_layer(cfg, generator, device) for _ in range(cfg.num_layers)],
+        "embed": cut(dense_init(generator, (cfg.vocab_size, cfg.d_model), dt, device,
+                                scale=0.02), specs["embed"]),
+        "layers": [tree.tree_map(cut, init_layer(cfg, generator, device), lspecs)
+                   for _ in range(cfg.num_layers)],
         "final_norm": init_norm(cfg, cfg.d_model, device),
     }
     if cfg.hybrid_attn_period > 0:
-        params["shared"] = init_shared(cfg, generator, device)
+        params["shared"] = tree.tree_map(cut, init_shared(cfg, generator, device),
+                                         specs["shared"])
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(generator, (cfg.vocab_size, cfg.d_model), dt,
-                                    device, scale=0.02)
+        params["head"] = cut(dense_init(generator, (cfg.vocab_size, cfg.d_model), dt,
+                                        device, scale=0.02), specs["head"])
     return params
 
 

@@ -165,8 +165,8 @@ def paged_cache_specs(cfg: ModelConfig, axis: AxisCtx = LOCAL) -> dict:
 def build_paged_serve_step(cfg: ModelConfig, *, axis: AxisCtx = LOCAL):
     """``serve(params, cache, block_tables, lens, tokens) -> (logits [R, V],
     cache)`` on this rank of a data x model group: its block of the weights
-    (``transformer.serve_param_specs``; ``convert.serve_params_from_numpy``,
-    ``stepfn.init_serve_params``), its pool (``init_paged_cache(cfg, pcfg,
+    (``transformer.serve_param_specs``; ``transformer.init_params`` or
+    ``convert.params_from_numpy`` with the rank's axis), its pool (``init_paged_cache(cfg, pcfg,
     device, axis)``), the same tables, lengths and tokens on every rank; an
     MoE config's experts over the data group (``stepfn.serve_axis``)."""
     return build_paged_decode_fn(cfg, serve_axis(cfg, axis))

@@ -15,7 +15,7 @@ split) smoke, prefill and 4 decode steps; a sequence-sharded decode over a
 seq group of one.
 
 Each case's weights are the JAX tree, carried to each rank's block by
-``convert.serve_params_from_numpy``; its tokens are fed to both sides (not
+``convert.params_from_numpy(..., axis=)``; its tokens are fed to both sides (not
 the argmax).  Every call's logits are held to JAX's at 3e-3 (the mirrored
 test's tolerance) and to the port's one-rank run at 1e-4, and its collective
 counts are exact.  Every case of a mesh runs in one spawn
@@ -41,7 +41,7 @@ from repro.serving import steps as jsteps
 from repro.serving.cache import PagedCacheConfig as JPagedCacheConfig
 from repro.serving.cache import init_paged_cache as jinit_paged_cache
 from repro_torch import configs, tree
-from repro_torch.convert import params_from_numpy, serve_params_from_numpy
+from repro_torch.convert import params_from_numpy
 from repro_torch.core import partition as zp
 from repro_torch.core import stepfn
 from repro_torch.core.dist import LOCAL, AxisCtx
@@ -323,11 +323,26 @@ def test_seq_shard_without_a_data_group_is_one_shard():
     assert torch.equal(out[0], out[1])
 
 
+def test_decode_past_an_unsharded_cache_raises():
+    """A decode step past the end of an unsharded cache fails, as the JAX
+    package's has no shard to leave the write to: only a shard of a seq
+    group skips a position that it does not hold."""
+    cfg = ModelConfig(**CFG)
+    params = T.init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(_tokens(4, (2, 5), CFG["vocab_size"]))
+    serve = stepfn.build_serve_step(cfg)
+    cache = T.init_cache(cfg, 2, 4)
+    for t in range(4):
+        serve(params, cache, toks[:, t])
+    with pytest.raises(IndexError):
+        serve(params, cache, toks[:, 4])
+
+
 @pytest.mark.parametrize("arch", ["yi-6b", "dbrx-132b", "zamba2-7b"])
 def test_serving_weights_are_blocks(arch):
-    """``stepfn.init_serve_params`` at each position of a 2x2 grid holds the
-    blocks of ``transformer.init_params``' weights for its seed, and
-    ``convert.serve_params_from_numpy`` cuts the same blocks of a numpy
+    """``transformer.init_params`` at each position of a 2x2 grid holds the
+    blocks of its whole weights for the same seed, and
+    ``convert.params_from_numpy`` cuts the same blocks of a numpy
     tree (yi-6b: KV heads replicated at tp 2; dbrx: 2 of 4 experts a data
     rank, their hidden dim halved; zamba2: the shared block)."""
     cfg = configs.get_config(arch, smoke=True)
@@ -337,8 +352,8 @@ def test_serving_weights_are_blocks(arch):
     for d in range(2):
         for m in range(2):
             axis = dataclasses.replace(GRID22, data_index=d, model_index=m)
-            a = stepfn.init_serve_params(cfg, 5, axis=axis, device="cpu")
-            b = serve_params_from_numpy(cfg, tree_np, axis)
+            a = T.init_params(cfg, torch.Generator().manual_seed(5), "cpu", axis)
+            b = params_from_numpy(cfg, tree_np, axis=axis)
             for (name, x), (_, y), (_, w) in zip(T.named_parameters(a), T.named_parameters(b),
                                                  T.named_parameters(whole)):
                 path = name.split(".")

@@ -5,7 +5,7 @@
 
 ``JOB`` is ``torch_dist_ranks``' pickle; each case brings its config, the
 JAX parameter tree as numpy and its tokens.  A runner takes this rank's
-block of the weights (``convert.serve_params_from_numpy``) and returns the
+block of the weights (``convert.params_from_numpy`` with its axis) and returns the
 logits of every call (the vocabulary whole) and the collective counts of
 every call.  The test runs the same runners with ``dist.LOCAL`` in its own
 process for the port's one-rank run.
@@ -17,7 +17,7 @@ import sys
 import numpy as np
 import torch
 
-from repro_torch.convert import serve_params_from_numpy
+from repro_torch.convert import params_from_numpy
 from repro_torch.core import stepfn
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
@@ -44,7 +44,7 @@ def run_dense(job, case, axis):
     ``seq_shard``)."""
     cfg = ModelConfig(**case["cfg"])
     seq = case.get("seq_shard", False)
-    params = serve_params_from_numpy(cfg, case["params"], axis)
+    params = params_from_numpy(cfg, case["params"], axis=axis)
     toks = torch.from_numpy(case["tokens"])
     if not seq:
         toks = toks.chunk(axis.ndata)[axis.data_index]
@@ -73,7 +73,7 @@ def run_paged(job, case, axis):
     for each column of ``tokens`` at lengths ``lens + i`` (``lens`` 0 without
     a prefill)."""
     cfg = ModelConfig(**case["cfg"])
-    params = serve_params_from_numpy(cfg, case["params"], axis)
+    params = params_from_numpy(cfg, case["params"], axis=axis)
     pcfg = PagedCacheConfig(**case["pcfg"])
     cache = init_paged_cache(cfg, pcfg, "cpu", axis)
     tables = torch.from_numpy(case["tables"])

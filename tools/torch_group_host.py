@@ -37,9 +37,10 @@ def main() -> int:
 
     import chip_smoke
     from repro_torch import configs
-    from repro_torch.core import dist, stepfn
+    from repro_torch.core import dist
     from repro_torch.core.dist import LOCAL
     from repro_torch.kernels import _build
+    from repro_torch.models import transformer as T
     from repro_torch.serving import steps
     from repro_torch.serving.cache import PagedCacheConfig, init_paged_cache
 
@@ -74,7 +75,8 @@ def main() -> int:
                 print(f"{smi}, {env}: {label} {host:.1f} us of host a call, "
                       f"{(time.perf_counter() - t0) / 200 * 1e6:.1f} us to the sync", flush=True)
             cfg = configs.get_config("yi-6b")
-            params = stepfn.init_serve_params(cfg, 0, axis=axis, device="cuda")
+            params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(0), "cuda",
+                                   axis)
             R, bs, maxb = 8, 16, 36
             pcfg = PagedCacheConfig(num_blocks=R * maxb, block_size=bs, max_blocks_per_seq=maxb)
             toks = torch.from_numpy(np.random.default_rng(0).integers(
