@@ -150,8 +150,20 @@ nonzero and prints no result:
      (2 L + 1 model all-reduces and one logits all-gather a call for an
      attention stack; 3 L seq all-reduces a sequence-sharded step) and exact
      K1/K3/K7 launches of the group's calls; decode ms a step of both;
- 14. the ``kernels`` line (launches over phases 4-13), and as the last line
-     ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``.
+ 14. the ``kernels`` line (launches over phases 4-13 and 15), and as the last
+     line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
+ 15. (run before 14's lines) the pod axis and what one card shows of the
+     failure-shrink, on a world-size-1 NCCL grid with pod, data and model
+     groups of one: (a) Yi-6B at phase 5's cut (8 layers, bf16, layered,
+     partitioned, 8 x 2048 tokens in 4 micro-batches), 3 steps each of the
+     group step without pods, with ``span_pods`` (the partition over pod x
+     data) and without it (the gradients summed over pod): losses, grad
+     norms and final state bit for bit the group step's, which are phase 6's
+     run's; exact calls and bytes of every (group, op) and K1-K6 launches;
+     (b) the survivors' grid built and the state drained onto its own layout
+     (no rank leaves): digest unchanged, the gathers counted and timed; a
+     ``lose_replica`` fault at data 1 refused with the JAX package's message
+     and the state as an unfaulted run leaves it (2-layer cut).
 """
 from __future__ import annotations
 
@@ -1386,7 +1398,7 @@ def phase_group(torch, smi, phase5):
                         f"{c['counts']['adamw']}")
     if problems:
         raise AssertionError("; ".join(problems))
-    return total, t_grp
+    return total, t_grp, res["records"]
 
 
 # ---------------------------------------------------------------------------
@@ -3402,6 +3414,197 @@ def phase_group_serving(torch, np, smi) -> dict:
     return counted
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the pod axis and what one card shows of the failure-shrink
+# ---------------------------------------------------------------------------
+POD_STEPS = 3
+# the launch.train run of TRAIN_ARGV: its optimizer (warm-up max(steps // 10, 1))
+POD_OPT = dict(lr=3e-3, warmup_steps=1, decay_steps=TRAIN_STEPS)
+
+
+def pod_collectives(cfg, span: bool, pods: bool) -> dict:
+    """The data, pod and partition groups' [calls, bytes] of one layered,
+    partitioned step of ``cfg`` on a grid of one rank, reckoned from the
+    code: 2 gathers (in ``cfg.dtype``) of each layer leaf a layer and one
+    of each outer leaf, one fp32 reduce-scatter of each, over ``part`` under span, else
+    over ``data`` (a chunk of one rank is the whole leaf); the token count
+    and the metrics [nll, ntok, aux] (4 + 12 bytes) all-reduced over data,
+    then pod; the grad norm's square (4 bytes) over data, and over pod too
+    under span; without span every gradient's fp32 sum over pod before its
+    reduce-scatter."""
+    from repro_torch import tree
+    from repro_torch.core import stepfn
+
+    L = cfg.num_layers
+    tmpl = stepfn.full_template(cfg)
+    layer = sum(math.prod(s[1:]) for s in tree.leaves(tmpl["layers"]))
+    outer = sum(math.prod(s) for k, v in tmpl.items() if k != "layers"
+                for s in tree.leaves(v))
+    n_ag, n_rs = 2 * N_LAYER_LEAVES * L + N_OUTER_LEAVES, N_LAYER_LEAVES * L + N_OUTER_LEAVES
+    ag, rs = cfg.torch_dtype.itemsize * (2 * L * layer + outer), 4 * (L * layer + outer)
+    g = "part" if span else "data"
+    want = {f"{g} all_gather": (n_ag, ag), f"{g} reduce_scatter": (n_rs, rs),
+            "data all_reduce": (3, 20)}
+    if pods:
+        want["pod all_reduce"] = (3, 20) if span else (2 + n_rs, 16 + rs)
+    return want
+
+
+def phase_pods(torch, smi, group_records: list, device: str = "cuda") -> dict:
+    """(a) phase 6's group step and the pod axis on a world-size-1 NCCL grid
+    with pod, data and model groups of one: Yi-6B at phase 5's cut, 3 steps
+    each of the group step without pods, with the partition over (pod,
+    data) (``span_pods``) and over data with the gradients summed over pod;
+    every loss, grad norm and final state equal bit for bit to the group
+    step's, whose losses and grad norms are phase 6's run's; exact
+    collectives of every (group, op) and K1-K6 launches.  (b) the drain of
+    a failure-shrink at one rank: the survivors' grid built, the last run's
+    state drained onto the layout it is in (no rank leaves), its digest
+    unchanged, the gathers counted; a ``lose_replica`` fault at data 1
+    refused with the JAX package's message, the state as an unfaulted run
+    leaves it."""
+    import shutil
+
+    import torch.distributed as tdist
+
+    from repro_torch import configs, tree
+    from repro_torch.core import dist, stepfn
+    from repro_torch.core.accumulation import AccumConfig
+    from repro_torch.data.synthetic import DataConfig, batch_for
+    from repro_torch.optim.adam import AdamConfig, adam_init
+    from repro_torch.resilience import faults as flt
+    from repro_torch.resilience import reshard
+    from repro_torch.resilience.supervisor import (Supervisor, SupervisorConfig,
+                                                   SupervisorError, state_digest)
+
+    L, M = TRAIN_LAYERS, TRAIN_MB
+    cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=L)
+    opt_cfg = AdamConfig(**POD_OPT)
+    data = DataConfig(cfg.vocab_size, 2048, 8, M, seed=SEED)
+    lay = reshard.MeshLayout(1, 1, 1, partitioned=True, n_microbatches=M)
+    counters = train_counters()
+    total = dict.fromkeys(counters, 0)
+    problems, runs = [], {}
+    with one_rank_launch():
+        axis = dist.from_env(1, 1, torch.device(device), npod=1)
+        try:
+            # (a) the same weights and batches on three grids of one rank
+            flat = dataclasses.replace(axis, pod=None, part=None, counts={})
+            for name, ax, span in (("group step", flat, False), ("span_pods", axis, True),
+                                   ("pods, no span", axis, False)):
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                acc = AccumConfig("layered", True, M, span_pods=span)
+                step = stepfn.build_train_step(cfg, acc, opt_cfg, axis=ax)
+                storage = stepfn.init_storage(cfg, SEED, partitioned=True, device=device,
+                                              axis=ax, span_pods=span)
+                opt = adam_init(storage)
+                reset_counts(counters)
+                recs, times = [], []
+                for i in range(POD_STEPS):
+                    batch = batch_for(cfg, data, i, ax)
+                    ax.reset_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    storage, opt, m = step(storage, opt, batch)
+                    recs.append((m["loss"].item(), m["grad_norm"].item(),
+                                 {f"{g} {op}": tuple(c) for (g, op), c in ax.counts.items()}))
+                    times.append(time.perf_counter() - t0)
+                counts = read_counts(counters)
+                total = {k: total[k] + counts[k] for k in total}
+                bundle = {"params": storage, "mu": opt["mu"], "nu": opt["nu"],
+                          "opt_step": opt["step"]}
+                runs[name] = dict(recs=recs, times=times, counts=counts, span=span,
+                                  pods=ax.pod is not None, digest=state_digest(bundle),
+                                  peak=torch.cuda.max_memory_allocated() / 1e9,
+                                  bundle=bundle if name == "pods, no span" else None)
+                del storage, opt, step, bundle
+            ref = runs["group step"]
+            base = ref["recs"][0][2]
+            want_launch = {k: v * POD_STEPS for k, v in TRAIN_PER_STEP.items()}
+            for name, r in runs.items():
+                want = pod_collectives(cfg, r["span"], r["pods"])
+                say(f"  {name} on {smi}: losses {[x[0] for x in r['recs']]}, grad norms "
+                    f"{[x[1] for x in r['recs']]}, step times "
+                    f"{[round(t, 4) for t in r['times']]} s, max memory allocated "
+                    f"{r['peak']:.2f} GB, state digest {r['digest'][:12]}; collectives of "
+                    f"a step [calls, bytes] {r['recs'][0][2]}; launches {r['counts']}")
+                if [x[:2] for x in r["recs"]] != [x[:2] for x in ref["recs"]] \
+                        or r["digest"] != ref["digest"]:
+                    problems.append(f"{name}: not the group step's losses, norms or state")
+                for i, (_, _, coll) in enumerate(r["recs"]):
+                    got = {k: v for k, v in coll.items() if not k.startswith("model ")}
+                    model = {k: v for k, v in coll.items() if k.startswith("model ")}
+                    if got != want or model != {k: v for k, v in base.items()
+                                                if k.startswith("model ")}:
+                        problems.append(f"{name} step {i}: collectives {coll}, want {want} "
+                                        f"and the group step's model group")
+                if r["counts"] != want_launch:
+                    problems.append(f"{name}: launches {r['counts']} != {want_launch}")
+            phase6 = [(rec["loss"], rec["grad_norm"]) for rec in group_records[:POD_STEPS]]
+            if [x[:2] for x in ref["recs"]] != phase6:
+                problems.append(f"the group step's losses and norms {ref['recs']} are not "
+                                f"phase 6's {phase6}")
+
+            # (b) the drain at one rank: nobody leaves, every chunk is
+            # gathered and cut again
+            bundle = runs["pods, no span"].pop("bundle")
+            d0 = state_digest(bundle)
+            axis.reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            grid = dist.make_axis(1, 1, npod=1, ranks=reshard.survivors(axis, 1))
+            moved = reshard.drain_bundle(bundle, cfg, lay, lay, axis, keep=grid is not None)
+            torch.cuda.synchronize()
+            t_drain = time.perf_counter() - t0
+            state_bytes = sum(t.numel() * t.element_size()
+                              for t in tree.leaves({k: bundle[k] for k in ("params", "mu", "nu")}))
+            coll = {f"{g} {op}": tuple(c) for (g, op), c in axis.counts.items()}
+            n_leaves = len(tree.leaves(bundle["params"]))
+            say(f"  the drain at one rank on {smi}: {t_drain:.3f} s for {moved / 1e9:.2f} GB "
+                f"gathered (the state is {state_bytes / 1e9:.2f} GB), collectives {coll}; "
+                f"the survivors' grid {grid.ranks if grid else None}; digest "
+                f"{'unchanged' if state_digest(bundle) == d0 else 'CHANGED'}")
+            if state_digest(bundle) != d0 or grid is None or grid.ranks != (0,):
+                problems.append("the drain onto its own layout changed the state or lost the rank")
+            if coll != {"data all_gather": (3 * n_leaves, state_bytes)} or moved != state_bytes:
+                problems.append(f"drain collectives {coll}, {moved} bytes; want {3 * n_leaves} "
+                                f"gathers of {state_bytes} bytes")
+            del bundle, runs
+
+            # the refusal at data 1, on the 2-layer cut: JAX's message, the
+            # state as after the steps before it
+            cfg2 = dataclasses.replace(cfg, num_layers=2)
+            root = os.path.join(ROOT, "build", "phase15")
+            shutil.rmtree(root, ignore_errors=True)
+            sup = SupervisorConfig(checkpoint_every=100)
+
+            def supervisor(name, plan):
+                return Supervisor(cfg2, opt_cfg, data, lay, ckpt_root=os.path.join(root, name),
+                                  sup=sup, fault_plan=plan, axis=flat, device=device)
+
+            faulted = supervisor("faulted", flt.FaultPlan([flt.Fault("lose_replica", 1)]))
+            try:
+                faulted.run(3)
+                msg = None
+            except SupervisorError as e:
+                msg = str(e)
+            ok = supervisor("ok", None)
+            ok.run(1)
+            same = state_digest(faulted._bundle()) == state_digest(ok._bundle())
+            say(f"  lose_replica at data 1: {msg!r}; the state {'as' if same else 'NOT as'} "
+                f"an unfaulted run's after step 0")
+            if msg != "cannot shrink below one data replica (step 1)" or not same:
+                problems.append(f"the refusal at data 1: {msg!r}, state unchanged {same}")
+            del faulted, ok
+            shutil.rmtree(root, ignore_errors=True)
+        finally:
+            tdist.destroy_process_group()
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return total
+
+
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -3471,7 +3674,7 @@ def main() -> int:
         say(f"[phase 5] full-width Yi-6B training run ok; {time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
-        group_counts, t_group = phase_group(torch, smi, phase5)
+        group_counts, t_group, group_records = phase_group(torch, smi, phase5)
         say(f"[phase 6] the process-group path and the fused update ok; "
             f"{time.perf_counter() - t0:.1f} s")
 
@@ -3504,6 +3707,11 @@ def main() -> int:
         t0 = time.perf_counter()
         group_serve_counts = phase_group_serving(torch, np, smi)
         say(f"[phase 13] serving over a group ok; {time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        pod_counts = phase_pods(torch, smi, group_records)
+        say(f"[phase 15] the pod axis and the drain on one card ok; "
+            f"{time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
@@ -3512,10 +3720,11 @@ def main() -> int:
     # 9's (the plan-driven run's), 10's (the MoE serving and training runs),
     # 11's (the recurrent families' serving and training runs), 12's (the
     # families' pipelines and the input modes' training runs) and 13's (the
-    # group serving calls)
+    # group serving calls) and 15's (the pod axis's training runs)
     counts = {name: sum(c.get(name, 0) for c in (
         serve_counts, train_counts, group_counts, pipe_counts, sup_counts, plan_counts,
-        moe_counts, recurrent_counts, family_counts, group_serve_counts)) for name in KERNELS}
+        moe_counts, recurrent_counts, family_counts, group_serve_counts, pod_counts))
+        for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": counts[name], "max_abs_err": rows[name]["max_abs_err"],

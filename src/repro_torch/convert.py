@@ -71,7 +71,7 @@ def params_from_numpy(cfg: ModelConfig, tree: dict, device="cpu",
 
 def storage_from_numpy(cfg: ModelConfig, tree: dict, *, partitioned: bool,
                        device="cpu", axis: AxisCtx = LOCAL,
-                       expert_resident: bool = False) -> dict:
+                       expert_resident: bool = False, span_pods: bool = False) -> dict:
     """The JAX parameter tree -> this rank's fp32 training storage, so both
     packages start a step from the same weights: when ``partitioned``, the
     rank's chunks ``[L?, 1, 1, chunk]`` (block ``[..., m, d, :]`` of
@@ -79,7 +79,10 @@ def storage_from_numpy(cfg: ModelConfig, tree: dict, *, partitioned: bool,
     under ``expert_resident``, its block ``[L, E/D, D, F/M]`` of each expert
     stack (``partition.expert_resident_spec``).  The other stacks' empty
     ``shared`` subtree is dropped; a hybrid's is an outer leaf, chunked (or
-    model-sharded) like the embedding."""
+    model-sharded) like the embedding.  Under ``span_pods`` the chunks are
+    cut over the pod x data ranks (block ``[..., m, p * ndata + d, :]``)."""
+    group = axis.zero_group(span_pods)
+    n, d = axis.zero_size(group), axis.zero_index(group)
 
     def conv(path, a, spec):
         a = np.asarray(a, np.float32)
@@ -90,10 +93,9 @@ def storage_from_numpy(cfg: ModelConfig, tree: dict, *, partitioned: bool,
         if not partitioned:
             local = a if dim is None else np.split(a, axis.tp, dim)[axis.model_index]
             return _tensor(local, torch.float32, device)
-        chunks = zp.host_partition_leaf(a, axis.tp, axis.ndata, stacked=path[0] == "layers",
+        chunks = zp.host_partition_leaf(a, axis.tp, n, stacked=path[0] == "layers",
                                         model_dim=dim)
         m = axis.model_index if chunks.shape[-3] > 1 else 0
-        d = axis.data_index
         return _tensor(chunks[..., m:m + 1, d:d + 1, :], torch.float32, device)
 
     return ptree.tree_map_with_path(conv, {k: v for k, v in tree.items()

@@ -69,6 +69,16 @@ class AccumConfig:
     # MoE expert stacks resident in their compute layout (the expert dim over
     # the data group, tokens sent to them by all-to-all) instead of ZeRO chunks
     expert_parallel: bool = False
+    # partition the state over (pod, data) instead of data alone: the paper's
+    # slow-interconnect scenario (§8.3); without it the pods each hold the
+    # whole partition and the gradients are summed over the pod group first
+    span_pods: bool = False
+
+
+# ROADMAP.md §3, known reference failures
+EP_PODS_REFUSAL = ("expert parallelism with pods is not ported: the JAX package's "
+                   "expert-parallel step does not trace on a pod mesh (its out_specs need a "
+                   "replication it cannot infer), so there is no reference to hold it to")
 
 
 def outer_keys(storage: dict) -> list[str]:
@@ -85,7 +95,10 @@ class Adapters:
     shapes (a layer's without its stacking dim); ``partial`` names the
     layer leaves whose per-rank gradients are partial over the model
     group; ``resident``, whether the expert stacks are resident (expert
-    parallelism: no gather, no reduction)."""
+    parallelism: no gather, no reduction); ``group``, the partition's group
+    (``data``, or ``part`` when it spans the pods); ``pod_sum``, whether a
+    gradient is summed over the pod group before its reduce-scatter (pods
+    that each hold the whole partition)."""
 
     cfg: ModelConfig
     axis: AxisCtx
@@ -95,10 +108,12 @@ class Adapters:
     layer_shapes: dict
     partial: frozenset
     resident: bool = False
+    group: str = "data"
+    pod_sum: bool = False
 
     def _chunk(self, leaf: torch.Tensor, shape, dtype, path=()) -> torch.Tensor:
         if self.partitioned and not (self.resident and zp.is_expert_path(path)):
-            return zp.gather_local(leaf, self.axis, shape, dtype)
+            return zp.gather_local(leaf, self.axis, shape, dtype, group=self.group)
         return leaf.to(dtype, copy=True)
 
     def gather_outer(self, storage: dict) -> dict:
@@ -124,7 +139,8 @@ class Adapters:
             if layer and self.resident and zp.is_expert_path(path):
                 return s.to(dt)
             return zp.GatherLocal.apply(s, self.axis, shp, dt, rdt,
-                                        layer and path in self.partial)
+                                        layer and path in self.partial, self.group,
+                                        self.pod_sum)
         return tree.tree_map_with_path(one, chunks, shapes)
 
     def accumulators(self, shapes: dict, device) -> dict:
@@ -136,9 +152,10 @@ class Adapters:
     def reduce(self, accs: dict, layer: bool, out: dict | None = None) -> dict:
         """The accumulated gradients summed over the groups, in the storage
         layout: this rank's fp32 chunks ``[1, 1, chunk]`` (one reduce-scatter
-        over the data group per leaf), or replicated leaves (``accs``
-        all-reduced in place).  Written into ``out`` when given; without
-        groups, and replicated, ``accs`` themselves otherwise."""
+        over the partition's group per leaf), or replicated leaves (``accs``
+        all-reduced in place over the data group, then the pod group).
+        Written into ``out`` when given; without groups, and replicated,
+        ``accs`` themselves otherwise."""
         def one(path, a, o):
             partial = layer and path in self.partial
             if layer and self.resident and zp.is_expert_path(path):
@@ -146,12 +163,12 @@ class Adapters:
             if self.partitioned:
                 g = zp.scatter_grad_local(a, self.axis, reduce_dtype=self.reduce_dtype,
                                           model_partial=partial,
-                                          out=None if o is None else o.view(-1))
+                                          out=None if o is None else o.view(-1),
+                                          group=self.group, pod_sum=self.pod_sum)
                 return g.view(1, 1, -1) if o is None else o
             if partial and self.axis.model is not None:
                 self.axis.all_reduce(a, "model")
-            if self.axis.data is not None:
-                self.axis.all_reduce(a, "data")
+            self.axis.all_reduce_dp(a)
             return a if o is None else o.copy_(a)
 
         if out is None:
@@ -171,11 +188,13 @@ def make_adapters(cfg: ModelConfig, axis: AxisCtx, acc: AccumConfig,
         return zp.local_shape(shp, sp, axis.tp)
 
     local = tree.tree_map_with_path(local, template, specs)
+    group = axis.zero_group(acc.span_pods)
     return Adapters(cfg=cfg, axis=axis, partitioned=acc.partitioned,
                     reduce_dtype=getattr(torch, acc.reduce_dtype),
                     outer_shapes={k: v for k, v in local.items() if k != "layers"},
                     layer_shapes=tree.tree_map(lambda s: s[1:], local["layers"]),
-                    partial=T.model_partial_leaves(cfg, axis.tp), resident=resident)
+                    partial=T.model_partial_leaves(cfg, axis.tp), resident=resident,
+                    group=group, pod_sum=group == "data" and axis.pod is not None)
 
 
 def _accumulate(accs, grads) -> None:
@@ -204,6 +223,8 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
         raise ValueError("expert parallelism needs the partitioned layout: replicated "
                          "storage sums every leaf's gradient over the data group, "
                          "whose ranks hold different experts")
+    if acc.expert_parallel and cfg.is_moe and axis.pods:
+        raise ValueError(EP_PODS_REFUSAL)
     if acc.method not in ("layered", "standard"):
         raise ValueError(f"unknown accumulation method {acc.method!r}")
     if layer_update is not None and acc.method != "layered":
@@ -214,16 +235,16 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
     part = acc.partitioned
     head_key = "embed" if cfg.tie_embeddings else "head"
     # each layer's and micro-batch's aux, weighted into the loss (JAX's
-    # aux_w * aux_scale: the mean over micro-batches, layers and data ranks)
-    aux_ct = cfg.router_aux_weight / (M * L * axis.ndata)
+    # aux_w * aux_scale: the mean over micro-batches, layers and the
+    # (pod, data) ranks)
+    aux_ct = cfg.router_aux_weight / (M * L * axis.dp)
 
     def setup(batch):
         if batch["labels"].shape[0] != M:
             raise ValueError(f"batch has {batch['labels'].shape[0]} micro-batches, "
                              f"the schedule {M}")
         ntok = batch["mask"].float().sum()
-        if axis.data is not None:
-            axis.all_reduce(ntok, "data")          # the global token count
+        axis.all_reduce_dp(ntok)                   # the global token count
         return [{k: v[m] for k, v in batch.items()} for m in range(M)], 1.0 / ntok
 
     def layer_dest(grads_l, l):
@@ -231,13 +252,12 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
 
     def metrics(nlls, aux, batch):
         """``aux``: this rank's (None: no router), the JAX package's mean
-        over the data ranks reported."""
+        over the (pod, data) ranks reported."""
         nll = torch.stack(nlls).sum()
         t = torch.stack([nll, batch["mask"].float().sum(),
                          torch.zeros_like(nll) if aux is None else aux])
-        if axis.data is not None:
-            axis.all_reduce(t, "data")
-        return {"loss": t[0] / t[1], "ntok": t[1], "aux": t[2] / axis.ndata}
+        axis.all_reduce_dp(t)
+        return {"loss": t[0] / t[1], "ntok": t[1], "aux": t[2] / axis.dp}
 
     def add_aux(total, a):
         if a is None:

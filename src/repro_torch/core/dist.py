@@ -17,6 +17,21 @@ all-to-alls over it.  Serving a sequence-sharded dense cache splits the
 cache's sequence dim over the data group: its ``seq`` group is the data
 group, and the decode softmax reduces over it.
 
+Pods (the JAX package's ``pod`` mesh axis, ``AccumConfig.span_pods``) are a
+second, slow data-parallel dim in front of the data one: rank order
+``rank = (p * D + d) * M + m``, the mesh ``("pod", "data", "model")``.  Each
+rank's ``pod`` group holds the ranks at its data and model position in every
+pod, and its ``part`` group the ``npod * ndata`` ranks of its model column
+across pods: the ZeRO partition under ``span_pods``, in which rank ``(p, d)``
+holds chunk ``p * ndata + d``.  The global batch splits over ``(pod, data)``,
+pod major.  Pods and pipeline stages do not mix (the JAX package's pipeline
+has no pod axis).
+
+A grid may also live on a subset of the default group's ranks (``ranks``):
+the survivors of a failure-shrink.  Its ``world`` group then holds those
+ranks, and every collective of the grid runs on its own groups, never on
+the default group, which still counts the ranks that left.
+
 ``AxisCtx()``, with no groups, is the one-process path: no collective is
 issued and every "gather" is a cast.  A group of size 1 still issues every
 collective, so the process-group path runs on one card as it would on many.
@@ -61,8 +76,50 @@ class AxisCtx:
     nseq: int = 1                            # size of the seq group
     seq_index: int = 0                       # this rank's shard of the sequence
     stage_ranks: tuple = ()                  # global ranks of the stage group, by s
+    pod: dist.ProcessGroup | None = None     # the slow data-parallel dim (pods)
+    part: dist.ProcessGroup | None = None    # pod x data: the ZeRO partition under span_pods
+    world: dist.ProcessGroup | None = None   # every rank of the grid (None: the default group)
+    npod: int = 1                            # size of the pod group
+    pod_index: int = 0                       # p
+    ranks: tuple = ()                        # global ranks of the grid, in mesh order
     # (group name, op) -> [calls, bytes]
     counts: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def dp(self) -> int:
+        """The data-parallel width: ``npod * ndata`` (the batch's split)."""
+        return self.npod * self.ndata
+
+    @property
+    def dp_index(self) -> int:
+        """This rank's place on the ``(pod, data)`` dims, pod major."""
+        return self.pod_index * self.ndata + self.data_index
+
+    def zero_size(self, group: str) -> int:
+        """The ranks of a ZeRO partition's group (``zero_group``'s)."""
+        return self.dp if group == "part" else self.ndata
+
+    def zero_index(self, group: str) -> int:
+        """This rank's chunk of a ZeRO partition over ``group``."""
+        return self.dp_index if group == "part" else self.data_index
+
+    @property
+    def pods(self) -> bool:
+        """Whether the grid has a pod dim (a pod group, if only of one)."""
+        return self.pod is not None or self.npod > 1
+
+    def zero_group(self, span_pods: bool) -> str:
+        """The group the ZeRO chunks are cut over: ``part`` (pod x data)
+        under ``span_pods`` on a grid with pods, else ``data``."""
+        return "part" if span_pods and self.pods else "data"
+
+    def all_reduce_dp(self, t: torch.Tensor) -> None:
+        """In place: the sum over the data group, then over the pod group
+        (the JAX package's psum over ``data`` and ``pod``)."""
+        if self.data is not None:
+            self.all_reduce(t, "data")
+        if self.pod is not None:
+            self.all_reduce(t, "pod")
 
     def _count(self, group: str, op: str, t: torch.Tensor) -> None:
         c = self.counts.setdefault((group, op), [0, 0])
@@ -184,33 +241,61 @@ def with_seq_group(axis: AxisCtx) -> AxisCtx:
     return dataclasses.replace(axis, seq=axis.data, nseq=axis.ndata, seq_index=axis.data_index)
 
 
-def make_axis(ndata: int, tp: int, nstage: int = 1) -> AxisCtx:
-    """This rank's ``AxisCtx`` over an initialised default group of
-    ``nstage * ndata * tp`` ranks.  Every rank creates every group, in one
-    order, as ``dist.new_group`` requires."""
-    world, rank = dist.get_world_size(), dist.get_rank()
-    if world != nstage * ndata * tp:
-        raise ValueError(f"a {nstage}x{ndata}x{tp} (stage x data x model) mesh needs "
-                         f"{nstage * ndata * tp} processes, the group has {world}")
-    s, rest = divmod(rank, ndata * tp)
-    d, m = divmod(rest, tp)
-    at = lambda ss, dd, mm: (ss * ndata + dd) * tp + mm  # noqa: E731
-    data = model = stage = None
-    for ss in range(nstage):
+def make_axis(ndata: int, tp: int, nstage: int = 1, *, npod: int | None = None,
+              ranks=None) -> AxisCtx | None:
+    """This rank's ``AxisCtx`` over an ``nstage`` (or ``npod``) x ``ndata`` x
+    ``tp`` grid of the initialised default group's ranks: all of them, or
+    the global ``ranks`` given, in mesh order.  ``npod`` (None: no pod dim)
+    gives the grid a pod dim of that size, 1 included, as a JAX mesh may
+    have a ``pod`` axis of one device.  Every running rank of the
+    default group calls it, in one order, as ``dist.new_group`` requires
+    (torch names a group by a per-process count of the groups made, so
+    ranks that will share a group must have made the same groups before);
+    a rank outside ``ranks`` gets None.  A rank that has left the run (a
+    failure-shrink's) need not: making a group issues no collective on the
+    default group."""
+    pods = npod is not None
+    if pods and nstage > 1:
+        raise ValueError(f"{npod} pods with {nstage} pipeline stages: the JAX package's "
+                         f"pipeline and tick profiler have no pod axis")
+    world = dist.get_world_size()
+    ranks = tuple(range(world)) if ranks is None else tuple(ranks)
+    nlead = nstage * (npod or 1)
+    if len(ranks) != nlead * ndata * tp:
+        what = "pod" if pods else "stage"
+        raise ValueError(f"a {nlead}x{ndata}x{tp} ({what} x data x model) mesh needs "
+                         f"{nlead * ndata * tp} processes, it was given {len(ranks)}")
+    me = dist.get_rank()
+    pos = ranks.index(me) if me in ranks else None
+    q, rest = divmod(pos, ndata * tp) if pos is not None else (-1, 0)
+    d, m = divmod(rest, tp) if pos is not None else (-1, -1)
+    at = lambda qq, dd, mm: ranks[(qq * ndata + dd) * tp + mm]  # noqa: E731
+    data = model = stage = pod = part = None
+    for qq in range(nlead):
         for mm in range(tp):
-            g = dist.new_group([at(ss, dd, mm) for dd in range(ndata)])
-            data = g if (ss, mm) == (s, m) else data
-    for ss in range(nstage):
+            g = dist.new_group([at(qq, dd, mm) for dd in range(ndata)])
+            data = g if (qq, mm) == (q, m) else data
+    for qq in range(nlead):
         for dd in range(ndata):
-            g = dist.new_group([at(ss, dd, mm) for mm in range(tp)])
-            model = g if (ss, dd) == (s, d) else model
+            g = dist.new_group([at(qq, dd, mm) for mm in range(tp)])
+            model = g if (qq, dd) == (q, d) else model
     for dd in range(ndata):
         for mm in range(tp):
-            g = dist.new_group([at(ss, dd, mm) for ss in range(nstage)])
-            stage = g if (dd, mm) == (d, m) else stage
-    return AxisCtx(data=data, model=model, stage=stage, tp=tp, ndata=ndata, nstage=nstage,
-                   data_index=d, model_index=m, stage_index=s,
-                   stage_ranks=tuple(at(ss, d, m) for ss in range(nstage)))
+            g = dist.new_group([at(qq, dd, mm) for qq in range(nlead)])
+            if (dd, mm) == (d, m):
+                pod, stage = (g, None) if pods else (None, g)
+    if pods:
+        for mm in range(tp):
+            g = dist.new_group([at(qq, dd, mm) for qq in range(npod) for dd in range(ndata)])
+            part = g if mm == m else part
+    grid = dist.new_group(list(ranks)) if len(ranks) < world else None
+    if pos is None:
+        return None
+    s, p = (0, q) if pods else (q, 0)
+    return AxisCtx(data=data, model=model, stage=stage, pod=pod, part=part, world=grid,
+                   tp=tp, ndata=ndata, nstage=nstage, npod=npod or 1, data_index=d,
+                   model_index=m, stage_index=s, pod_index=p, ranks=ranks,
+                   stage_ranks=(me,) if pods else tuple(at(ss, d, m) for ss in range(nstage)))
 
 
 def under_launcher() -> bool:
@@ -218,19 +303,22 @@ def under_launcher() -> bool:
     return "WORLD_SIZE" in os.environ
 
 
-def from_env(ndata: int, tp: int, device: torch.device, nstage: int = 1) -> AxisCtx:
+def from_env(ndata: int, tp: int, device: torch.device, nstage: int = 1, *,
+             npod: int | None = None) -> AxisCtx:
     """Join the group ``torch.distributed.run`` describes in the environment
     (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT): NCCL on the
     card, each rank on card LOCAL_RANK, gloo on the CPU.  The caller ends it
     with ``dist.destroy_process_group()``."""
     world = int(os.environ["WORLD_SIZE"])
-    if world != nstage * ndata * tp:
-        raise ValueError(f"{nstage} stages of --mesh {ndata}x{tp} need "
-                         f"{nstage * ndata * tp} processes, WORLD_SIZE is {world}")
+    n = nstage * (npod or 1) * ndata * tp
+    if world != n:
+        lead = f"{npod} pods" if npod is not None else f"{nstage} stages"
+        raise ValueError(f"{lead} of --mesh {ndata}x{tp} need {n} processes, WORLD_SIZE "
+                         f"is {world}")
     if device.type == "cuda":
         torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
         backend = "nccl"
     else:
         backend = "gloo"
     dist.init_process_group(backend, rank=int(os.environ["RANK"]), world_size=world)
-    return make_axis(ndata, tp, nstage)
+    return make_axis(ndata, tp, nstage, npod=npod)

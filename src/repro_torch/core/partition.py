@@ -104,16 +104,20 @@ def chunk_size(local_numel: int, n_data: int) -> int:
     return math.ceil(local_numel / n_data)
 
 
-def partitioned_specs(specs: dict, *, expert_resident: bool = False, tp: int = 1) -> dict:
-    """Specs of the partitioned storage: ``(None?, model?, "data", None)``;
-    with ``expert_resident``, the expert stacks' resident specs at model
-    width ``tp``.  ``specs`` is the parameter tree's (stacked layer leaves
-    already carry their leading None)."""
+def partitioned_specs(specs: dict, *, expert_resident: bool = False, tp: int = 1,
+                      span_pods: bool = False) -> dict:
+    """Specs of the partitioned storage: ``(None?, model?, "data", None)``,
+    or ``("pod", "data")`` in place of ``"data"`` under ``span_pods``; with
+    ``expert_resident``, the expert stacks' resident specs at model width
+    ``tp``.  ``specs`` is the parameter tree's (stacked layer leaves already
+    carry their leading None)."""
+    part = ("pod", "data") if span_pods else "data"
+
     def conv(path, spec):
         if expert_resident and is_expert_path(path):
             return expert_resident_spec(path, tp)
         m = None if model_replicated(spec) else "model"
-        return (None, m, "data", None) if path[0] == "layers" else (m, "data", None)
+        return (None, m, part, None) if path[0] == "layers" else (m, part, None)
 
     return tree.tree_map_with_path(conv, specs)
 
@@ -150,10 +154,11 @@ def full_view(chunk: torch.Tensor, shape: tuple[int, ...]) -> torch.Tensor:
 
 
 def gather_local(chunk: torch.Tensor, axis: AxisCtx, shape: tuple[int, ...],
-                 dtype, *, rows: int | None = None) -> torch.Tensor:
+                 dtype, *, rows: int | None = None, group: str = "data") -> torch.Tensor:
     """This rank's chunk (``[1, 1, chunk]``: an outer leaf, or one layer of a
     stacked one) -> the model-local leaf in ``dtype``, all-gathered over the
-    data group after the cast.  With ``rows``, ``chunk`` holds that many
+    partition's ``group`` (``data``, or ``part`` when the partition spans
+    the pods) after the cast.  With ``rows``, ``chunk`` holds that many
     stacked layers (``[rows, ..., chunk]``) and one all-gather brings back
     ``[rows, *shape]``.  Always a fresh tensor, so the optimizer's in-place
     update never aliases it."""
@@ -161,48 +166,53 @@ def gather_local(chunk: torch.Tensor, axis: AxisCtx, shape: tuple[int, ...],
     lead = () if rows is None else (rows,)
     x = chunk.reshape(k, -1)
     n = math.prod(shape)
-    if axis.data is None:
+    if getattr(axis, group) is None:
         return x[:, :n].to(dtype, copy=True).reshape(*lead, *shape)
     x = x.to(dtype)
-    c = x.shape[1]
-    out = torch.empty(axis.ndata * k * c, dtype=dtype, device=x.device)
-    axis.all_gather(out, x, "data")
-    # rank-major [n_data, k, c] -> layer-major [k, n_data * c]
-    full = out.view(axis.ndata, k, c).transpose(0, 1).reshape(k, -1)
+    c, size = x.shape[1], axis.zero_size(group)
+    out = torch.empty(size * k * c, dtype=dtype, device=x.device)
+    axis.all_gather(out, x, group)
+    # rank-major [size, k, c] -> layer-major [k, size * c]
+    full = out.view(size, k, c).transpose(0, 1).reshape(k, -1)
     return full[:, :n].reshape(*lead, *shape)
 
 
 def scatter_grad_local(grad: torch.Tensor, axis: AxisCtx, *,
                        reduce_dtype=torch.float32, model_partial: bool = False,
                        out: torch.Tensor | None = None,
-                       rows: int | None = None) -> torch.Tensor:
+                       rows: int | None = None, group: str = "data",
+                       pod_sum: bool = False) -> torch.Tensor:
     """A model-local gradient (the leaf's shape, or flat and already padded
-    to ``n_data * chunk``) -> this rank's reduced fp32 chunk, flat
+    to ``size * chunk``) -> this rank's reduced fp32 chunk, flat
     ``[chunk]``, written into ``out`` when given.  With ``rows``, ``grad``
     holds that many stacked layers and one reduce-scatter gives ``[rows,
     chunk]``.
 
     Cast to ``reduce_dtype`` (the wire dtype), summed over the model group
     first when ``model_partial`` (a leaf replicated over the model group
-    whose per-rank gradients are partial), then padded and reduce-scattered
-    over the data group.  ``grad`` itself is not changed."""
+    whose per-rank gradients are partial), then over the pod group when
+    ``pod_sum`` (pods that each hold the whole partition), then padded and
+    reduce-scattered over the partition's ``group`` (as ``gather_local``).
+    ``grad`` itself is not changed."""
     k = 1 if rows is None else rows
     g = grad.reshape(k, -1).to(reduce_dtype)
-    if model_partial and axis.model is not None:
-        if g.data_ptr() == grad.data_ptr():
-            g = g.clone()
-        axis.all_reduce(g, "model")
-    c = chunk_size(g.shape[1], axis.ndata)
-    if g.shape[1] < c * axis.ndata:
-        g = F.pad(g, (0, c * axis.ndata - g.shape[1]))
-    if axis.data is None:
+    for name, on in (("model", model_partial), ("pod", pod_sum)):
+        if on and getattr(axis, name) is not None:
+            if g.data_ptr() == grad.data_ptr():
+                g = g.clone()
+            axis.all_reduce(g, name)
+    size = axis.zero_size(group)
+    c = chunk_size(g.shape[1], size)
+    if g.shape[1] < c * size:
+        g = F.pad(g, (0, c * size - g.shape[1]))
+    if getattr(axis, group) is None:
         res = g
     else:
-        if k > 1:   # layer-major [k, n_data * c] -> rank-major [n_data, k, c]
-            g = g.view(k, axis.ndata, c).transpose(0, 1).contiguous()
+        if k > 1:   # layer-major [k, size * c] -> rank-major [size, k, c]
+            g = g.view(k, size, c).transpose(0, 1).contiguous()
         direct = out is not None and out.dtype == reduce_dtype
         res = out if direct else torch.empty(k * c, dtype=reduce_dtype, device=g.device)
-        axis.reduce_scatter(res, g, "data")
+        axis.reduce_scatter(res, g, group)
     if out is None:
         return res.float().reshape(*(() if rows is None else (rows,)), c)
     if res is not out:
@@ -217,16 +227,19 @@ class GatherLocal(torch.autograd.Function):
     runs inside each micro-batch's backward."""
 
     @staticmethod
-    def forward(ctx, chunk, axis, shape, dtype, reduce_dtype, model_partial):
+    def forward(ctx, chunk, axis, shape, dtype, reduce_dtype, model_partial, group="data",
+                pod_sum=False):
         ctx.axis, ctx.chunk_shape = axis, chunk.shape
         ctx.reduce_dtype, ctx.model_partial = reduce_dtype, model_partial
-        return gather_local(chunk, axis, shape, dtype)
+        ctx.group, ctx.pod_sum = group, pod_sum
+        return gather_local(chunk, axis, shape, dtype, group=group)
 
     @staticmethod
     def backward(ctx, g):
         out = scatter_grad_local(g, ctx.axis, reduce_dtype=ctx.reduce_dtype,
-                                 model_partial=ctx.model_partial)
-        return out.view(ctx.chunk_shape), None, None, None, None, None
+                                 model_partial=ctx.model_partial, group=ctx.group,
+                                 pod_sum=ctx.pod_sum)
+        return out.view(ctx.chunk_shape), None, None, None, None, None, None, None
 
 
 # ---------------------------------------------------------------------------

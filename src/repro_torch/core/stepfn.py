@@ -82,40 +82,48 @@ def full_template(cfg: ModelConfig) -> dict:
 
 
 def storage_specs(cfg: ModelConfig, axis: AxisCtx, partitioned: bool, *,
-                  expert_resident: bool = False) -> dict:
+                  expert_resident: bool = False, span_pods: bool = False) -> dict:
     """The storage layout's specs: the parameter tree's, or the chunks' (with
-    the expert stacks' resident specs under ``expert_resident``)."""
+    the expert stacks' resident specs under ``expert_resident``; over
+    ``("pod", "data")`` under ``span_pods`` on a grid with pods)."""
     full = T.param_specs(cfg, axis.tp)
     if not partitioned:
         return full
     return zp.partitioned_specs(full, expert_resident=expert_resident and cfg.is_moe,
-                                tp=axis.tp)
+                                tp=axis.tp, span_pods=span_pods and axis.pods)
 
 
 def storage_from_params(cfg: ModelConfig, params: dict, *, partitioned: bool,
-                        axis: AxisCtx = LOCAL, expert_resident: bool = False) -> dict:
+                        axis: AxisCtx = LOCAL, expert_resident: bool = False,
+                        span_pods: bool = False) -> dict:
     """A global fp32 parameter tree (layers stacked) -> this rank's storage:
-    its model shard of every leaf, and of that its data chunk when
-    ``partitioned`` (views where the rank holds a contiguous leaf whole);
-    under ``expert_resident``, its block of each expert stack, whole."""
+    its model shard of every leaf, and of that its chunk when
+    ``partitioned`` (chunk ``d`` of the data group, or ``p * ndata + d`` of
+    the pod x data ranks under ``span_pods``; views where the rank holds a
+    contiguous leaf whole); under ``expert_resident``, its block of each
+    expert stack, whole."""
+    group = axis.zero_group(span_pods)
+    n, i = axis.zero_size(group), axis.zero_index(group)
+
     def conv(path, t, spec):
         if expert_resident and zp.is_expert_path(path):
             return zp.resident_shard(t, zp.expert_resident_spec(path, axis.tp), axis)
         local = zp.model_shard(t, spec, axis.tp, axis.model_index)
         if not partitioned:
             return local
-        return zp.partition_local(local, axis.ndata, axis.data_index,
-                                  stacked=path[0] == "layers")
+        return zp.partition_local(local, n, i, stacked=path[0] == "layers")
     return tree.tree_map_with_path(conv, params, T.param_specs(cfg, axis.tp))
 
 
 def init_storage(cfg: ModelConfig, seed: int, *, partitioned: bool, device="cuda",
-                 axis: AxisCtx = LOCAL, expert_resident: bool = False) -> dict:
+                 axis: AxisCtx = LOCAL, expert_resident: bool = False,
+                 span_pods: bool = False) -> dict:
     """Random fp32 master weights from ``seed``, drawn on ``device``, in this
     rank's storage layout.  Every rank draws the same full weights, one layer
     at a time, and keeps its share.  ``expert_resident`` (with
     ``partitioned``): the expert stacks in their resident layout, as
-    expert parallelism trains them.  (The JAX and torch generators differ;
+    expert parallelism trains them; ``span_pods``: the chunks cut over the
+    pod x data ranks.  (The JAX and torch generators differ;
     tests that compare the packages convert the JAX tree with
     ``convert.storage_from_numpy`` instead.)"""
     if expert_resident and cfg.is_moe and not partitioned:
@@ -125,12 +133,12 @@ def init_storage(cfg: ModelConfig, seed: int, *, partitioned: bool, device="cuda
     gen = torch.Generator(device=device).manual_seed(seed)
     outer = T.init_params(dataclasses.replace(fcfg, num_layers=0), gen, device)
     outer = storage_from_params(cfg, {k: v for k, v in outer.items() if k != "layers"},
-                                partitioned=partitioned, axis=axis)
+                                partitioned=partitioned, axis=axis, span_pods=span_pods)
     layers = None
     for l in range(cfg.num_layers):
         one = storage_from_params(cfg, {"layers": tree.tree_map(
             lambda t: t[None], T.init_layer(fcfg, gen, device))}, partitioned=partitioned,
-            axis=axis, expert_resident=ep)["layers"]
+            axis=axis, expert_resident=ep, span_pods=span_pods)["layers"]
         if layers is None:
             layers = tree.tree_map(lambda t: torch.empty((cfg.num_layers, *t.shape[1:]),
                                                          dtype=torch.float32, device=device),
@@ -170,11 +178,12 @@ def sq_reduce(grads: dict) -> torch.Tensor:
 
 
 def make_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool, *,
-                   expert_resident: bool = False):
+                   expert_resident: bool = False, span_pods: bool = False):
     """The global norm's square over a gradient tree in this rank's storage
     layout: model-sharded leaves summed over the model group, then, when the
-    state is partitioned, everything over the data group (a resident expert
-    stack's share counted once: each data rank holds its own experts).  The
+    state is partitioned, everything over the data group, and the pod group
+    too when the partition spans the pods (a resident expert stack's share
+    counted once: each data rank holds its own experts).  The
     JAX package's resident sum adds the experts' share over the data group
     twice, so its norm under expert parallelism is larger (ROADMAP.md §3)."""
     specs = T.param_specs(cfg, axis.tp)
@@ -196,6 +205,8 @@ def make_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool, *,
             tot = tot + s
         if partitioned and axis.data is not None:
             axis.all_reduce(tot, "data")
+            if span_pods and axis.pod is not None:
+                axis.all_reduce(tot, "pod")
         return tot
 
     return reduce
@@ -234,9 +245,10 @@ def _step_parts(step, grad_fn, sq_reduce, fused):
 def build_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
                      axis: AxisCtx = LOCAL, gate=None):
     """Returns ``step(storage, opt, batch) -> (storage, opt, metrics)``.
-    ``batch`` leaves are this rank's rows, ``[M, B/(M * n_data), S]``
-    (``data.synthetic.local_rows``), on any device: they are moved to the
-    storage's.  The storage and the optimizer state are updated in place.
+    ``batch`` leaves are this rank's rows, ``[M, B/(M * dp), S]`` for ``dp``
+    data ranks over the pods (``data.synthetic.local_rows``), on any device:
+    they are moved to the storage's.  The storage (``init_storage`` with
+    ``acc``'s ``span_pods``) and the optimizer state are updated in place.
     The fused one-pass AdamW (K6 on the card) updates the flat fp32 chunks of
     the partitioned layout; the full-leaf layout keeps the tree-map update,
     as the JAX package does.  ``gate(loss, grad_norm) -> bool``, when given,
@@ -247,7 +259,7 @@ def build_train_step(cfg: ModelConfig, acc: AccumConfig, opt_cfg: AdamConfig, *,
         axis = with_expert_group(axis)
     grad_fn = make_grad_fn(cfg, acc, full_template(cfg), axis=axis)
     reduce = make_sq_reduce(cfg, axis, acc.partitioned,
-                            expert_resident=acc.expert_parallel)
+                            expert_resident=acc.expert_parallel, span_pods=acc.span_pods)
 
     def step(storage, opt, batch):
         grads, metrics = grad_fn(storage, _on_device(storage, batch))

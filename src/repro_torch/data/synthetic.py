@@ -89,15 +89,15 @@ def make_vlm_batch(cfg: DataConfig, model: ModelConfig, step: int) -> dict:
 
 def local_rows(batch: dict, axis: AxisCtx) -> dict:
     """This rank's rows of a micro-batched global batch: the micro-batch dim
-    ``[M, B/M, ...]`` split over the data group in rank order, as the JAX
-    package's ``batch_specs`` shard it; every rank of a model group gets the
-    same rows."""
+    ``[M, B/M, ...]`` split over the (pod, data) ranks, pod major, as the
+    JAX package's ``batch_specs`` shard it; every rank of a model group gets
+    the same rows."""
     mb = batch["labels"].shape[1]
-    if mb % axis.ndata:
-        raise ValueError(f"micro-batch of {mb} rows does not split over {axis.ndata} "
+    if mb % axis.dp:
+        raise ValueError(f"micro-batch of {mb} rows does not split over {axis.dp} "
                          f"data ranks")
-    n = mb // axis.ndata
-    return {k: v[:, axis.data_index * n:(axis.data_index + 1) * n] for k, v in batch.items()}
+    n, i = mb // axis.dp, axis.dp_index
+    return {k: v[:, i * n:(i + 1) * n] for k, v in batch.items()}
 
 
 def batch_for(model: ModelConfig, cfg: DataConfig, step: int,

@@ -27,8 +27,10 @@ global arrays of the layout, assembled on rank 0), ``--keep-checkpoints``
 keeps the newest valid ones, ``--resume`` (``latest``) restores the newest
 valid checkpoint once and trains ``--steps`` more; ``--faults PLAN.json``
 or ``--resume auto`` hand the run to the supervisor
-(``resilience/supervisor.py``: auto-resume after crashes, the anomaly gate),
-where ``--steps`` is the total target.  ``--metrics`` streams JSONL records,
+(``resilience/supervisor.py``: auto-resume after crashes, the anomaly gate,
+the failure-shrink of a ``lose_replica`` fault, after which the leaving
+ranks' processes end and the survivors train on), where ``--steps`` is the
+total target.  ``--metrics`` streams JSONL records,
 ``--trace`` writes a Chrome trace, and with ``--stages > 1`` both ``--trace``
 and ``--drift-report`` add a profiled grad-only pass on batch 0 after
 training: the measured tick timeline, and its drift against the table's.

@@ -26,7 +26,14 @@ holds a second copy of the state, only one leaf.  ``restore_bundle`` has
 rank 0 pick the newest checkpoint that verifies and broadcast its step; then
 every rank reads that directory (the ranks share one filesystem) and copies
 its own block of each leaf, through ``convert.storage_from_numpy`` /
-``pipeline_storage_from_numpy``, into the tensors it already holds.
+``pipeline_storage_from_numpy``, into the tensors it already holds.  Both
+run on the grid's world group (``AxisCtx.world``), which after a
+failure-shrink holds the survivors only.
+
+``drain_bundle`` is the failure-shrink's move: the ranks of the last data
+row hand their ZeRO chunks to the survivors before they leave, leaf by leaf
+over the old data groups, and each survivor keeps its chunk of the
+``data - 1`` layout.
 """
 from __future__ import annotations
 
@@ -289,10 +296,16 @@ def moment_dtype_of(bundle: PyTree) -> str:
 # This rank's blocks <-> the global bundle
 # ---------------------------------------------------------------------------
 def _world(axis: AxisCtx) -> tuple[int, int]:
-    """(world size, rank) of the default group (1, 0 without groups)."""
+    """(size, rank) of the grid's world group: the default group, or the
+    survivors' group after a failure-shrink (1, 0 without groups)."""
     if axis is LOCAL or not tdist.is_initialized():
         return 1, 0
-    return tdist.get_world_size(), tdist.get_rank()
+    return tdist.get_world_size(axis.world), tdist.get_rank(axis.world)
+
+
+def _root(axis: AxisCtx) -> int:
+    """The global rank of the world group's rank 0."""
+    return axis.ranks[0] if axis.ranks else 0
 
 
 def _storage_path(path: tuple) -> tuple | None:
@@ -333,7 +346,8 @@ def global_leaves(local: PyTree, cfg: ModelConfig, layout: MeshLayout,
     are this rank's blocks in ``layout``, in the tree's sorted order, one
     leaf at a time: each gathered to rank 0 over the default group and
     assembled there as a CPU tensor.  Every rank must iterate it to the end
-    (the gathers are collective); other ranks get ``(path, None)``."""
+    (the gathers are collective, over the grid's world group); other ranks
+    get ``(path, None)``."""
     world, rank = _world(axis)
     if world != layout.devices:
         raise ReshardError(f"layout {layout} has {layout.devices} ranks, the group {world}")
@@ -344,7 +358,7 @@ def global_leaves(local: PyTree, cfg: ModelConfig, layout: MeshLayout,
             continue
         t = t.contiguous()
         out = [torch.empty_like(t) for _ in range(world)] if rank == 0 else None
-        tdist.gather(t, out, dst=0)
+        tdist.gather(t, out, dst=_root(axis), group=axis.world)
         if rank != 0:
             yield path, None
         elif spath is None:
@@ -370,7 +384,7 @@ def save_bundle(root: str, local: PyTree, cfg: ModelConfig, layout: MeshLayout,
         for _ in leaves:
             pass
     if world > 1:
-        tdist.barrier()
+        tdist.barrier(group=axis.world)
     return d
 
 
@@ -458,7 +472,7 @@ def restore_bundle(root: str, targets: PyTree, cfg: ModelConfig, live: MeshLayou
             choice = [(step, d)]
             break
     if world > 1:
-        tdist.broadcast_object_list(choice, src=0)
+        tdist.broadcast_object_list(choice, src=_root(axis), group=axis.world)
     if choice[0] is None:
         return None
     step, d = choice[0]
@@ -468,3 +482,68 @@ def restore_bundle(root: str, targets: PyTree, cfg: ModelConfig, live: MeshLayou
         "moment_dtype", moment_dtype))
     load_blocks(d, manifest, like, targets, cfg, saved, live, axis)
     return step
+
+
+# ---------------------------------------------------------------------------
+# Failure-shrink: drain the last data row's chunks to the survivors
+# ---------------------------------------------------------------------------
+def survivors(axis: AxisCtx, ndata: int) -> list[int]:
+    """The global ranks that stay when the grid keeps its first ``ndata``
+    data rows (every stage and model rank at a data index below ``ndata``),
+    in mesh order."""
+    return [r for k, r in enumerate(axis.ranks) if (k // axis.tp) % axis.ndata < ndata]
+
+
+def _local_numels(cfg: ModelConfig, layout: MeshLayout) -> dict:
+    """Storage path -> the model-local numel of one layer of a layer leaf,
+    or of an outer leaf."""
+    tp = layout.model
+
+    def numel(path, shape, sp):
+        local = zp.local_shape(tuple(shape), sp, tp)
+        return math.prod(local[1:] if path[0] == "layers" else local)
+
+    return dict(ptree.leaves_with_path(ptree.tree_map_with_path(
+        numel, stepfn.full_template(cfg), T.param_specs(cfg, tp))))
+
+
+def drain_bundle(local: PyTree, cfg: ModelConfig, old: MeshLayout, new: MeshLayout,
+                 axis: AxisCtx, keep: bool) -> int:
+    """Every rank of the old grid ``axis`` calls this, the leaving ones (the
+    data rows from ``new.data`` on, ``keep`` False) included: ``local``
+    (this rank's bundle or storage tree in ``old``) goes to ``new`` (``old``
+    with as many data rows or fewer) in place, leaf by leaf.  A partitioned
+    layer leaf, or a flat layout's outer leaf, is all-gathered over the old
+    data group in its own dtype (the model-local leaf, whole on this rank
+    for as long as that leaf takes), and a survivor replaces its chunk by
+    its chunk ``d`` of ``new.data`` (``partition.partition_local``, as the
+    storage is first built); leaves held whole over the data group (the
+    pipeline's outer leaves, the replicated layouts, the step) stay as they
+    are.  Returns the bytes the all-gathers brought back to this rank
+    (counted in ``axis.counts``)."""
+    if (old.stages, old.model, old.partitioned) != (new.stages, new.model, new.partitioned) \
+            or not 1 <= new.data <= old.data:
+        raise ReshardError(f"a drain keeps {old}'s first data rows, it cannot go to {new}")
+    if not old.partitioned:
+        return 0
+    numels = _local_numels(cfg, old)
+    D = axis.ndata
+    moved = 0
+    for path, t in ptree.leaves_with_path(local):
+        spath = _storage_path(path)
+        if spath is None or (old.stages > 1 and spath[0] != "layers"):
+            continue
+        k = t.shape[0] if spath[0] == "layers" else 1
+        c = t.numel() // k
+        out = torch.empty(D * k * c, dtype=t.dtype, device=t.device)
+        axis.all_gather(out, t.reshape(k, c), "data")
+        moved += out.numel() * out.element_size()
+        if keep:
+            # rank-major [D, k, c] -> layer-major [k, D * c], the padding cut
+            full = out.view(D, k, c).transpose(0, 1).reshape(k, D * c)[:, :numels[spath]]
+            block = zp.partition_local(full, new.data, axis.data_index, stacked=True)
+            lead = (k,) if spath[0] == "layers" else ()
+            parent = _leaf_at(local, path[:-1])
+            parent[path[-1]] = block.reshape(*lead, *t.shape[len(lead):-1], -1)
+        del out
+    return moved

@@ -23,17 +23,24 @@ x model grid of processes:
     count bit for bit as they were (checked, by a digest of the state
     before and after).  Injected ``nan_grad`` / ``grad_spike`` faults act
     through the gate.
-
-Failure-shrink (a lost data replica) is not ported: here each replica is a
-process that owns 1/D of the ZeRO chunks, so losing one loses its chunks,
-and whether to restore from the last checkpoint or drain the leaving rank
-first is a design question of its own.  A ``lose_replica`` fault is refused.
-``plan_execution`` (from ``launch.train --plan``) is kept, as the JAX
-supervisor keeps it, for that shrink to revalidate.
+  * **failure-shrink**: a lost data replica (a ``lose_replica`` fault
+    before step ``i``) shrinks the grid to ``data - 1`` and step ``i`` runs
+    there, so no step is lost, as in the JAX package.  Here each data
+    replica is a process that owns 1/D of the ZeRO chunks, so the leaving
+    ranks (the last data row) *drain*: they still send their chunks, leaf
+    by leaf over the old data groups, and each survivor keeps its chunk of
+    the new layout (``reshard.drain_bundle``); then the leaving ranks return
+    from ``run`` (``left`` in the result) and the survivors rebuild the step
+    on their own groups (``dist.make_axis(..., ranks=)``), which every later
+    collective, checkpoints and restores included, runs on.  Before any
+    tensor moves, the shrink is refused below one data replica, when the
+    plan (``plan_execution``, from ``launch.train --plan``) rejects the
+    smaller grid (``planner.plan.shrink_execution``), and when the batch
+    does not split over the survivors.
 
 Events (on rank 0's ``MetricsSink``) carry the JAX package's names:
-``resume``, ``restart``, ``anomaly``, ``injected_corruption`` and
-``restore_rejected``.
+``resume``, ``restart``, ``anomaly``, ``injected_corruption``,
+``restore_rejected`` and ``shrink``.
 """
 from __future__ import annotations
 
@@ -49,7 +56,7 @@ import torch.distributed as tdist
 
 from repro_torch import tree
 from repro_torch.checkpointing import store
-from repro_torch.core import stepfn
+from repro_torch.core import dist, stepfn
 from repro_torch.core.accumulation import AccumConfig
 from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.data.synthetic import DataConfig, batch_for
@@ -57,6 +64,7 @@ from repro_torch.models.common import ModelConfig
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adam import AdamConfig, adam_init
+from repro_torch.planner import plan as planlib
 from repro_torch.resilience import faults as flt
 from repro_torch.resilience import reshard
 from repro_torch.resilience.reshard import MeshLayout
@@ -64,7 +72,7 @@ from repro_torch.resilience.reshard import MeshLayout
 
 class SupervisorError(RuntimeError):
     """Unrecoverable supervision failure (retries exhausted, a skipped step
-    that changed the state)."""
+    that changed the state, a shrink that cannot happen)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -255,13 +263,58 @@ class Supervisor:
 
     def _barrier(self) -> None:
         if self.axis is not LOCAL and tdist.is_initialized():
-            tdist.barrier()
+            tdist.barrier(group=self.axis.world)
+
+    def _shrink(self, at_step: int) -> bool:
+        """The failure-shrink before step ``at_step``: refuse it, in the JAX
+        package's order and before any tensor moves, or drain the last data
+        row's chunks to the survivors and rebuild the step on their groups.
+        Returns False on the ranks that leave."""
+        old = self.layout
+        if old.data <= 1:
+            raise SupervisorError(f"cannot shrink below one data replica (step {at_step})")
+        new = dataclasses.replace(old, data=old.data - 1)
+        if self.plan_execution is not None:
+            # the plan must still hold on the surviving grid: refuse before
+            # any tensor moves if it does not
+            try:
+                self.plan_execution = planlib.shrink_execution(self.plan_execution,
+                                                               data=new.data)
+            except ValueError as e:
+                raise SupervisorError(f"failure-shrink to data={new.data} rejected by the "
+                                      f"plan: {e}") from e
+        rows = self.data_cfg.global_batch // self.data_cfg.n_microbatches
+        if rows % new.data:
+            raise SupervisorError(f"failure-shrink to data={new.data}: a micro-batch of "
+                                  f"{rows} rows does not split over the survivors")
+        old_axis = self.axis
+        t0 = time.perf_counter()
+        with obs_trace.span(self.tracer, "shrink", cat="resilience", step=at_step):
+            axis = dist.make_axis(new.data, new.model, new.stages,
+                                  ranks=reshard.survivors(old_axis, new.data))
+            moved = reshard.drain_bundle(self._bundle(), self.cfg, old, new, old_axis,
+                                         keep=axis is not None)
+            if axis is None:
+                self.storage = self.opt = None
+                return False
+            self.axis, self.layout = axis, new
+            self._build()
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        rec_s = time.perf_counter() - t0
+        self.mtree = self.reg.update(self.mtree, shrinks=1, recovery_time_s=rec_s)
+        self.sink.log(event="shrink",
+                      record={"step": at_step, "data_from": old.data, "data_to": new.data,
+                              "recovery_time_s": rec_s, "bytes_drained": moved})
+        return True
 
     # -- the loop ---------------------------------------------------------
     def run(self, steps: int) -> dict:
         """Supervised training to ``steps`` total completed steps.  Returns
-        a result dict (history, restart and skip counters, the final layout)
-        and leaves the final state on ``self.storage`` / ``self.opt``."""
+        a result dict (history, restart, shrink and skip counters, the final
+        layout) and leaves the final state on ``self.storage`` / ``self.opt``.
+        A rank that leaves in a failure-shrink returns there, its result's
+        ``left`` the step before which it left."""
         sup = self.sup
         with obs_trace.span(self.tracer, "build_step"):
             self._build()
@@ -275,10 +328,9 @@ class Supervisor:
                         self.faults.fire(f)
                         raise flt.InjectedCrash(i)
                     if f.kind == "lose_replica":
-                        raise NotImplementedError(
-                            f"fault 'lose_replica' at step {i}: failure-shrink is not ported "
-                            f"(each data replica is a process that owns its ZeRO chunks; "
-                            f"ROADMAP §1, item 9)")
+                        self.faults.fire(f)
+                        if not self._shrink(i):
+                            return self._result(steps, left=i)
                 batch = batch_for(self.cfg, self.data_cfg, i, self.axis)
                 self._i = i
                 t0 = time.perf_counter()
@@ -320,6 +372,11 @@ class Supervisor:
                 i += 1
             except flt.InjectedCrash as e:
                 i = self._handle_crash(e.step)
+        return self._result(steps)
+
+    def _result(self, steps: int, left: int | None = None) -> dict:
+        """The run's result; ``left``: the step before which this rank left
+        the grid in a failure-shrink (its state is gone)."""
         host = self.reg.to_host(self.mtree)
         result = {
             "steps": steps,
@@ -334,6 +391,8 @@ class Supervisor:
         if self.history:
             result["first_loss"] = self.history[0]["loss"]
             result["last_loss"] = self.history[-1]["loss"]
+        if left is not None:
+            result["left"] = left
         return result
 
     def history_by_step(self) -> dict[int, dict]:

@@ -10,8 +10,10 @@ and ``launch.train --mesh 2x1`` under ``torch.distributed.run``.
 
 Every rank of one mesh runs all its cases in one spawn
 (``tests/torch_dist_ranks.py``, one thread each, a file store); all spawns
-and the launcher start together and each joins under its own 120 s
-timeout.  The JAX side runs in this process meanwhile.
+and the launcher start together.  A spawn fails when none of its processes
+has written a line for ``STALL_S`` seconds (a hang), or after ``LIMIT_S``
+in all; a slow host only makes it take longer.  The JAX side runs in this
+process meanwhile.
 """
 import dataclasses
 import json
@@ -47,7 +49,11 @@ from repro_torch.models.common import ModelConfig
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 WORKER = ROOT / "tests" / "torch_dist_ranks.py"
-TIMEOUT_S = 120
+# a spawn's hang guard: no process of it has written a line (each rank
+# prints one a case) for STALL_S seconds; LIMIT_S bounds it in all.  Sized
+# for a host running six test files at once (pytest -n 6), where a spawn's
+# ranks share the cores with every other file's
+STALL_S, LIMIT_S = 180, 600
 
 # the CFG of tests/test_accumulation.py: 3 layers, 4 q / 2 KV heads
 ACC = dict(name="t", arch_type="dense", num_layers=3, d_model=32, num_heads=4,
@@ -102,13 +108,30 @@ CASES = {"2x1": GRAD_CASES, "1x2": GRAD_CASES + OTHER_CASES,
 CASES = {mesh: c + RECURRENT_CASES[mesh] for mesh, c in CASES.items()}
 
 
+def numpy_params(cfg, seed: int) -> dict:
+    """A dense config's weights as the JAX package's ``init_params`` draws
+    them in kind (matrices at 1/sqrt(fan-in), the embedding and head at
+    0.02, norm scales 1), from numpy's seeded generator: the weights a test
+    gives both packages, without a JAX compile."""
+    rng = np.random.default_rng(seed)
+
+    def draw(path, shape):
+        if path[-1] == "scale":
+            return np.ones(shape, np.float32)
+        scale = 0.02 if path[-1] in ("embed", "head") else shape[-2] ** -0.5
+        return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+    return dict(tree.tree_map_with_path(draw, stepfn.full_template(cfg)), shared={})
+
+
 def _env() -> dict:
     return dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1")
 
 
 class Procs:
-    """Processes started now; ``wait`` joins them under one timeout counted
-    from their start, and a nonzero exit fails the test with its output."""
+    """Processes started now; ``wait`` joins them under the hang guard
+    (``STALL_S``, ``LIMIT_S``), and a nonzero exit fails the test with its
+    output (every later ``wait`` fails the same way)."""
 
     def __init__(self, tmp: pathlib.Path, name: str, cmds: list[list[str]]):
         self.name, self.t0 = name, time.monotonic()
@@ -117,16 +140,31 @@ class Procs:
         self.procs = [subprocess.Popen(cmd, env=_env(), cwd=tmp, stdout=out, stderr=err)
                       for cmd, (out, err) in zip(cmds, self.files)]
         self.stdout = None
+        self.failed = None
+
+    def _join(self) -> None:
+        """Until every process has ended: the output files' sizes are the
+        progress, and a stall or the whole limit fails the spawn."""
+        size, seen = -1, time.monotonic()
+        while any(p.poll() is None for p in self.procs):
+            now = time.monotonic()
+            grown = sum(os.fstat(f.fileno()).st_size for pair in self.files for f in pair)
+            if grown != size:
+                size, seen = grown, now
+            if now - seen > STALL_S or now - self.t0 > LIMIT_S:
+                self.kill()
+                self.failed = (f"{self.name}: no progress for {now - seen:.0f} s, "
+                               f"{now - self.t0:.0f} s after its start (hang guard "
+                               f"{STALL_S} s, limit {LIMIT_S} s)")
+                pytest.fail(self.failed)
+            time.sleep(0.2)
 
     def wait(self) -> list[str]:
         """Every process's standard output, in order."""
+        if self.failed:
+            pytest.fail(self.failed)
         if self.stdout is None:
-            try:
-                for p in self.procs:
-                    p.wait(timeout=max(1.0, TIMEOUT_S - (time.monotonic() - self.t0)))
-            except subprocess.TimeoutExpired:
-                self.kill()
-                pytest.fail(f"{self.name}: did not finish in {TIMEOUT_S} s")
+            self._join()
             texts = []
             for i, (p, files) in enumerate(zip(self.procs, self.files)):
                 for f in files:
@@ -134,9 +172,11 @@ class Procs:
                 out, err = (f.read() for f in files)
                 for f in files:
                     f.close()
-                if p.returncode != 0:
-                    pytest.fail(f"{self.name} process {i} exited {p.returncode}:\n{out}\n{err}")
+                if p.returncode != 0 and self.failed is None:
+                    self.failed = f"{self.name} process {i} exited {p.returncode}:\n{out}\n{err}"
                 texts.append(out)
+            if self.failed:
+                pytest.fail(self.failed)
             self.stdout = texts
         return self.stdout
 
@@ -149,14 +189,15 @@ class Procs:
 
 class Spawn(Procs):
     """The ranks of one mesh (``worker``: ``tests/torch_dist_ranks.py``, or
-    another worker that reads its job), started now."""
+    another worker that reads its job), started now; with ``pods``, a 3-dim
+    mesh is ``(pod, data, model)``."""
 
     def __init__(self, tmp: pathlib.Path, name: str, mesh, cases, params, batch, *,
-                 worker: pathlib.Path = WORKER, cfg: dict = ACC):
+                 worker: pathlib.Path = WORKER, cfg: dict = ACC, pods: bool = False):
         self.job = tmp / f"{name}.job"
         with open(self.job, "wb") as f:
             pickle.dump({"mesh": mesh, "store": str(tmp / f"{name}.store"), "cfg": cfg,
-                         "params": params, "batch": batch, "cases": cases}, f)
+                         "params": params, "batch": batch, "cases": cases, "pods": pods}, f)
         self.world = math.prod(mesh)
         super().__init__(tmp, name, [[sys.executable, str(worker), str(self.job), str(r)]
                                      for r in range(self.world)])

@@ -10,7 +10,7 @@ update equals JAX's ``adam_step(fused=is_stacked_path)``.
 
 On gloo, stage x data x model meshes 1x1x1, 2x1x1, 4x1x1, 2x2x1, 2x1x2 and
 2x2x2 (``tests/torch_pipeline_ranks.py``, every mesh spawned at once, each
-joined under its own 120 s timeout): gradients and loss of modular, naive, 1f1b,
+joined under ``test_torch_dist``'s hang guard): gradients and loss of modular, naive, 1f1b,
 interleaved, split 1f1b and split interleaved, in both layouts, against
 ``jax.grad`` of the JAX loss (the JAX pipeline tests' tolerance), with the
 per-rank collective counts the table predicts; at 2x2x2 two cases against

@@ -7,9 +7,10 @@ corrupt checkpoint is rejected (``restore_rejected``) and the run falls back
 a step; nan and spike steps are skipped and leave the state bit for bit as
 it was; the restart budget holds; a checkpoint the JAX supervisor wrote on a
 data=2 mesh resumes on the port's one rank through a reshard, and the next
-steps are those JAX takes from it; ``lose_replica`` is refused by name; and
-``launch.train --faults --resume auto`` mirrors JAX's CLI case, in one
-process and as two gloo ranks under ``torch.distributed.run``.
+steps are those JAX takes from it; and ``launch.train --faults --resume
+auto`` mirrors JAX's CLI case, in one process and as two gloo ranks under
+``torch.distributed.run``.  The failure-shrink (``lose_replica``) is
+``tests/test_torch_shrink.py``'s.
 """
 import dataclasses
 import json
@@ -147,11 +148,6 @@ def test_restart_budget_is_bounded(tmp_path):
     sup = SupervisorConfig(max_restarts=0, checkpoint_every=2)
     with pytest.raises(SupervisorError, match="giving up after 0 restarts"):
         _run(tmp_path, FLAT, [flt.Fault("crash", 3)], steps=6, sup=sup)
-
-
-def test_lose_replica_is_refused_by_name(tmp_path):
-    with pytest.raises(NotImplementedError, match="failure-shrink is not ported"):
-        _run(tmp_path, FLAT, [flt.Fault("lose_replica", 2)], steps=4)
 
 
 def test_resume_reshards_across_layouts(tmp_path):

@@ -30,6 +30,7 @@ from repro_torch.kernels import adamw as aw
 from repro_torch.launch import train
 from repro_torch.models.common import ModelConfig
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_step
+from repro_torch.resilience.supervisor import SupervisorError
 
 # the CFG of tests/test_accumulation.py
 ACC = dict(name="t", arch_type="dense", num_layers=3, d_model=32, num_heads=4,
@@ -303,12 +304,15 @@ def test_train_cli_runs_a_plan_with_runtime_flags(flags, tmp_path, monkeypatch, 
 
 @pytest.mark.parametrize("flags", PLAN_RUNS)
 def test_train_cli_refuses_what_is_not_ported(flags, tmp_path, monkeypatch):
-    """Failure-shrink is the one part of the JAX trainer the port lacks: a
-    plan's supervised run, with each set of run-time flags, refuses a
-    ``lose_replica`` fault by name before it takes the step."""
+    """A plan's supervised run, with each set of run-time flags, takes a
+    ``lose_replica`` fault to the failure-shrink, which the one-device plan
+    (data 1) refuses as the JAX supervisor does, before it takes the step;
+    nothing is refused as not ported.  (``tests/test_torch_shrink.py``
+    holds the shrink itself.)"""
     monkeypatch.chdir(tmp_path)
     _smoke_plan()
     with open("f.json", "w") as f:
         json.dump({"faults": [{"kind": "lose_replica", "step": 0}]}, f)
-    with pytest.raises(NotImplementedError, match="failure-shrink is not ported"):
+    with pytest.raises(SupervisorError, match=r"^cannot shrink below one data replica "
+                                              r"\(step 0\)$"):
         train.main(["--device", "cpu", "--checkpoint-dir", "ck", "--faults", "f.json", *flags])

@@ -5,7 +5,8 @@
 
 ``JOB`` is a pickle the test wrote: the mesh, a file-store path, the model
 config, the JAX parameter tree as numpy, a batch, and a list of cases.  The
-rank runs every case in order and pickles its results to ``JOB.RANK``.
+rank runs every case in order, printing a line as each ends, and pickles its
+results to ``JOB.RANK``.
 ``tests/torch_pipeline_ranks.py`` runs the pipeline's cases through
 ``main`` with its own runners.
 """
@@ -38,14 +39,14 @@ def run_grads(job, case, axis):
     """One ``grad_fn`` call: this rank's gradients in its storage layout.  A
     case may bring its own config, weights and batch."""
     cfg = ModelConfig(**case.get("cfg", job["cfg"]))
-    part = case["part"]
+    part, span = case["part"], case.get("span", False)
     storage = storage_from_numpy(cfg, case.get("params", job["params"]), partitioned=part,
-                                 axis=axis)
+                                 axis=axis, span_pods=span)
     batch = local_rows({k: torch.from_numpy(v) for k, v in case.get("batch", job["batch"]).items()},
                        axis)
     acc = AccumConfig(method=case["method"], partitioned=part,
                       n_microbatches=batch["tokens"].shape[0],
-                      reduce_dtype=case.get("reduce_dtype", "float32"))
+                      reduce_dtype=case.get("reduce_dtype", "float32"), span_pods=span)
     grad_fn = make_grad_fn(cfg, acc, stepfn.full_template(cfg), axis=axis)
     axis.reset_counts()
     grads, m = grad_fn(storage, batch)
@@ -56,14 +57,17 @@ def run_grads(job, case, axis):
 def run_train(job, case, axis):
     """``case["steps"]`` steps of the classic or the fused train step, on
     the batches of the config's input mode.  A case may bring its own config
-    and weights."""
+    and weights, and its method, layout and ``span`` (layered, partitioned
+    over the data group when it does not)."""
     cfg = ModelConfig(**case.get("cfg", job["cfg"]))
     data = DataConfig(**case["data"])
-    acc = AccumConfig("layered", True, data.n_microbatches)
+    part, span = case.get("part", True), case.get("span", False)
+    acc = AccumConfig(case.get("method", "layered"), part, data.n_microbatches,
+                      span_pods=span)
     build = stepfn.build_fused_train_step if case["fused"] else stepfn.build_train_step
     step = build(cfg, acc, AdamConfig(**case["opt"]), axis=axis)
-    storage = storage_from_numpy(cfg, case.get("params", job["params"]), partitioned=True,
-                                 axis=axis)
+    storage = storage_from_numpy(cfg, case.get("params", job["params"]), partitioned=part,
+                                 axis=axis, span_pods=span)
     opt = adam_init(storage)
     recs = []
     for i in range(case["steps"]):
@@ -98,19 +102,27 @@ RUNNERS = {"grads": run_grads, "train": run_train, "layout": run_layout}
 
 
 def main(job_path: str, rank: int, runners: dict = RUNNERS) -> None:
-    """``JOB``'s mesh is ``(data, model)`` or ``(stage, data, model)``."""
+    """``JOB``'s mesh is ``(data, model)`` or ``(stage, data, model)``, or
+    ``(pod, data, model)`` when the job says ``pods``."""
     torch.set_num_threads(1)
     with open(job_path, "rb") as f:
         job = pickle.load(f)
-    nstage, ndata, tp = (1, *job["mesh"]) if len(job["mesh"]) == 2 else job["mesh"]
+    nlead, ndata, tp = (1, *job["mesh"]) if len(job["mesh"]) == 2 else job["mesh"]
     tdist.init_process_group("gloo", init_method=f"file://{job['store']}", rank=rank,
-                             world_size=nstage * ndata * tp)
+                             world_size=nlead * ndata * tp)
     try:
-        axis = dist.make_axis(ndata, tp, nstage)
-        out = [runners[c["kind"]](job, c, dist.LOCAL if c.get("local") else axis)
-               for c in job["cases"]]
+        if job.get("pods"):
+            axis = dist.make_axis(ndata, tp, npod=nlead)
+        else:
+            axis = dist.make_axis(ndata, tp, nlead)
+        out = []
+        for i, c in enumerate(job["cases"]):
+            out.append(runners[c["kind"]](job, c, dist.LOCAL if c.get("local") else axis))
+            # the spawn's progress: its wait fails only when no rank moves on
+            print(f"rank {rank}: case {i} ({c['kind']}) done", flush=True)
         out = {"rank": rank, "data_index": axis.data_index,
                "model_index": axis.model_index, "stage_index": axis.stage_index,
+               "pod_index": axis.pod_index,
                "results": out}
     finally:
         tdist.destroy_process_group()
