@@ -90,7 +90,8 @@ def storage_specs(cfg: ModelConfig, axis: AxisCtx, partitioned: bool, *,
     if not partitioned:
         return full
     return zp.partitioned_specs(full, expert_resident=expert_resident and cfg.is_moe,
-                                tp=axis.tp, span_pods=span_pods and axis.pods)
+                                tp=axis.tp,
+                                span_pods=axis.zero_group(span_pods) == "part")
 
 
 def storage_from_params(cfg: ModelConfig, params: dict, *, partitioned: bool,
@@ -205,7 +206,7 @@ def make_sq_reduce(cfg: ModelConfig, axis: AxisCtx, partitioned: bool, *,
             tot = tot + s
         if partitioned and axis.data is not None:
             axis.all_reduce(tot, "data")
-            if span_pods and axis.pod is not None:
+            if axis.zero_group(span_pods) == "part":
                 axis.all_reduce(tot, "pod")
         return tot
 

@@ -517,7 +517,7 @@ def drain_bundle(local: PyTree, cfg: ModelConfig, old: MeshLayout, new: MeshLayo
     data group in its own dtype (the model-local leaf, whole on this rank
     for as long as that leaf takes), and a survivor replaces its chunk by
     its chunk ``d`` of ``new.data`` (``partition.partition_local``, as the
-    storage is first built); leaves held whole over the data group (the
+    storage is first built, cast back to the leaf's dtype); leaves held whole over the data group (the
     pipeline's outer leaves, the replicated layouts, the step) stay as they
     are.  Returns the bytes the all-gathers brought back to this rank
     (counted in ``axis.counts``)."""
@@ -541,7 +541,10 @@ def drain_bundle(local: PyTree, cfg: ModelConfig, old: MeshLayout, new: MeshLayo
         if keep:
             # rank-major [D, k, c] -> layer-major [k, D * c], the padding cut
             full = out.view(D, k, c).transpose(0, 1).reshape(k, D * c)[:, :numels[spath]]
-            block = zp.partition_local(full, new.data, axis.data_index, stacked=True)
+            # partition_local widens to fp32: the chunk goes back in the leaf's
+            # dtype (bf16 moments stay bf16; exact)
+            block = zp.partition_local(full, new.data, axis.data_index,
+                                       stacked=True).to(t.dtype)
             lead = (k,) if spath[0] == "layers" else ()
             parent = _leaf_at(local, path[:-1])
             parent[path[-1]] = block.reshape(*lead, *t.shape[len(lead):-1], -1)

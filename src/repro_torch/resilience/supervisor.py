@@ -274,12 +274,12 @@ class Supervisor:
         if old.data <= 1:
             raise SupervisorError(f"cannot shrink below one data replica (step {at_step})")
         new = dataclasses.replace(old, data=old.data - 1)
-        if self.plan_execution is not None:
+        plan = self.plan_execution
+        if plan is not None:
             # the plan must still hold on the surviving grid: refuse before
             # any tensor moves if it does not
             try:
-                self.plan_execution = planlib.shrink_execution(self.plan_execution,
-                                                               data=new.data)
+                plan = planlib.shrink_execution(plan, data=new.data)
             except ValueError as e:
                 raise SupervisorError(f"failure-shrink to data={new.data} rejected by the "
                                       f"plan: {e}") from e
@@ -297,7 +297,7 @@ class Supervisor:
             if axis is None:
                 self.storage = self.opt = None
                 return False
-            self.axis, self.layout = axis, new
+            self.axis, self.layout, self.plan_execution = axis, new, plan
             self._build()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)

@@ -14,17 +14,23 @@ port's runs and JAX's take the same steps.  Two spawns of
     JAX's at rtol 3e-4 / atol 3e-5; its second half, a fresh one-process
     run from the pre-shrink checkpoint; the replicated layout; a plan that
     ``shrink_execution`` rejects (JAX's message, the state untouched);
-  * 4 ranks: data 2 x model 2 -> 1 x 2, then a crash two
-    steps after the shrink, which restores the checkpoint the survivors
-    wrote (it records data 1) with no hang; 2 stages x data 2 -> 2 x 1; and
-    data 3 -> 2 -> 1 on three of the four ranks, two shrinks in one run.
+    bf16 moments, which stay bf16 through the drain, a checkpoint and its
+    restore;
+  * 4 ranks: data 2 x model 2 -> 1 x 2 (against JAX's supervisor at the
+    same grid too), then a crash two steps after the shrink, which restores
+    the checkpoint the survivors wrote (it records data 1) with no hang;
+    2 stages x data 2 -> 2 x 1; and data 3 -> 2 -> 1 on three of the four
+    ranks, two shrinks in one run.
+
+Each shrunk layout's final weights and moments are held to its unshrunk
+run's, assembled in the full layout, at rtol 3e-4 / atol 3e-5.
 
 The leaving ranks drain, leave the run and go on to the next case; every
 process exits 0.  ``launch.train --faults`` with a ``lose_replica`` fault
 runs the shrink under ``torch.distributed.run``, where the leaving rank's
 process ends with code 0 while the survivor trains on.
 
-Alone, this file takes about 30 s on an 8-core host.
+Alone, this file takes about 45 s on an 8-core host.
 """
 import dataclasses
 import json
@@ -63,6 +69,7 @@ RES = dict(name="res", arch_type="dense", num_layers=4, d_model=32, num_heads=4,
            num_kv_heads=2, d_ff=64, vocab_size=64, dtype="float32", param_dtype="float32")
 CFG = ModelConfig(**RES)
 OPT = dict(lr=3e-3, warmup_steps=2, decay_steps=100)
+BF16 = dict(opt=dict(OPT, moment_dtype="bfloat16"))
 DATA = dict(vocab_size=64, seq_len=16, global_batch=8, n_microbatches=2, seed=0)
 DATA3 = dict(DATA, global_batch=12)          # 6 rows a micro-batch: splits 3, 2 and 1 ways
 SUP = dict(checkpoint_every=2, keep_checkpoints=3)
@@ -78,27 +85,31 @@ def _lay(stages=1, data=2, model=1, partitioned=True) -> dict:
 
 
 # name -> (grid (stages, data, model), global ranks, layout, faults, steps, data,
-# plan); the two spawns' cases, in order
-TWO = {"shrink": ((1, 2, 1), [0, 1], _lay(), LOSE3, 6, DATA, None),
-       "unshrunk": ((1, 2, 1), [0, 1], _lay(), [], 6, DATA, None),
-       "two steps": ((1, 2, 1), [0, 1], _lay(), [], 2, DATA, None),
+# the case's other settings: a plan, an optimizer); the two spawns' cases, in order
+TWO = {"shrink": ((1, 2, 1), [0, 1], _lay(), LOSE3, 6, DATA, {}),
+       "unshrunk": ((1, 2, 1), [0, 1], _lay(), [], 6, DATA, {}),
+       "two steps": ((1, 2, 1), [0, 1], _lay(), [], 2, DATA, {}),
        "plan refusal": ((1, 2, 1), [0, 1], _lay(), [dict(kind="lose_replica", step=2)], 4,
-                        DATA, BAD_PLAN),
-       "replicated": ((1, 2, 1), [0, 1], _lay(partitioned=False), LOSE3, 6, DATA, None),
-       "replicated, unshrunk": ((1, 2, 1), [0, 1], _lay(partitioned=False), [], 6, DATA, None)}
-FOUR = {"tp 2": ((1, 2, 2), [0, 1, 2, 3], _lay(model=2), LOSE3, 6, DATA, None),
-        "tp 2, unshrunk": ((1, 2, 2), [0, 1, 2, 3], _lay(model=2), [], 6, DATA, None),
+                        DATA, dict(plan=BAD_PLAN)),
+       "replicated": ((1, 2, 1), [0, 1], _lay(partitioned=False), LOSE3, 6, DATA, {}),
+       "replicated, unshrunk": ((1, 2, 1), [0, 1], _lay(partitioned=False), [], 6, DATA, {}),
+       "bf16 moments": ((1, 2, 1), [0, 1], _lay(), LOSE3, 6, DATA, BF16),
+       "bf16 moments, unshrunk": ((1, 2, 1), [0, 1], _lay(), [], 6, DATA, BF16),
+       "bf16 moments, crash": ((1, 2, 1), [0, 1], _lay(), LOSE3 + [dict(kind="crash", step=5)],
+                               6, DATA, BF16)}
+FOUR = {"tp 2": ((1, 2, 2), [0, 1, 2, 3], _lay(model=2), LOSE3, 6, DATA, {}),
+        "tp 2, unshrunk": ((1, 2, 2), [0, 1, 2, 3], _lay(model=2), [], 6, DATA, {}),
         "tp 2, crash": ((1, 2, 2), [0, 1, 2, 3], _lay(model=2),
-                        LOSE3 + [dict(kind="crash", step=5)], 6, DATA, None),
-        "stages 2": ((2, 2, 1), [0, 1, 2, 3], _lay(stages=2), LOSE3, 6, DATA, None),
-        "stages 2, unshrunk": ((2, 2, 1), [0, 1, 2, 3], _lay(stages=2), [], 6, DATA, None),
-        "data 3, unshrunk": ((1, 3, 1), [0, 1, 2], _lay(data=3), [], 6, DATA3, None),
+                        LOSE3 + [dict(kind="crash", step=5)], 6, DATA, {}),
+        "stages 2": ((2, 2, 1), [0, 1, 2, 3], _lay(stages=2), LOSE3, 6, DATA, {}),
+        "stages 2, unshrunk": ((2, 2, 1), [0, 1, 2, 3], _lay(stages=2), [], 6, DATA, {}),
+        "data 3, unshrunk": ((1, 3, 1), [0, 1, 2], _lay(data=3), [], 6, DATA3, {}),
         # last: the rank that leaves first makes no group of the second
         # shrink (a process that has left need not), so its count of groups
         # made falls behind the others' and it can share no later group
         "data 3, twice": ((1, 3, 1), [0, 1, 2], _lay(data=3),
                           [dict(kind="lose_replica", step=2), dict(kind="lose_replica", step=4)],
-                          6, DATA3, None)}
+                          6, DATA3, {})}
 # the layouts held against the port's unshrunk run: (shrunk case, unshrunk case,
 # spawn); each ends at data 1
 LAYOUTS = {"tp 2": ("tp 2", "tp 2, unshrunk", "four"),
@@ -126,19 +137,21 @@ def _roots(tmp, seed, names) -> dict:
 
 
 def _cases(table: dict, roots: dict) -> list:
-    return [dict(kind="sup", grid=grid, ranks=ranks, layout=lay, faults=faults, steps=steps,
-                 data=data, plan=plan, opt=OPT, sup=SUP, root=str(roots[name]))
-            for name, (grid, ranks, lay, faults, steps, data, plan) in table.items()]
+    return [dict(dict(kind="sup", grid=grid, ranks=ranks, layout=lay, faults=faults,
+                      steps=steps, data=data, plan=None, opt=OPT, sup=SUP,
+                      root=str(roots[name])), **extra)
+            for name, (grid, ranks, lay, faults, steps, data, extra) in table.items()]
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """The seed checkpoint, both spawns and the launcher, started together;
-    meanwhile the JAX supervisor's shrunk run at data 2."""
+    meanwhile the JAX supervisor's shrunk runs at data 2 and at data 2 x
+    model 2."""
     tmp = tmp_path_factory.mktemp("shrink")
     jcfg = dataclasses.replace(JModelConfig(**RES), kernels=False)
     _seed(tmp / "seed")
-    roots = _roots(tmp, tmp / "seed", [*TWO, *FOUR, "jax"])
+    roots = _roots(tmp, tmp / "seed", [*TWO, *FOUR, "jax", "jax tp 2"])
     out = {"tmp": tmp, "roots": roots,
            "two": Spawn(tmp, "two", (2, 1), _cases(TWO, roots), None, None, worker=WORKER,
                         cfg=RES),
@@ -150,11 +163,13 @@ def runs(tmp_path_factory):
         sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
         "-m", "repro_torch.launch.train", *CLI, "--mesh", "2x1", "--faults", str(fpath),
         "--checkpoint-dir", str(tmp / "cli_ck")]])
-    jsup = JSupervisorConfig(**SUP)
-    sv = JSupervisor(jcfg, JAdamConfig(**OPT), JDataConfig(**DATA),
-                     JMeshLayout(1, 2, 1, n_microbatches=2), ckpt_root=str(roots["jax"]),
-                     sup=jsup, fault_plan=jflt.FaultPlan([jflt.Fault("lose_replica", 3)]))
-    out["jax"] = (sv, sv.run(6))
+    for name, model in (("jax", 1), ("jax tp 2", 2)):
+        sv = JSupervisor(jcfg, JAdamConfig(**OPT), JDataConfig(**DATA),
+                         JMeshLayout(1, 2, model, n_microbatches=2),
+                         ckpt_root=str(roots[name]), sup=JSupervisorConfig(**SUP),
+                         fault_plan=jflt.FaultPlan([jflt.Fault("lose_replica", 3)]))
+        out[name] = (sv, sv.run(6))
+    out["jcfg"] = jcfg
     yield out
     for k in ("two", "four", "cli"):
         out[k].kill()
@@ -169,6 +184,22 @@ def _by_name(runs, spawn: str) -> dict:
 
 def _losses(h: dict) -> list:
     return [h[s]["loss"] for s in sorted(h)]
+
+
+def _full(outs: list) -> dict:
+    """A run's final bundle in the full layout, from its grid's first rank."""
+    return next(o["full"] for o in outs if o is not None and o.get("full"))
+
+
+def _assert_states_close(got: dict, want: dict, what: str) -> None:
+    """Weights and moments, leaf by leaf, at rtol 3e-4 / atol 3e-5
+    (``tests/test_accumulation.py``'s)."""
+    for part in ("params", "mu", "nu"):
+        paths = [p for p, _ in tree.leaves_with_path(want[part])]
+        assert [p for p, _ in tree.leaves_with_path(got[part])] == paths, what
+        for path, g, w in zip(paths, tree.leaves(got[part]), tree.leaves(want[part])):
+            np.testing.assert_allclose(np.asarray(g), np.asarray(w), rtol=3e-4, atol=3e-5,
+                                       err_msg=f"{what}: {part} {path}")
 
 
 def test_shrink_matches_jax(runs):
@@ -212,11 +243,13 @@ def test_resume_from_the_pre_shrink_checkpoint(runs, tmp_path):
 @pytest.mark.parametrize("layout", list(LAYOUTS))
 def test_layouts_shrink_as_the_unshrunk_run(runs, layout):
     """Tensor parallel, replicated, pipelined, and two shrinks in one run:
-    every survivor ends at the smaller grid with no step lost and the
-    unshrunk run's losses (rtol 1e-4, the same ranks and weights).  Every
-    leaver reports where it left.  (JAX's reshard runs these layouts too;
-    its supervisor is run here at data 2 alone, each layout more costing
-    two JAX compiles, ~20 s.)"""
+    every survivor ends at the smaller grid with no step lost, the unshrunk
+    run's losses (rtol 1e-4, the same ranks and weights) and its final
+    weights and moments, assembled in the full layout (rtol 3e-4 / atol
+    3e-5), so that a chunk drained to the wrong place shows.  Every leaver
+    reports where it left.  (JAX's supervisor runs tp 2 in
+    ``test_tp2_shrink_matches_jax``; each layout more costs two JAX
+    compiles, ~10 s.)"""
     shrunk, unshrunk, spawn = LAYOUTS[layout]
     by = _by_name(runs, spawn)
     ref = next(o for o in by[unshrunk] if o is not None)["history"]
@@ -232,6 +265,52 @@ def test_layouts_shrink_as_the_unshrunk_run(runs, layout):
         assert r["final_layout"]["data"] == 1
         assert sorted(o["history"]) == list(range(6))
         np.testing.assert_allclose(_losses(o["history"]), _losses(ref), rtol=1e-4)
+    _assert_states_close(_full(by[shrunk]), _full(by[unshrunk]), layout)
+
+
+def test_tp2_shrink_matches_jax(runs):
+    """Data 2 x model 2 -> 1 x 2 against JAX's supervisor on the same grid
+    and fault: zero steps lost on both, losses at rtol 1e-4, and the
+    survivors' final weights and moments, assembled in the full layout,
+    equal to JAX's at rtol 3e-4 / atol 3e-5."""
+    from repro.resilience import reshard as jreshard
+
+    outs = _by_name(runs, "four")["tp 2"]
+    jsv, jr = runs["jax tp 2"]
+    assert jr["shrinks"] == 1 and jr["lost_steps"] == 0 and jr["final_layout"]["data"] == 1
+    for o in outs:
+        if "left" not in o["result"]:
+            np.testing.assert_allclose(_losses(o["history"]), _losses(jsv.history_by_step()),
+                                       rtol=1e-4)
+    want = {k: jreshard.to_full_state(v, runs["jcfg"], jsv.layout)
+            for k, v in (("params", jsv.storage), ("mu", jsv.opt["mu"]), ("nu", jsv.opt["nu"]))}
+    _assert_states_close(_full(outs), want, "tp 2 against JAX")
+
+
+def test_bf16_moments_stay_bf16_through_the_shrink_and_a_restore(runs):
+    """``AdamConfig(moment_dtype="bfloat16")``: the drained moments come
+    back bf16 (``partition_local`` widens to fp32), the survivors'
+    checkpoint holds bf16 moment files under a ``bfloat16`` meta, a crash
+    after the shrink restores it and retraces the uncrashed run bit for
+    bit, and the losses stay within rtol 1e-4 of the unshrunk run's."""
+    by = _by_name(runs, "two")
+    survivor, leaver = by["bf16 moments"]
+    assert "left" in leaver["result"] and survivor["result"]["shrinks"] == 1
+    assert survivor["moment_dtypes"] == ["torch.bfloat16"]
+    for name in ("bf16 moments", "bf16 moments, crash"):
+        manifest = store.load_manifest(os.path.join(runs["roots"][name], "step_00000004"))
+        assert manifest["meta"]["moment_dtype"] == "bfloat16"
+        assert manifest["meta"]["layout"]["data"] == 1
+        assert {e["dtype"] for e in manifest["entries"]
+                if e["name"].split("__")[0] in ("mu", "nu")} == {"bfloat16"}, name
+    crashed = by["bf16 moments, crash"][0]
+    r = crashed["result"]
+    assert (r["shrinks"], r["restarts"], r["lost_steps"]) == (1, 1, 1), r
+    assert "restore" in crashed["events"] and crashed["moment_dtypes"] == ["torch.bfloat16"]
+    assert _losses(crashed["history"]) == _losses(survivor["history"])
+    assert crashed["digest"] == survivor["digest"]
+    ref = by["bf16 moments, unshrunk"][0]
+    np.testing.assert_allclose(_losses(survivor["history"]), _losses(ref["history"]), rtol=1e-4)
 
 
 def test_crash_after_the_shrink_restores_the_survivors_checkpoint(runs):

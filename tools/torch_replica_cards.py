@@ -5,20 +5,20 @@ the survivors.  One world of 4 ranks; each part makes its own grids over it.
 
   pods    Yi-6B over pod x data x model 2x2x1, the partition over (pod,
           data) (``span_pods``) and over data with the gradients summed
-          over pod, beside data 4 (1x4x1): ``--pod-steps`` steps each, bf16
-          at ``--layers`` layers, ``--global-batch`` x ``--seq-len`` tokens
-          in ``--microbatches`` micro-batches.  Per run: step seconds (the
+          over pod, beside data 4 (1x4x1): ``POD_STEPS`` steps each, bf16
+          at ``--layers`` layers, ``GLOBAL_BATCH`` x ``--seq-len`` tokens
+          in ``MICROBATCHES`` micro-batches.  Per run: step seconds (the
           mean after the first), the bytes a step of every (group, op) (the
           pod and partition groups cross pods, the data group stays in one),
           peak GB a rank.  Gate: step 0's loss and grad norm at an fp32
           ``CHECK_LAYERS``-layer cut within ``GATE`` of 1x4x1's.
   shrink  the supervised loop (``resilience/supervisor.py``) on data x model
-          2x2, a ``lose_replica`` fault before step ``--lose-at`` of
-          ``--steps``: the last data row drains its chunks to the survivors,
+          2x2, a ``lose_replica`` fault before step ``LOSE_AT`` of
+          ``STEPS``: the last data row drains its chunks to the survivors,
           which go on at 1x2.  Gate: an fp32 ``CHECK_LAYERS``-layer cut,
           shrunk and unshrunk, every step's loss within ``GATE``; then the
           bf16 runs at ``--layers`` layers: the unshrunk run, and the shrunk
-          one, checkpointing every ``--lose-at`` steps (the pre-shrink
+          one, checkpointing every ``LOSE_AT`` steps (the pre-shrink
           checkpoint and one the survivors write), whose leaving ranks end
           their processes after the drain (a leaver's NCCL teardown must not
           touch the survivors' groups).  Per run: losses, step seconds, peak
@@ -29,7 +29,8 @@ the survivors.  One world of 4 ranks; each part makes its own grids over it.
 
 Rank 0 prints each result beside the card's name and power limit and
 writes ``OUT/replica_cards.json``; every rank writes ``OUT/rank<r>.json``.
-The checkpoints go under ``--ckpt-dir`` and are removed at the end.
+The checkpoints go under ``CKPT_DIR`` (in the gitignored ``build/``) and
+are removed at the end.
 
     python -m torch.distributed.run --standalone --nproc_per_node 4 \\
         tools/torch_replica_cards.py OUT
@@ -56,6 +57,12 @@ SEED = 0
 CHECK_LAYERS = 2     # the fp32 gates' depth
 GATE = 1e-4          # fp32 losses and grad norms against the reference run, relative
 OPT = dict(lr=3e-3, warmup_steps=1, decay_steps=100)
+GLOBAL_BATCH = 16    # rows a step
+MICROBATCHES = 4
+POD_STEPS = 4        # steps of each pods run
+STEPS = 8            # steps of each supervised run
+LOSE_AT = 3          # the lose_replica fault's step, and the shrunk run's checkpoint interval
+CKPT_DIR = ROOT / "build" / "replica_ck"
 
 
 def main() -> int:
@@ -76,13 +83,7 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("out")
     ap.add_argument("--layers", type=int, default=8)
-    ap.add_argument("--global-batch", type=int, default=16)
     ap.add_argument("--seq-len", type=int, default=2048)
-    ap.add_argument("--microbatches", type=int, default=4)
-    ap.add_argument("--pod-steps", type=int, default=4)
-    ap.add_argument("--steps", type=int, default=8)
-    ap.add_argument("--lose-at", type=int, default=3)
-    ap.add_argument("--ckpt-dir", default=str(ROOT / "build" / "replica_ck"))
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
@@ -98,7 +99,8 @@ def main() -> int:
         if cuda else "cpu"
     out = pathlib.Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    M = args.microbatches
+    M = MICROBATCHES
+    ckpt_dir = str(CKPT_DIR)
     res: dict = {"card": smi, "args": vars(args)}
 
     def say(*a):
@@ -122,7 +124,7 @@ def main() -> int:
                                   num_layers=layers)
         return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
 
-    data = DataConfig(cfg_of(1).vocab_size, args.seq_len, args.global_batch, M, seed=SEED)
+    data = DataConfig(cfg_of(1).vocab_size, args.seq_len, GLOBAL_BATCH, M, seed=SEED)
 
     # ---- pods -----------------------------------------------------------
     pods = dist.make_axis(2, 1, npod=2)
@@ -155,7 +157,7 @@ def main() -> int:
              "2x2x1 no span": (pods, False)}
     res["pods"] = {}
     for name, (axis, span) in grids.items():
-        r = train_run(cfg_of(args.layers), axis, span, args.pod_steps)
+        r = train_run(cfg_of(args.layers), axis, span, POD_STEPS)
         r["check"] = train_run(cfg_of(CHECK_LAYERS, "float32"), axis, span, 1)
         res["pods"][name] = r
         steady = r["step_s"][1:] or r["step_s"]
@@ -198,7 +200,7 @@ def main() -> int:
                                                              keep_checkpoints=2),
                         fault_plan=flt.FaultPlan(faults), sink=sink,
                         axis=dist.make_axis(2, 2), device=device)
-        r = sv.run(args.steps)
+        r = sv.run(STEPS)
         steps = [rec for rec in sink.records if rec["event"] == "step"]
         r = {"left": r.get("left"), "shrinks": r["shrinks"], "lost_steps": r["lost_steps"],
              "restarts": r["restarts"], "final_layout": r["final_layout"],
@@ -209,13 +211,13 @@ def main() -> int:
         del sv
         return r
 
-    lose = lambda: [flt.Fault("lose_replica", args.lose_at)]  # noqa: E731 (a plan fires its own)
-    shutil.rmtree(args.ckpt_dir, ignore_errors=True) if rank == 0 else None
+    lose = lambda: [flt.Fault("lose_replica", LOSE_AT)]  # noqa: E731 (a plan fires its own)
+    shutil.rmtree(ckpt_dir, ignore_errors=True) if rank == 0 else None
     tdist.barrier()
     check = {"unshrunk": supervised(cfg_of(CHECK_LAYERS, "float32"), [],
-                                    os.path.join(args.ckpt_dir, "check_a"), 10 ** 6),
+                                    os.path.join(ckpt_dir, "check_a"), 10 ** 6),
              "shrunk": supervised(cfg_of(CHECK_LAYERS, "float32"), lose(),
-                                  os.path.join(args.ckpt_dir, "check_b"), 10 ** 6)}
+                                  os.path.join(ckpt_dir, "check_b"), 10 ** 6)}
     res["shrink_check"] = check
     if check["shrunk"]["left"] is None:
         for s, (a, b) in enumerate(zip(check["shrunk"]["loss"], check["unshrunk"]["loss"])):
@@ -224,9 +226,9 @@ def main() -> int:
         say(f"shrink fp32 {CHECK_LAYERS}-layer gate: largest loss rel diff "
             f"{max(abs(a - b) / abs(b) for a, b in zip(check['shrunk']['loss'], check['unshrunk']['loss'])):.2e}")
     big = cfg_of(args.layers)
-    res["shrink"] = {"unshrunk": supervised(big, [], os.path.join(args.ckpt_dir, "a"), 10 ** 6)}
-    root = os.path.join(args.ckpt_dir, "b")
-    res["shrink"]["shrunk"] = r = supervised(big, lose(), root, args.lose_at)
+    res["shrink"] = {"unshrunk": supervised(big, [], os.path.join(ckpt_dir, "a"), 10 ** 6)}
+    root = os.path.join(ckpt_dir, "b")
+    res["shrink"]["shrunk"] = r = supervised(big, lose(), root, LOSE_AT)
     if r["left"] is not None:
         # a leaving rank: its process ends here; the survivors go on
         (out / f"rank{rank}.json").write_text(json.dumps(res))
@@ -238,7 +240,7 @@ def main() -> int:
     # recover: restore the pre-shrink checkpoint onto 1x2 (the survivors
     # only) and take one step from it
     grid = dist.make_axis(1, 2, ranks=[0, 1])
-    after = os.path.join(root, f"step_{2 * args.lose_at:08d}")
+    after = os.path.join(root, f"step_{2 * LOSE_AT:08d}")    # the first the survivors wrote
     r["post_shrink_checkpoint_data"] = json.loads(
         pathlib.Path(after, "manifest.json").read_text())["meta"]["layout"]["data"]
     tdist.barrier(group=grid.world)
@@ -249,11 +251,11 @@ def main() -> int:
                     ckpt_root=root, sup=SupervisorConfig(checkpoint_every=10 ** 6),
                     axis=grid, device=device)
     t0 = time.perf_counter()
-    sv.run(args.lose_at + 1)
+    sv.run(LOSE_AT + 1)
     sync()
     res["restore"] = {"seconds": time.perf_counter() - t0, "io": sv.io,
-                      "loss": sv.history_by_step()[args.lose_at]["loss"],
-                      "drained_loss": r["loss"][args.lose_at]}
+                      "loss": sv.history_by_step()[LOSE_AT]["loss"],
+                      "drained_loss": r["loss"][LOSE_AT]}
     del sv
     say(f"shrink on {smi}: unshrunk 2x2 losses {[round(x, 6) for x in u['loss']]}; shrunk "
         f"{[round(x, 6) for x in r['loss']]} (rel diff max {max(r['loss_rel_diff']):.2e}), "
@@ -270,7 +272,7 @@ def main() -> int:
     (out / f"rank{rank}.json").write_text(json.dumps(res))
     tdist.barrier(group=grid.world)
     if rank == 0:
-        shutil.rmtree(args.ckpt_dir, ignore_errors=True)
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
         parts = {p.name: json.loads(p.read_text()) for p in sorted(out.glob("rank*.json"))}
         (out / "replica_cards.json").write_text(json.dumps(
             {"rank0": res, "peak_gb": {k: {"pods": {n: v["peak_gb"] for n, v in p["pods"].items()},
