@@ -163,7 +163,21 @@ nonzero and prints no result:
      (b) the survivors' grid built and the state drained onto its own layout
      (no rank leaves): digest unchanged, the gathers counted and timed; a
      ``lose_replica`` fault at data 1 refused with the JAX package's message
-     and the state as an unfaulted run leaves it (2-layer cut).
+     and the state as an unfaulted run leaves it (2-layer cut);
+ 16. (run before 14's lines) the dry run: (a) ``core/roofline.py:analyze``
+     of phase 5's own step (``stepfn.build_train_step`` at phase 5's
+     configuration, one rank) on ``meta`` tensors: the predicted peak memory
+     against phase 5's ``max_memory_allocated``, the dot flops against 6ND,
+     and the roofline bound (the larger of the compute and memory terms)
+     against phase 5's steady step time; it fails when the bound exceeds
+     the measured step, when the predicted peak lies outside 0.5-2x the
+     measured one, or when a term is not finite; (b) ``python -m
+     repro_torch.launch.dryrun --arch yi-6b --shape train_4k`` in a
+     subprocess: one rank of the 16 x 16 production grid on a fake process
+     group, its roofline, memory and seconds under this machine's torch.
+Phase 2 also times K3-K5 at head dim 256 (gemma-2b's training shape, q [2,
+2048, 8, 256], k/v [2, 2048, 1, 256], bf16, the CUDA-core kernels) beside
+their bound and SDPA's time.
 """
 from __future__ import annotations
 
@@ -686,6 +700,11 @@ def phase_kernels(torch, F):
     # -- K3-K5 at head dim 112 (zamba2-7b's shared attention)
     for name, r in hd112_checks(torch, F, failures).items():
         rows[name]["hd112"] = r
+    torch.cuda.empty_cache()
+
+    # -- K3-K5 at head dim 256 (gemma-2b's training shape, the CUDA-core kernels)
+    for name, r in hd256_checks(torch, F, failures).items():
+        rows[name]["hd256"] = r
     torch.cuda.empty_cache()
 
     # -- K6 AdamW: the largest storage leaf of the 8-layer Yi-6B, the stacked w_up
@@ -2454,6 +2473,19 @@ def hd112_checks(torch, F, failures) -> dict:
     return attention_times(torch, F, cfg, 2, 2048, errs, "hd 112")
 
 
+def hd256_checks(torch, F, failures) -> dict:
+    """K3-K5 at head dim 256 (both gemma configs; bf16 runs them on the
+    CUDA cores) at gemma-2b's training micro-batch (2 x 2048, its GQA at
+    rep 8) against their plain versions with phase 2's training-shape
+    tolerances, then each kernel's time, bound and SDPA's time."""
+    from repro_torch import configs
+    say("K3-K5 at head dim 256 (gemma-2b's training shape; the CUDA-core kernels)")
+    cfg = configs.get_config("gemma-2b")
+    errs = {}
+    failures += shape_checks(torch, cfg, 2, 2048, "gemma-2b", errs=errs)
+    return attention_times(torch, F, cfg, 2, 2048, errs, "hd 256")
+
+
 def recurrent_profile(torch, label: str, fn, n: int) -> None:
     """Device time over ``n`` calls of ``fn`` (a decode or a train step):
     busy share and the top kernels (device activity only: a train step
@@ -3605,6 +3637,91 @@ def phase_pods(torch, smi, group_records: list, device: str = "cuda") -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# Phase 16: the dry run, against phase 5's measured step
+# ---------------------------------------------------------------------------
+DRYRUN_ARGV = ["-m", "repro_torch.launch.dryrun", "--arch", "yi-6b", "--shape", "train_4k"]
+DRYRUN_TIMEOUT_S = 120
+
+
+def phase_dryrun(torch, smi, phase5: dict) -> None:
+    """(a) ``roofline.analyze`` of phase 5's step on ``meta`` tensors
+    (``stepfn.build_train_step`` as ``launch.train`` builds it from
+    ``TRAIN_ARGV``: Yi-6B cut to 8 layers, bf16 compute over fp32
+    partitioned state and fp32 moments, layered, 8 x 2048 tokens in 4
+    micro-batches, one rank) against phase 5's records; (b) the production
+    dry run of Yi-6B ``train_4k`` on the 16 x 16 grid in a subprocess."""
+    from repro_torch import configs, tree
+    from repro_torch.core import dist as D
+    from repro_torch.core import roofline, stepfn
+    from repro_torch.core.accumulation import AccumConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.optim.adam import AdamConfig
+
+    cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=TRAIN_LAYERS)
+    B, S, M = 8, 2048, TRAIN_MB
+    step = stepfn.build_train_step(
+        cfg, AccumConfig(method="layered", partitioned=True, n_microbatches=M),
+        AdamConfig(lr=3e-3, warmup_steps=max(TRAIN_STEPS // 10, 1), decay_steps=TRAIN_STEPS))
+    t0 = time.perf_counter()
+    meta = torch.device("meta")
+    storage = dryrun.storage_specs(cfg, D.LOCAL, True)
+    opt = {"mu": tree.tree_map(lambda t: torch.empty_like(t, device=meta), storage),
+           "nu": tree.tree_map(lambda t: torch.empty_like(t, device=meta), storage),
+           "step": torch.empty((), dtype=torch.int32, device=meta)}
+    batch = {k: torch.empty((M, B // M, S), dtype=torch.int32, device=meta)
+             for k in ("tokens", "labels", "mask")}
+    costs = roofline.analyze(step, storage, opt, batch, see=roofline.attention_seen(cfg, S))
+    t_meta = time.perf_counter() - t0
+    mem = costs.memory
+    steady = phase5["records"][1:]
+    step_s = sum(r["step_time_s"] for r in steady) / len(steady)
+    peak = max(r["peak_mem_gb"] for r in phase5["records"])
+    pred = mem["device_bytes"] / 1e9
+    sixnd = roofline.model_flops_train(cfg, B, S)
+    bound_s = max(costs.compute_s(), costs.memory_s())
+    say(f"  phase 5's step on meta ({t_meta:.1f} s): predicted peak {pred:.2f} GB "
+        f"(argument {mem['argument_bytes'] / 1e9:.2f}, temp {mem['temp_bytes'] / 1e9:.2f}) "
+        f"against max_memory_allocated {peak:.2f} GB (ratio {pred / peak:.3f}); dot flops "
+        f"{costs.dot_flops:.4e} against 6ND {sixnd:.4e} (ratio {costs.dot_flops / sixnd:.3f}); "
+        f"compute {costs.compute_s():.4f} s, memory {costs.memory_s():.4f} s (HBM bytes "
+        f"{costs.hbm_bytes:.4e}), bound {bound_s:.4f} s against the steady step "
+        f"{step_s:.4f} s ({100 * bound_s / step_s:.1f}%) on {smi}")
+    problems = []
+    terms = [pred, peak, costs.dot_flops, costs.hbm_bytes, costs.compute_s(),
+             costs.memory_s(), step_s]
+    if not all(math.isfinite(x) for x in terms):
+        problems.append(f"a term is not finite: {terms}")
+    if bound_s > step_s:
+        problems.append(f"the roofline bound {bound_s:.4f} s exceeds the measured step "
+                        f"{step_s:.4f} s: a counting fault")
+    if not 0.5 <= pred / peak <= 2.0:
+        problems.append(f"predicted peak {pred:.2f} GB outside 0.5-2x of the measured "
+                        f"{peak:.2f} GB")
+
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (os.path.join(ROOT, "src"), os.environ.get("PYTHONPATH")) if p))
+    out = subprocess.run([sys.executable, *DRYRUN_ARGV], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=DRYRUN_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        problems.append(f"the 16 x 16 dry run failed ({out.returncode}): {out.stderr[-2000:]}")
+    else:
+        rep = json.loads(out.stdout)
+        say(f"  yi-6b train_4k, one rank of {rep['n_chips']} (torch {torch.__version__}): "
+            f"{rep['seconds']} s ({wall:.1f} s with the interpreter); memory "
+            f"{json.dumps(rep['memory'])}; roofline {json.dumps(rep['roofline'])}; "
+            f"collective calls {json.dumps(rep['coll_counts'])}; useful flops ratio "
+            f"{rep['useful_flops_ratio']:.4f}")
+        if rep["n_chips"] != 256 or not all(
+                math.isfinite(v) for v in (rep["roofline"]["dot_flops"],
+                                           rep["memory"]["device_bytes"])):
+            problems.append(f"the 16 x 16 report is not whole: {rep}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+
+
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -3712,6 +3829,11 @@ def main() -> int:
         pod_counts = phase_pods(torch, smi, group_records)
         say(f"[phase 15] the pod axis and the drain on one card ok; "
             f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        phase_dryrun(torch, smi, phase5)
+        say(f"[phase 16] the dry run: phase 5's step reckoned and the 16 x 16 grid ok; "
+            f"{time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
@@ -3732,10 +3854,10 @@ def main() -> int:
          "bound_ms": rows[name]["bound"][0], "bound_by": rows[name]["bound"][1],
          "library_ms": rows[name]["library_ms"],
          **({"device_ms": rows[name]["device_ms"]} if "device_ms" in rows[name] else {}),
-         **({"hd112_ms": rows[name]["hd112"]["ms"],
-             "hd112_bound_ms": rows[name]["hd112"]["bound"][0],
-             "hd112_library_ms": rows[name]["hd112"]["library_ms"]}
-            if "hd112" in rows[name] else {})}
+         **{f"{hd}_{key}": (rows[name][hd]["bound"][0] if key == "bound_ms"
+                            else rows[name][hd][key])
+            for hd in ("hd112", "hd256") if hd in rows[name]
+            for key in ("ms", "bound_ms", "library_ms")}}
         for name, (src, rep) in KERNELS.items()]}
     say(f"[phase 14] total {time.perf_counter() - t_all:.1f} s")
     say(smi)

@@ -332,11 +332,14 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
         return axis.model is not None and axis.tp > 1 and S % axis.tp == 0
 
     def ckpt_slice(x):
-        """Keep this rank's share of the sequence of a checkpoint."""
+        """Keep this rank's share of the sequence of a checkpoint, a copy:
+        with one row the share is a contiguous view, which would keep the
+        whole activation alive."""
         if not shard_ckpt(x.shape[-2]):
             return x
         c = x.shape[-2] // axis.tp
-        return x[..., axis.model_index * c:(axis.model_index + 1) * c, :].contiguous()
+        return x[..., axis.model_index * c:(axis.model_index + 1) * c, :].clone(
+            memory_format=torch.contiguous_format)
 
     def ckpt_restore(ck, S):
         """The whole sequence back, all-gathered over the model group."""
@@ -364,6 +367,7 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
             embedded = [T.embed_inputs(cfg, outer, mb, axis) for mb in mbs]
         pos = [p for _, p in embedded]
         xs = [x for x, _ in embedded]
+        del embedded          # the inputs live on in ckpt[0] only
         S = xs[0].shape[-2]
         ckpt = []
         aux_total = None

@@ -27,6 +27,12 @@ holds chunk ``p * ndata + d``.  The global batch splits over ``(pod, data)``,
 pod major.  Pods and pipeline stages do not mix (the JAX package's pipeline
 has no pod axis).
 
+A dry run (``launch/dryrun.py``) builds one rank's grid in one process:
+``fake_grid`` makes this process rank 0 of a default group of torch's
+``fake`` backend, whose collectives issue nothing (they are still counted),
+and ``production_grid`` is the JAX package's ``make_production_mesh``:
+16 x 16 ranks, or 2 x 16 x 16 with pods.
+
 A grid may also live on a subset of the default group's ranks (``ranks``):
 the survivors of a failure-shrink.  Its ``world`` group then holds those
 ranks, and every collective of the grid runs on its own groups, never on
@@ -48,6 +54,7 @@ each receive, with its bytes.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 
@@ -322,3 +329,37 @@ def from_env(ndata: int, tp: int, device: torch.device, nstage: int = 1, *,
         backend = "gloo"
     dist.init_process_group(backend, rank=int(os.environ["RANK"]), world_size=world)
     return make_axis(ndata, tp, nstage, npod=npod)
+
+
+@contextlib.contextmanager
+def fake_grid(ndata: int, tp: int, *, npod: int | None = None):
+    """This process as rank 0 of a ``(npod x) ndata x tp`` grid over a
+    default group of torch's ``fake`` backend: every group is made, every
+    collective is counted and none is issued, so a step runs on ``meta``
+    tensors as rank 0 would run it.  Yields rank 0's ``AxisCtx`` and
+    destroys the group on leaving.  Refuses to start beside a group that
+    already exists, so a dry run never joins a real run."""
+    if dist.is_initialized():
+        raise RuntimeError("a default process group already exists: a dry run makes its "
+                           "own fake group and never joins a real one")
+    # importing the module registers the backend
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    world = (npod or 1) * ndata * tp
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=world)
+    try:
+        yield make_axis(ndata, tp, npod=npod)
+    finally:
+        dist.destroy_process_group()
+
+
+def production_grid(*, multi_pod: bool = False, mesh_shape: str | None = None):
+    """The production grid of a dry run (the JAX package's
+    ``make_production_mesh``): ``fake_grid`` of 16 x 16 ranks, of 2 pods x
+    16 x 16 under ``multi_pod``, or ``mesh_shape`` ("DxM") when given, a
+    data x model split of the same 256 ranks."""
+    if mesh_shape:
+        d, m = (int(v) for v in mesh_shape.split("x"))
+        if d * m != 256:
+            raise ValueError(f"--mesh-shape {mesh_shape} is not a split of 256 ranks")
+        return fake_grid(d, m)
+    return fake_grid(16, 16, npod=2 if multi_pod else None)

@@ -11,6 +11,7 @@ prepended to the text tokens (``make_vlm_batch``), both fp32
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
 import numpy as np
 import torch
@@ -55,6 +56,12 @@ def make_batch(cfg: DataConfig, step: int) -> dict:
     labels = seqs[:, 1:].reshape(M, B // M, S).astype(np.int32)
     return {"tokens": torch.from_numpy(tokens), "labels": torch.from_numpy(labels),
             "mask": torch.ones(tokens.shape, dtype=torch.int32)}
+
+
+def batches(cfg: DataConfig, n_steps: int, start: int = 0) -> Iterator[dict]:
+    """The global batches of steps ``start .. start + n_steps - 1``."""
+    for step in range(start, start + n_steps):
+        yield make_batch(cfg, step)
 
 
 def make_audio_batch(cfg: DataConfig, model: ModelConfig, step: int) -> dict:

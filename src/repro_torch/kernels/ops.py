@@ -11,10 +11,12 @@ card would lose every gradient upstream of a norm or an attention.
 
 A ``meta`` tensor (shapes only) goes to the plain version too, which then
 computes nothing: the kernel's output shapes, as a ``pallas_call``'s
-abstract evaluation gives them.  The flash attention's work, launch or
-plain version, runs inside ``_kernel("flash_attention")``, so that the
-counter of ``core/roofline.py`` can see it as one opaque call; it is the
-one kernel on a counted path whose plain version holds matrix products.
+abstract evaluation gives them.  Every kernel's work, launch or plain
+version, runs inside ``_kernel(name)``, so that ``core/roofline.py`` can
+see it as one opaque call: its counters leave out the plain version's
+matrix products, as the JAX walk never enters a ``pallas_call``, and its
+memory tracker the plain version's temporaries, which the kernel does not
+form.
 """
 from __future__ import annotations
 
@@ -41,6 +43,18 @@ def _kernel(name: str):
         yield
     finally:
         _scope.name = outer
+        if outer is None:
+            for f in exit_hooks():
+                f()
+
+
+def exit_hooks() -> list:
+    """This thread's callables, each called with no argument when a marked
+    kernel's work ends."""
+    hooks = getattr(_scope, "exits", None)
+    if hooks is None:
+        hooks = _scope.exits = []
+    return hooks
 
 
 def current_kernel() -> str | None:
@@ -65,10 +79,9 @@ class _RMSNorm(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, scale, eps, plus_one):
         s32 = scale.float()
-        if _on_cuda(x, "rmsnorm"):
-            out = _rn.rmsnorm_cuda(x, s32, eps=eps, plus_one=plus_one)
-        else:
-            out = _rn.plain(x, s32, eps=eps, plus_one=plus_one)
+        fn = _rn.rmsnorm_cuda if _on_cuda(x, "rmsnorm") else _rn.plain
+        with _kernel("rmsnorm"):
+            out = fn(x, s32, eps=eps, plus_one=plus_one)
         ctx.save_for_backward(x, s32)
         ctx.eps, ctx.plus_one, ctx.scale_dtype = eps, plus_one, scale.dtype
         return out
@@ -77,7 +90,9 @@ class _RMSNorm(torch.autograd.Function):
     def backward(ctx, g):
         x, s32 = ctx.saved_tensors
         fn = _rn.rmsnorm_bwd_cuda if x.is_cuda else _rn.plain_bwd
-        dx, ds = fn(x, s32, g.contiguous(), eps=ctx.eps, plus_one=ctx.plus_one)
+        g = g.contiguous()
+        with _kernel("rmsnorm"):
+            dx, ds = fn(x, s32, g, eps=ctx.eps, plus_one=ctx.plus_one)
         return dx, ds.to(ctx.scale_dtype), None, None
 
 
@@ -128,8 +143,9 @@ def paged_attention(q, k_pool, v_pool, block_tables, context_lens, *,
     pools: [N, Hkv, bs, D]; block_tables: [R, max_blocks]; context_lens: [R].
     Rows with ``context_lens == 0`` return zeros (idle serving slots)."""
     fn = _pa.paged_attention_cuda if _on_cuda(q, "paged_attention") else _pa.plain
-    return fn(q, k_pool, v_pool, block_tables, context_lens, window=window,
-              softcap=softcap)
+    with _kernel("paged_attention"):
+        return fn(q, k_pool, v_pool, block_tables, context_lens, window=window,
+                  softcap=softcap)
 
 
 def fused_adamw(p, m, v, g, scalars, *, b1: float, b2: float, eps: float,
@@ -137,9 +153,13 @@ def fused_adamw(p, m, v, g, scalars, *, b1: float, b2: float, eps: float,
     """One-pass AdamW on a storage leaf, in place (p, m and v are
     overwritten).  ``scalars`` fp32 [4] = (lr, 1 - b1^t, 1 - b2^t, grad
     scale), on the leaf's device."""
-    hyper = dict(b1=b1, b2=b2, eps=eps, wd=wd)
-    if _on_cuda(p, "fused_adamw"):
-        _aw.adamw_cuda(p, m, v, g, scalars, **hyper)
-        return
+    fn = _aw.adamw_cuda if _on_cuda(p, "fused_adamw") else _plain_adamw
+    with _kernel("fused_adamw"):
+        fn(p, m, v, g, scalars, b1=b1, b2=b2, eps=eps, wd=wd)
+
+
+def _plain_adamw(p, m, v, g, scalars, **hyper) -> None:
+    """The plain version, written back in place (its temporaries die with
+    this call)."""
     for dst, new in zip((p, m, v), _aw.plain(p, m, v, g, scalars, **hyper)):
         dst.copy_(new)

@@ -132,7 +132,8 @@ def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):
 
 
 @pytest.mark.parametrize("module", ["core.calculator", "core.roofline", "planner.search",
-                                    "planner.plan", "planner.validate", "launch.plan"])
+                                    "planner.plan", "planner.validate", "launch.plan",
+                                    "launch.dryrun"])
 def test_import_checks_cover_the_planner_modules(module):
     """The planner's modules (copies of the JAX package's jax-free
     calculator, search and plan, the counter and the plan CLI) are in both
