@@ -150,7 +150,7 @@ nonzero and prints no result:
      (2 L + 1 model all-reduces and one logits all-gather a call for an
      attention stack; 3 L seq all-reduces a sequence-sharded step) and exact
      K1/K3/K7 launches of the group's calls; decode ms a step of both;
- 14. the ``kernels`` line (launches over phases 4-13 and 15), and as the last
+ 14. the ``kernels`` line (launches over phases 4-13, 15 and 17), and as the last
      line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
  15. (run before 14's lines) the pod axis and what one card shows of the
      failure-shrink, on a world-size-1 NCCL grid with pod, data and model
@@ -175,9 +175,20 @@ nonzero and prints no result:
      repro_torch.launch.dryrun --arch yi-6b --shape train_4k`` in a
      subprocess: one rank of the 16 x 16 production grid on a fake process
      group, its roofline, memory and seconds under this machine's torch.
-Phase 2 also times K3-K5 at head dim 256 (gemma-2b's training shape, q [2,
-2048, 8, 256], k/v [2, 2048, 1, 256], bf16, the CUDA-core kernels) beside
-their bound and SDPA's time.
+ 17. (run before 14's lines) the gemma family trained on the card: ``python -m
+     repro_torch.launch.train`` on gemma-2b at full depth (8 x 2048 tokens in
+     4 micro-batches, 5 steps) and gemma2-9b cut to 6 layers (4 x 8192 in 4
+     micro-batches, 3 steps: its window cuts every local layer, softcap 50),
+     both at full width, bf16 compute over fp32 state, layered +
+     partitioned: step time, tok/s, MFU, peak memory, exact launch counts,
+     then one profiled step (device ms of GEMM, K3, K4, K5 and the rest,
+     the idle share) whose K3 and K5 launches must be the head-dim-256
+     tensor-core instances.
+Phase 2 also holds K3-K5 at head dim 256 at gemma-2b's training shape (q [2,
+2048, 8, 256], k/v [2, 2048, 1, 256]) and gemma2-9b's (q [1, 8192, 16, 256],
+k/v [.., 8, 256], softcap 50, window 4096), bf16 (K3 and K5 on the tensor
+cores, K4 on the CUDA cores), with K5's bits equal over repeated calls, and
+times them beside their bound and SDPA's time.
 """
 from __future__ import annotations
 
@@ -220,6 +231,37 @@ K6_RTOL, K6_ATOL = 1e-5, 1e-6
 
 def say(*parts) -> None:
     print(*parts, flush=True)
+
+
+def ptxas_report(log: str) -> dict:
+    """The build log's ``-Xptxas -v`` lines by kernel instance (demangled
+    with ``c++filt`` where the machine has it): registers, stack frame and
+    spill bytes."""
+    out, name = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", ln)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill "
+                      r"loads", ln)
+        if m and name:
+            out[name].update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and name:
+            out[name]["registers"] = int(m.group(1))
+    names = list(out)
+    try:
+        plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        plain = names
+    if len(plain) != len(names):
+        plain = names
+    return {re.sub(r"^(?:void )?(?:\(anonymous namespace\)::)?", "", p).split("(")[0]: out[n]
+            for n, p in zip(names, plain) if n.startswith("_Z")}
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -408,7 +450,7 @@ def phase_kernels(torch, F):
     say(f"K3 flash_attention_fwd (out and lse; lse tol 1e-4; out: fp32 tol 1e-4; bf16 at hd "
         f"64/128 (tensor cores) {BF16_FWD_TOL:g} of the output scale (at least 1), and every "
         f"row within {K3_ROW_ULPS} bf16 ulps of its scale of the plain version with p rounded "
-        "to bf16 before P*V, as the kernel rounds it; bf16 at hd 256 one ulp)")
+        "to bf16 before P*V, as the kernel rounds it; bf16 at hd 256 too)")
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     main, n_tc = None, 0
@@ -426,7 +468,7 @@ def phase_kernels(torch, F):
                 ((2, 50, 4, 2, 64), torch.float32, dict(causal=False, kv_len=41))]:
             q, k, v = randn(B, S, Hq, D, dtype=dtype), randn(B, S, Hkv, D, dtype=dtype), \
                 randn(B, S, Hkv, D, dtype=dtype)
-            tc = dtype == torch.bfloat16 and D in (64, 128)
+            tc = dtype == torch.bfloat16                  # every bf16 head dim
             n_tc += tc
             name = f"q={[B, S, Hq, D]} kv_heads={Hkv} {str(dtype)[6:]} {kw}"
             got = fa.flash_attention_fwd_cuda(q, k, v, **kw)
@@ -444,7 +486,7 @@ def phase_kernels(torch, F):
             launched[hit.group(0)] = launched.get(hit.group(0), 0) + e.count
     say(f"  launched as: {launched}")
     if sum(c for name, c in launched.items() if "flash_fwd_kernel_tc" in name) != n_tc:
-        failures.append(f"K3: {n_tc} bf16 hd 64/128 cases did not all run flash_fwd_kernel_tc")
+        failures.append(f"K3: {n_tc} bf16 cases did not all run flash_fwd_kernel_tc")
     q, k, v, err = main
     B, S, Hq, D = q.shape
     es = q.element_size()
@@ -622,8 +664,9 @@ def phase_kernels(torch, F):
     # -- K4/K5 flash backward: training micro-batch 2 x 2048, 32 q heads, 4 KV heads
     say("K4 flash_attention_bwd_dq (dq, delta) and K5 flash_attention_bwd_dkv (dk, dv), "
         "fed the K3 forward's out and lse; fp32 outputs (delta included) tol 1e-4 of the "
-        f"output scale; bf16 at hd 64/128 {BF16_BWD_TOL:g} of the output scale (at least 1), "
-        "its tensor-core products taking p and ds rounded to bf16; bf16 at hd 256 one ulp")
+        f"output scale; bf16 on the tensor cores (K4 at hd 64/128, K5 at every head dim) "
+        f"{BF16_BWD_TOL:g} of the output scale (at least 1), their products taking p and ds "
+        "rounded to bf16; K4 in bf16 at hd 256 (CUDA cores) one ulp")
     main = None
     for (B, S, Hq, Hkv, D), dtype, kw in [
             ((2, 2048, 32, 4, 128), torch.bfloat16, dict(causal=True)),
@@ -639,16 +682,19 @@ def phase_kernels(torch, F):
         do = randn(B, S, Hq, D, dtype=dtype)
         out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
         name = f"q={[B, S, Hq, D]} kv_heads={Hkv} {str(dtype)[6:]} {kw}"
-        # the tensor-core instances (bf16, hd 64 and 128); hd 256 keeps one ulp
-        tol = BF16_BWD_TOL if dtype == torch.bfloat16 and D in (64, 128) else 0.0
+        # the tensor-core instances: K4 in bf16 at hd 64 and 128, K5 in bf16;
+        # K4 at hd 256 keeps one ulp
+        bf16 = dtype == torch.bfloat16
+        tol4 = BF16_BWD_TOL if bf16 and D in (64, 128) else 0.0
         dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
         dq_p, delta_p = fa.plain_bwd_dq(q, k, v, out, lse, do, **kw)
         err4 = check_case(torch, "K4 " + name, (dq, delta), (dq_p, delta_p), failures,
-                          parts=(" [dq]", " [delta]"), rel=True, bf16_rel=tol)
+                          parts=(" [dq]", " [delta]"), rel=True, bf16_rel=tol4)
         got = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
         want = fa.plain_bwd_dkv(q, k, v, do, lse, delta_p, **kw)
         err5 = check_case(torch, "K5 " + name, got, want, failures,
-                          parts=(" [dk]", " [dv]"), rel=True, bf16_rel=tol)
+                          parts=(" [dk]", " [dv]"), rel=True,
+                          bf16_rel=BF16_BWD_TOL if bf16 else 0.0)
         main = main or (q, k, v, do, out, lse, delta, err4, err5, (dq_p, *want))
         del out, lse, dq, delta, dq_p, delta_p, got, want
     q, k, v, do, out, lse, delta, err4, err5, plain_grads = main
@@ -702,9 +748,10 @@ def phase_kernels(torch, F):
         rows[name]["hd112"] = r
     torch.cuda.empty_cache()
 
-    # -- K3-K5 at head dim 256 (gemma-2b's training shape, the CUDA-core kernels)
-    for name, r in hd256_checks(torch, F, failures).items():
-        rows[name]["hd256"] = r
+    # -- K3-K5 at head dim 256 (gemma-2b's and gemma2-9b's training shapes)
+    for key, by_kernel in hd256_checks(torch, F, failures).items():
+        for name, r in by_kernel.items():
+            rows[name][key] = r
     torch.cuda.empty_cache()
 
     # -- K6 AdamW: the largest storage leaf of the 8-layer Yi-6B, the stacked w_up
@@ -1857,14 +1904,15 @@ PAPER_ARGV = ["--arch", "paper-x", "--size", "160", "--grid", "reduced", "--simu
 
 
 def shape_checks(torch, cfg, mb: int, S: int, label: str, *, attention: bool = True,
-                 dtype=None, errs: dict | None = None) -> list:
+                 dtype=None, errs: dict | None = None, window: int = 0,
+                 softcap: float = 0.0) -> list:
     """K1-K5 at a micro-batch of mb x S tokens of ``cfg`` (in ``dtype``, bf16
     unless given) against their plain versions, with phase 2's training-shape
     tolerances: K1/K2 on [mb * S, d_model] rows, K3 (and in bf16 its row
     check), K4 and K5 on q [mb, S, num_heads, head_dim], k/v [mb, S,
-    num_kv_heads, head_dim], causal; K1/K2 alone when ``attention`` is
-    false.  ``errs`` collects each kernel's max_abs_err.  Returns the
-    failures."""
+    num_kv_heads, head_dim], causal (with ``window`` and ``softcap`` where
+    given); K1/K2 alone when ``attention`` is false.  ``errs`` collects each
+    kernel's max_abs_err.  Returns the failures."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
 
@@ -1889,22 +1937,25 @@ def shape_checks(torch, cfg, mb: int, S: int, label: str, *, attention: bool = T
         Hq, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         q, do = randn(mb, S, Hq, hd), randn(mb, S, Hq, hd)
         k, v = randn(mb, S, Hkv, hd), randn(mb, S, Hkv, hd)
-        name = f"{label} q={[mb, S, Hq, hd]} kv_heads={Hkv} {str(dtype)[6:]} causal"
-        out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+        kw = dict(window=window, softcap=softcap)
+        name = (f"{label} q={[mb, S, Hq, hd]} kv_heads={Hkv} {str(dtype)[6:]} causal"
+                + (f" window={window} softcap={softcap:g}" if window or softcap else ""))
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
         errs["flash_attention_fwd"] = check_case(torch, "K3 " + name, (out, lse),
-                                                 fa.plain(q, k, v), failures,
+                                                 fa.plain(q, k, v, **kw), failures,
                                                  bf16_rel=BF16_FWD_TOL)
         if dtype == torch.bfloat16:
-            check_rows(torch, "K3 " + name, out, fa.plain(q, k, v, round_p=True)[0], failures)
-        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
-        dq_p, delta_p = fa.plain_bwd_dq(q, k, v, out, lse, do)
+            check_rows(torch, "K3 " + name, out, fa.plain(q, k, v, round_p=True, **kw)[0],
+                       failures)
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
+        dq_p, delta_p = fa.plain_bwd_dq(q, k, v, out, lse, do, **kw)
         errs["flash_attention_bwd_dq"] = check_case(
             torch, "K4 " + name, (dq, delta), (dq_p, delta_p), failures,
             parts=(" [dq]", " [delta]"), rel=True, bf16_rel=BF16_BWD_TOL)
         del dq, dq_p
         errs["flash_attention_bwd_dkv"] = check_case(
-            torch, "K5 " + name, fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta),
-            fa.plain_bwd_dkv(q, k, v, do, lse, delta_p), failures,
+            torch, "K5 " + name, fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw),
+            fa.plain_bwd_dkv(q, k, v, do, lse, delta_p, **kw), failures,
             parts=(" [dk]", " [dv]"), rel=True, bf16_rel=BF16_BWD_TOL)
     torch.cuda.empty_cache()
     return failures
@@ -2374,11 +2425,21 @@ def serve_launches(cfg, calls: int) -> dict:
     return {"rmsnorm": per * calls, "flash_attention_fwd": n_sh}
 
 
-def attention_times(torch, F, cfg, B: int, S: int, errs: dict, label: str) -> dict:
+def live_pairs(S: int, window: int = 0) -> int:
+    """Live (q, k) pairs of one causal head of length S (inside the window)."""
+    if window <= 0 or S <= window:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def attention_times(torch, F, cfg, B: int, S: int, errs: dict, label: str,
+                    window: int = 0, softcap: float = 0.0) -> dict:
     """K3, K4 and K5 at q [B, S, Hq, hd], k/v [B, S, Hkv, hd] of ``cfg``, bf16,
-    causal: each kernel's ms, its bound and SDPA's ms (forward; backward dq,
-    dk and dv together), with ``errs``' max_abs_err from ``shape_checks``;
-    printed, one line a kernel."""
+    causal (with ``window`` and ``softcap`` where given): each kernel's ms, its
+    bound (the live pairs of the window) and SDPA's ms (forward; backward dq,
+    dk and dv together; causal, without softcap or window, which it does not
+    take), with ``errs``' max_abs_err from ``shape_checks``; printed, one
+    line a kernel."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(SEED)
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -2386,10 +2447,11 @@ def attention_times(torch, F, cfg, B: int, S: int, errs: dict, label: str) -> di
              for _ in range(2))
     k, v = (torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(torch.bfloat16)
             for _ in range(2))
-    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
-    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    kw = dict(window=window, softcap=softcap)
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
     es = q.element_size()
-    pairs = B * Hq * S * (S + 1) // 2
+    pairs = B * Hq * live_pairs(S, window)
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
     gqa = {"enable_gqa": True} if Hkv != Hq else {}
@@ -2406,25 +2468,27 @@ def attention_times(torch, F, cfg, B: int, S: int, errs: dict, label: str) -> di
     rows = {
         "flash_attention_fwd": dict(
             max_abs_err=errs["flash_attention_fwd"],
-            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v), 20),
+            ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw), 20),
             library_ms=sdpa_fwd,
             bound=bound(es * (2 * q.numel() + 2 * k.numel()) + io, 4 * D * pairs, "bfloat16")),
         "flash_attention_bwd_dq": dict(
             max_abs_err=errs["flash_attention_bwd_dq"],
-            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do), 20),
+            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
+                                                                     **kw), 20),
             library_ms=sdpa_bwd,
             bound=bound(es * (4 * q.numel() + 2 * k.numel()) + 2 * io, 6 * D * pairs,
                         "bfloat16")),
         "flash_attention_bwd_dkv": dict(
             max_abs_err=errs["flash_attention_bwd_dkv"],
-            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta),
-                       20),
+            ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
+                                                                      **kw), 20),
             library_ms=sdpa_bwd,
             bound=bound(es * (2 * q.numel() + 4 * k.numel()) + 2 * io, 8 * D * pairs,
                         "bfloat16"))}
     for name, r in rows.items():
         say(f"  time {name} at {label}, q [{B}, {S}, {Hq}, {D}] k/v [{B}, {S}, {Hkv}, {D}] "
-            f"bf16 causal: kernel_ms={r['ms']:.4f} bound_ms={r['bound'][0]:.4f} "
+            f"bf16 causal{f' window {window} softcap {softcap:g}' if window or softcap else ''}"
+            f": kernel_ms={r['ms']:.4f} bound_ms={r['bound'][0]:.4f} "
             f"({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.0f}%) library_ms (SDPA"
             f"{'' if name.endswith('fwd') else ' backward, dq dk dv together'})="
             f"{r['library_ms']:.4f} max_abs_err={r['max_abs_err']:.3e}")
@@ -2436,6 +2500,28 @@ def attention_times(torch, F, cfg, B: int, S: int, errs: dict, label: str) -> di
     return rows
 
 
+# K3-K5's kernel instances, and K5's partial sum, by device kernel name
+ATTENTION_KERNEL = r"flash_\w*kernel\w*<[^>]*>|dkv_sum_kernel"
+
+
+def instances(kernels) -> dict:
+    """Launches by attention kernel instance (``ATTENTION_KERNEL``) of
+    (device kernel name, launches) pairs."""
+    out = {}
+    for key, count in kernels:
+        hit = re.search(ATTENTION_KERNEL, key)
+        if hit:
+            out[hit.group(0)] = out.get(hit.group(0), 0) + count
+    return out
+
+
+def profiled_instances(prof) -> dict:
+    """``instances`` of a ``torch.profiler`` run's device kernels."""
+    from torch.autograd import DeviceType
+    return instances((e.key, e.count) for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA)
+
+
 def hd112_checks(torch, F, failures) -> dict:
     """K3-K5 at head dim 112 (Zamba2-7B's shared attention: the head-dim-128
     instances compiled with the true head dim as a template parameter)
@@ -2444,7 +2530,6 @@ def hd112_checks(torch, F, failures) -> dict:
     GQA at rep 4, and fp32 on the CUDA-core kernels; the bf16 cases must run
     the <128, 112> tensor-core instances.  At the training shape each
     kernel's time, bound and SDPA's time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
@@ -2461,11 +2546,7 @@ def hd112_checks(torch, F, failures) -> dict:
         for c, mb, S, dtype, e in cases:
             failures += shape_checks(torch, c, mb, S, "zamba2-7b", dtype=dtype, errs=e)
         torch.cuda.synchronize()
-    launched = {}
-    for e in prof.key_averages():
-        hit = re.search(r"flash_\w*kernel\w*<[^>]*>", e.key)
-        if e.device_type == DeviceType.CUDA and hit:
-            launched[hit.group(0)] = launched.get(hit.group(0), 0) + e.count
+    launched = profiled_instances(prof)
     say(f"  hd 112 launched as: {launched}")
     n_tc = sum(c for name, c in launched.items() if "_tc<128, 112>" in name)
     if n_tc != 3 * sum(dt == torch.bfloat16 for *_, dt, _ in cases):
@@ -2473,17 +2554,64 @@ def hd112_checks(torch, F, failures) -> dict:
     return attention_times(torch, F, cfg, 2, 2048, errs, "hd 112")
 
 
-def hd256_checks(torch, F, failures) -> dict:
-    """K3-K5 at head dim 256 (both gemma configs; bf16 runs them on the
-    CUDA cores) at gemma-2b's training micro-batch (2 x 2048, its GQA at
-    rep 8) against their plain versions with phase 2's training-shape
-    tolerances, then each kernel's time, bound and SDPA's time."""
+# head dim 256 in bf16: K3 and K5 on the tensor cores, K4 on the CUDA cores
+HD256_INSTANCES = {"flash_attention_fwd": "flash_fwd_kernel_tc<256, 256>",
+                   "flash_attention_bwd_dq": "flash_bwd_dq_kernel<__nv_bfloat16, 256, 256>",
+                   "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel_tc_split<256, "}
+K5_REPEATS = 5
+
+
+def hd256_checks(torch, F, failures, tensor_cores: bool = True) -> dict:
+    """K3-K5 at head dim 256 (both gemma configs) against their plain
+    versions with phase 2's training-shape tolerances, at gemma-2b's
+    training micro-batch (q [2, 2048, 8, 256], k/v [.., 1, 256]: MQA, rep 8)
+    and gemma2-9b's (q [1, 8192, 16, 256], k/v [.., 8, 256], softcap 50,
+    window 4096).  The bf16 launches must be ``HD256_INSTANCES``, and K5 must
+    give the same bits over ``K5_REPEATS`` calls at gemma-2b's shape, where
+    it splits each KV head's query heads over blocks (``tensor_cores`` false
+    skips both: kernels from before the tensor-core instances).  Then each
+    kernel's time, bound and SDPA's time at both shapes.  Returns
+    {"hd256": rows at gemma-2b's shape, "gemma2": rows at gemma2-9b's}."""
+    from torch.profiler import ProfilerActivity, profile
+
     from repro_torch import configs
-    say("K3-K5 at head dim 256 (gemma-2b's training shape; the CUDA-core kernels)")
-    cfg = configs.get_config("gemma-2b")
-    errs = {}
-    failures += shape_checks(torch, cfg, 2, 2048, "gemma-2b", errs=errs)
-    return attention_times(torch, F, cfg, 2, 2048, errs, "hd 256")
+    from repro_torch.kernels import flash_attention as fa
+    say("K3-K5 at head dim 256 (both gemma configs; bf16: K3 and K5 on the tensor cores, K4 on "
+        "the CUDA cores; phase 2's training-shape tolerances)")
+    g2b, g9b = configs.get_config("gemma-2b"), configs.get_config("gemma2-9b")
+    w, cap = g9b.sliding_window, g9b.attn_logit_softcap
+    errs, errs9 = {}, {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        failures += shape_checks(torch, g2b, 2, 2048, "gemma-2b", errs=errs)
+        failures += shape_checks(torch, g9b, 1, 8192, "gemma2-9b", errs=errs9, window=w,
+                                 softcap=cap)
+        torch.cuda.synchronize()
+    launched = profiled_instances(prof)
+    say(f"  hd 256 launched as: {launched}")
+    if tensor_cores:
+        for kernel, inst in HD256_INSTANCES.items():
+            n = sum(c for name, c in launched.items() if name.startswith(inst))
+            if n != 2:
+                failures.append(f"hd 256: {kernel} ran {n} of its 2 launches as {inst}")
+        g = torch.Generator(device="cuda").manual_seed(SEED)
+        q, do = (torch.randn(2, 2048, 8, 256, generator=g, device="cuda").bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn(2, 2048, 1, 256, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+        _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+        split = fa.dkv_split(2, 2048, 8, 1, 256, fa.DTYPES[torch.bfloat16])
+        runs = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+                for _ in range(K5_REPEATS)]
+        same = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+        say(f"  K5 at gemma-2b's shape, query heads split over {split} blocks a key tile: "
+            f"{K5_REPEATS} calls {'bit for bit equal' if same else 'DIFFER'}")
+        if split < 2 or not same:
+            failures.append(f"hd 256: K5 split {split}, repeated calls equal: {same}")
+        del q, do, k, v, out, lse, delta, runs
+    return {"hd256": attention_times(torch, F, g2b, 2, 2048, errs, "hd 256 (gemma-2b)"),
+            "gemma2": attention_times(torch, F, g9b, 1, 8192, errs9, "hd 256 (gemma2-9b)",
+                                      window=w, softcap=cap)}
 
 
 def recurrent_profile(torch, label: str, fn, n: int) -> None:
@@ -3722,6 +3850,102 @@ def phase_dryrun(torch, smi, phase5: dict) -> None:
         raise AssertionError("; ".join(problems))
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: the gemma family trained on the card
+# ---------------------------------------------------------------------------
+# launch.train at full width, bf16 compute over fp32 state, layered +
+# partitioned: gemma-2b at full depth, 8 x 2048 tokens in 4 micro-batches
+# (phase 5's batch); gemma2-9b cut to 6 layers (three local/global pairs;
+# full depth's fp32 state does not fit a card), 4 x 8192 tokens in 4
+# micro-batches of one sequence, so that its 4096 window cuts every local
+# layer and softcap 50 runs in every layer
+GEMMA_TRAIN = {"gemma-2b": dict(layers=0, batch=8, seq=2048, steps=5),
+               "gemma2-9b": dict(layers=6, batch=4, seq=8192, steps=3)}
+GEMMA_MB = 4
+
+
+def train_gemma(torch, smi, arch: str, tensor_cores: bool = True) -> dict:
+    """``launch.train`` of ``arch`` at ``GEMMA_TRAIN``'s cut: finite losses,
+    exact K1-K6 launches a step (``family_step_launches``); then one more
+    step on the run's state, profiled (``profile_step``: device ms by kernel
+    group, the idle share; the attention kernels' share), whose K3 and K5
+    launches must all be the tensor-core instances (``HD256_INSTANCES``; not
+    checked when ``tensor_cores`` is false).  Returns the run's launches."""
+    from repro_torch import configs
+    from repro_torch.core import stepfn
+    from repro_torch.core.accumulation import AccumConfig
+    from repro_torch.data.synthetic import DataConfig, batch_for
+    from repro_torch.launch import train
+    from repro_torch.optim.adam import AdamConfig
+
+    run = GEMMA_TRAIN[arch]
+    cfg = configs.get_config(arch)
+    cfg = dataclasses.replace(cfg, num_layers=run["layers"] or cfg.num_layers)
+    argv = ["--arch", arch, "--global-batch", str(run["batch"]), "--seq-len", str(run["seq"]),
+            "--microbatches", str(GEMMA_MB), "--steps", str(run["steps"]), "--lr", "3e-3",
+            "--seed", str(SEED)] + (["--layers", str(run["layers"])] if run["layers"] else [])
+    counters = train_counters()
+    say(f"  before training {arch}: {free_card(torch)}")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    res = train.main(argv, keep_state=True)
+    torch.cuda.synchronize()
+    counts = read_counts(counters)
+    per_step = family_step_launches(cfg, GEMMA_MB)
+    want = {k: v * run["steps"] for k, v in per_step.items()}
+    for r in res["records"]:
+        say(f"  step {r['step']}: {r['step_time_s']:.3f} s, {r['tokens_per_s']:.0f} tok/s, "
+            f"MFU {100 * r['mfu']:.2f}% (6ND over 989 TFLOP/s), loss {r['loss']:.4f}, grad norm "
+            f"{r['grad_norm']:.4f}, max memory allocated {r['peak_mem_gb']:.2f} GB")
+    steady = res["records"][1:]
+    t_step = sum(r["step_time_s"] for r in steady) / len(steady)
+    say(f"  {arch} training on {smi}: width {cfg.d_model}, {cfg.num_layers} layers, head dim "
+        f"{cfg.head_dim}, {cfg.param_count() / 1e9:.3f} B parameters, layered + partitioned, "
+        f"{run['batch']} x {run['seq']} tokens in {GEMMA_MB} micro-batches; steady mean "
+        f"{t_step:.3f} s, {sum(r['tokens_per_s'] for r in steady) / len(steady):.0f} tok/s, MFU "
+        f"{100 * sum(r['mfu'] for r in steady) / len(steady):.2f}%, max memory allocated "
+        f"{max(r['peak_mem_gb'] for r in res['records']):.2f} GB")
+    say(f"  launches over {run['steps']} steps {counts}; per step {per_step}")
+    problems = []
+    if not all(math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+               for r in res["records"]):
+        problems.append(f"{arch}: non-finite loss or grad norm")
+    if counts != want:
+        problems.append(f"{arch}: launch counts {counts} != {want}")
+    state = res.pop("state")
+    step = stepfn.build_train_step(cfg, AccumConfig("layered", True, GEMMA_MB),
+                                   AdamConfig(lr=3e-3, warmup_steps=1,
+                                              decay_steps=run["steps"]))
+    data = DataConfig(cfg.vocab_size, run["seq"], run["batch"], GEMMA_MB, seed=SEED)
+    prof = profile_step(torch, step, state["storage"], state["opt"],
+                        batch_for(cfg, data, run["steps"]), f"{arch} train step")
+    launched = instances((k, c) for k, (_, c) in prof.items())
+    attn = sum(ms for k, (ms, _) in prof.items() if re.search(ATTENTION_KERNEL, k))
+    say(f"  {arch} step: attention (K3-K5) {attn:.1f} device-ms, "
+        f"{100 * attn / sum(ms for ms, _ in prof.values()):.1f}% of device time; flash "
+        f"instances {launched}")
+    if tensor_cores:
+        for kernel, inst in HD256_INSTANCES.items():
+            n = sum(c for name, c in launched.items() if name.startswith(inst))
+            if n != per_step[kernel]:
+                problems.append(f"{arch}: {n} of a step's {per_step[kernel]} {kernel} "
+                                f"launches ran {inst}")
+    del state, step
+    say(f"  after {arch}: {free_card(torch)}")
+    if problems:
+        raise AssertionError("; ".join(problems))
+    return counts
+
+
+def phase_gemma(torch, smi, tensor_cores: bool = True) -> dict:
+    """Phase 17: ``train_gemma`` for each of ``GEMMA_TRAIN``; their launches."""
+    out = {}
+    for arch in GEMMA_TRAIN:
+        for k, v in train_gemma(torch, smi, arch, tensor_cores).items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
 KERNELS = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
                 "src/repro/kernels/rmsnorm.py:24"),
@@ -3766,12 +3990,14 @@ def main() -> int:
         torch.backends.cudnn.allow_tf32 = False
         _, build_s = _build.build()
         _build.library()
-        log = _build.build_log().splitlines()
-        spills = [ln.strip() for ln in log if "spill" in ln and " 0 bytes spill stores" not in ln]
+        report = ptxas_report(_build.build_log())
+        spills = {k: r for k, r in report.items() if r.get("spill_stores")}
         say(smi)
         say(f"[phase 1] card {torch.cuda.get_device_name(0)} ({smi}); tf32 off for matmul "
-            f"and cudnn; nvcc build {build_s:.1f} s, {sum('Compiling entry' in ln for ln in log)} "
-            f"kernel instances, spilling: {spills or 'none'}; {time.perf_counter() - t0:.1f} s")
+            f"and cudnn; nvcc build {build_s:.1f} s, {len(report)} kernel instances, "
+            f"spilling: {spills or 'none'}; head dim 256 instances: "
+            f"{ {k: r for k, r in report.items() if '256, 256' in k or '<256, ' in k} }; "
+            f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()
         rows = phase_kernels(torch, F)
@@ -3834,6 +4060,11 @@ def main() -> int:
         phase_dryrun(torch, smi, phase5)
         say(f"[phase 16] the dry run: phase 5's step reckoned and the 16 x 16 grid ok; "
             f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        gemma_counts = phase_gemma(torch, smi)
+        say(f"[phase 17] the gemma family trained on the card ok; "
+            f"{time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
@@ -3841,11 +4072,13 @@ def main() -> int:
     # launches: the serving run's, the training run's, phases 6's, 7's, 8's,
     # 9's (the plan-driven run's), 10's (the MoE serving and training runs),
     # 11's (the recurrent families' serving and training runs), 12's (the
-    # families' pipelines and the input modes' training runs) and 13's (the
-    # group serving calls) and 15's (the pod axis's training runs)
+    # families' pipelines and the input modes' training runs), 13's (the
+    # group serving calls), 15's (the pod axis's training runs) and 17's (the
+    # gemma training runs)
     counts = {name: sum(c.get(name, 0) for c in (
         serve_counts, train_counts, group_counts, pipe_counts, sup_counts, plan_counts,
-        moe_counts, recurrent_counts, family_counts, group_serve_counts, pod_counts))
+        moe_counts, recurrent_counts, family_counts, group_serve_counts, pod_counts,
+        gemma_counts))
         for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3856,7 +4089,7 @@ def main() -> int:
          **({"device_ms": rows[name]["device_ms"]} if "device_ms" in rows[name] else {}),
          **{f"{hd}_{key}": (rows[name][hd]["bound"][0] if key == "bound_ms"
                             else rows[name][hd][key])
-            for hd in ("hd112", "hd256") if hd in rows[name]
+            for hd in ("hd112", "hd256", "gemma2") if hd in rows[name]
             for key in ("ms", "bound_ms", "library_ms")}}
         for name, (src, rep) in KERNELS.items()]}
     say(f"[phase 14] total {time.perf_counter() - t_all:.1f} s")

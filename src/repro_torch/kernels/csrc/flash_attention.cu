@@ -11,10 +11,11 @@
 // flops per byte); below that, as at the serving path's S <= 512, the bytes
 // of q and out.  Two instances, chosen by dtype and head dim in the C entry:
 //
-// bf16 at head dim 64, 112 and 128 (the training path and serving prefill:
-// Yi-6B, hd 128; Zamba2-7B's shared attention, hd 112, in D = 128 tiles with
-// zero columns past 112: the instance flash_fwd_kernel_tc<128, 112>),
-// flash_fwd_kernel_tc, runs both products on the tensor cores
+// bf16 at head dim 64, 112, 128 and 256 (the training path and serving
+// prefill: Yi-6B, hd 128; Zamba2-7B's shared attention, hd 112, in D = 128
+// tiles with zero columns past 112: the instance flash_fwd_kernel_tc<128,
+// 112>; both gemma configs, hd 256), flash_fwd_kernel_tc, runs both products
+// on the tensor cores
 // (wgmma, bf16 operands, fp32 accumulators) over tiles of 64 rows kept bf16
 // in shared memory in wgmma's 128-byte-swizzled layout (wgmma.cuh):
 //   * a block owns the same 64 query rows of two q heads of one GQA group,
@@ -38,15 +39,20 @@
 //     O += P V, wgmma m64n{D}k16 with the V tile read MN-major (the
 //     transpose bit), so nothing is transposed in memory.  The row sum l
 //     keeps the unrounded fp32 p (as SDPA does);
+//   * at head dim 256, O is 128 fp32 registers a thread beside S's 32 and
+//     P's 16: a block of two warpgroups (256 threads) may give each thread
+//     255 registers, so each warpgroup still owns one head and its whole
+//     64 x 256 O, with no producer warp and no setmaxnreg.  Two Q tiles and
+//     the two-stage K/V ring take 192 KB of the 227 KB of shared memory, so
+//     one block runs on an SM and the ring's prefetch is what hides the
+//     copies;
 //   * the TPU kernel's causal/window loop bounds on 64-key tiles, the mask
 //     evaluated only on tiles that cross the diagonal, the window edge or
 //     kv_len; blocks are numbered heaviest first under causal (the last q
 //     tiles see the most keys).
 //
-// fp32 (TF32 would break the fp32 card-vs-CPU parity) and bf16 at head dim
-// 256 (a register-A m64n256 product beside 128 fp32 accumulators a thread
-// is out of reach of one warpgroup's registers) run flash_fwd_kernel on the
-// fp32 CUDA cores:
+// fp32 (TF32 would break the fp32 card-vs-CPU parity) runs flash_fwd_kernel
+// on the fp32 CUDA cores:
 //   * grid (q-block, q-head, batch); the q head maps to KV head h / rep, so
 //     GQA needs no repeated K/V;
 //   * q/k/v are read in the JAX layout [B, S, H, D] through their strides
@@ -247,7 +253,7 @@ int launch(const void* q, const void* k, const void* v, void* out, void* lse, in
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (head dim 64 and 128)
+// bf16 on the tensor cores (head dim 64, 112, 128 and 256)
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int TC_THREADS = 128;        // one warpgroup
@@ -524,8 +530,7 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, void* lse,
 
 // q/k/v strides are (batch, seq, head) in elements; the last dim is dense.
 // out is a dense [B, S, Hq, D] tensor of q's dtype, lse a dense fp32 [B, Hq, S].
-// bf16 at head dim 64, 112 and 128 runs on the tensor cores; fp32, and bf16
-// at head dim 256, on the CUDA cores.  Head dim 112 (Zamba2-7B's shared
+// bf16 runs on the tensor cores, fp32 on the CUDA cores.  Head dim 112 (Zamba2-7B's shared
 // attention) runs D = 128 instances compiled with the true head dim DT = 112:
 // the tiles' columns 112-127 are zeros, stores skip them, and the scale is
 // 112^-0.5; at DT = D every such test folds away at compile time, so the
@@ -556,7 +561,7 @@ extern "C" int rt_flash_attention_fwd(const void* q, const void* k, const void* 
     if (D == 64) return RT_FWD_TC(64, 64);
     if (D == 112) return RT_FWD_TC(128, 112);
     if (D == 128) return RT_FWD_TC(128, 128);
-    if (D == 256) return RT_FWD(__nv_bfloat16, 256, 256);
+    if (D == 256) return RT_FWD_TC(256, 256);
   }
 #undef RT_FWD
 #undef RT_FWD_TC

@@ -15,8 +15,8 @@
 // products of (live pairs) x D multiply-adds per head, against O(S * D)
 // bytes.  Two instances:
 //
-// bf16 at head dim 64 and 128 (the training path: Yi-6B, hd 128) runs every
-// product on the tensor cores, bf16 operands with fp32 accumulators, tiles
+// bf16 at head dim 64, 112 and 128 (the training path: Yi-6B, hd 128), and K5
+// at head dim 256, run every product on the tensor cores, bf16 operands with fp32 accumulators, tiles
 // of 64 rows kept bf16 in shared memory in wgmma's 128-byte-swizzled layout
 // (wgmma.cuh), one consumer warpgroup (128 threads) a block in K4 and two in
 // K5:
@@ -50,13 +50,19 @@
 //     a block (one block an SM: 163 KB of shared memory at hd 128) halve the
 //     longest walk, and the heaviest-first order fills the SMs that the
 //     light blocks free, with no second pass over partial sums.
+//   * K5 at head dim 256, flash_bwd_dkv_kernel_tc_split: dK + dV of 64 keys
+//     are 256 fp32 registers a thread in one warpgroup, so the two
+//     warpgroups split the head dim instead of the walk (128 each), and both
+//     form the products that contract over the whole head dim.  Under MQA a
+//     KV head has few key tiles (gemma-2b: 64 for 132 SMs), so its query
+//     heads are split over several blocks, which sum fp32 partials from a
+//     workspace in a fixed order (see the kernel);
 //   * p and ds enter their products rounded to bf16 (the plain version keeps
 //     them fp32), so the outputs agree to bf16 rounding of the sums' terms.
 //
-// fp32, and bf16 at head dim 256, keep the first version on the fp32 CUDA
-// cores, flash_bwd_dq_kernel / flash_bwd_dkv_kernel.  At hd 256 K5's dK + dV
-// accumulators (256 fp32 registers a thread at 64 keys) do not fit one
-// warpgroup, and K4's dQ (128) beside S and dP spilled:
+// fp32, and K4 in bf16 at head dim 256, keep the first version on the fp32
+// CUDA cores, flash_bwd_dq_kernel / flash_bwd_dkv_kernel (K4's dQ at hd 256,
+// 128 fp32 registers beside S and dP, spilled on the tensor cores):
 //   * K4: grid (q-block of 32 rows, q head, batch), the forward's k-tile
 //     loop bounds; Q and dO rows are staged once, K/V stream through shared
 //     memory in 32-key tiles.  A warp owns 8 query rows: a lane owns one key
@@ -78,10 +84,20 @@
 // 112^-0.5.  Nothing is padded in memory; at DT = D every such test folds away
 // at compile time, so the other head dims run exactly the code they ran
 // before.
+#include <algorithm>
+
 #include "common.cuh"
 #include "wgmma.cuh"
 
 using namespace rt;
+
+// K5 at head dim 256: S^T and dP^T formed by both warpgroups (0), or once
+// and exchanged through shared memory (1); see flash_bwd_dkv_kernel_tc_split.
+// tools/torch_dkv_ab.py builds both and times them in turns: on an H100 80GB
+// HBM3 at 700 W, 0 took 0.427 ms at gemma-2b's training shape and 1 0.459.
+#ifndef RT_DKV_XCHG
+#define RT_DKV_XCHG 0
+#endif
 
 namespace {
 
@@ -154,12 +170,14 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   stage_rows<T, D, DT>(Os, D, dO + b * dsB + h * dsH, dsS, q0, BQ, S, 1.f);
   __syncthreads();
 
-  // delta = rowsum(dO * O), lse, and the dead-row flag for the warp's rows
+  // delta = rowsum(dO * O) and lse for the warp's rows; a row whose forward
+  // saw no key takes lse = +inf, so that its p = exp(s - lse) is exactly 0
+  // with no flag held beside it (with 8 such flags a thread, the fp32
+  // head-dim-64 instance spilled 8 bytes)
   const int qw0 = q0 + warp * DQ_ROWS;
   const float* Qw = Qs + warp * DQ_ROWS * D;
   const float* Ow = Os + warp * DQ_ROWS * D;
   float delta[DQ_ROWS], lse_r[DQ_ROWS];
-  bool dead[DQ_ROWS];
 #pragma unroll
   for (int r = 0; r < DQ_ROWS; ++r) {
     const int qp = qw0 + r;  // warp-uniform
@@ -173,8 +191,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
     delta[r] = warp_sum(part);
     const float l = qp < S ? lse[((int64_t)b * Hq + h) * S + qp] : NEG_INF;
-    dead[r] = l <= 0.5f * NEG_INF;
-    lse_r[r] = dead[r] ? 0.f : l;
+    lse_r[r] = l <= 0.5f * NEG_INF ? INFINITY : l;
     if (qp < S && lane == 0) delta_out[((int64_t)b * Hq + h) * S + qp] = delta[r];
   }
 
@@ -229,7 +246,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
         tt = tanhf(sr / softcap);
         sr = softcap * tt;
       }
-      const bool live = qp < S && !dead[r] && live_pair(qp, kp, kv_len, causal, window);
+      const bool live = qp < S && live_pair(qp, kp, kv_len, causal, window);
       const float p = live ? expf(sr - lse_r[r]) : 0.f;
       float ds = p * (dp[r] - delta[r]);
       if (softcap > 0.f) ds *= 1.f - tt * tt;
@@ -416,7 +433,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (head dim 64 and 128)
+// bf16 on the tensor cores (head dim 64, 112 and 128)
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int TC_THREADS = 128;        // one warpgroup
@@ -770,6 +787,273 @@ flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     add_store<D, DT>(dv_acc, other, tid, dv + row0, (int64_t)8 * Hkv * DT, rows, 1.f);
 }
 
+// ---------------------------------------------------------------------------
+// K5 in bf16 at head dim 256 on the tensor cores
+// ---------------------------------------------------------------------------
+template <int D> struct DkvSplit {
+  static constexpr uint32_t TILE = TT * D * sizeof(bf16);
+  static constexpr uint32_t ROWS = 2 * 2 * TT * sizeof(float);   // two stages of lse, delta
+  // the exchange of XCHG: P^T and dS^T as bf16 64 x 64 A tiles, dP^T in fp32
+  static constexpr uint32_t XBYTES = 2 * TT * TT * sizeof(bf16) + TT * TT * sizeof(float);
+  // K, V, two stages of (Q, dO) shared by both warpgroups, their lse/delta
+  // rows; 1 KB to align
+  static constexpr size_t bytes(bool xchg) { return 6 * TILE + ROWS + (xchg ? XBYTES : 0) + 1024; }
+};
+
+// the query heads of a KV head that one block walks: rep / G of them, so
+// that a shape with few key tiles (gemma-2b's one KV head: 64 tiles for
+// 132 SMs) still fills the card; 1 where the key tiles alone give two
+// blocks an SM (gemma2-9b at S 8192: 1024)
+int dkv_split(int B, int S, int Hq, int Hkv) {
+  int dev = 0, sms = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int base = (S + TT - 1) / TT * Hkv * B, rep = Hq / Hkv;
+  for (int g = 1; g < rep; ++g)
+    if (rep % g == 0 && base * g >= 2 * sms) return g;
+  return rep;
+}
+
+// K5 at head dim 256.  Grid: one block per (key tile, KV head, batch, head
+// group g of G), numbered so that the key tiles with the most queries come
+// first under causal; the block walks the rep / G query heads of group g
+// and their q tiles inside the causal/window bounds.  Two consumer
+// warpgroups split the head dim: warpgroup w keeps dK and dV of columns
+// [128 w, 128 w + 128) in registers (64 + 64 fp32 a thread, where one
+// warpgroup holding all 256 columns would need 256).  S^T = K Q^T and
+// dP^T = V dO^T contract over the whole head dim, so they are either formed
+// by both warpgroups (XCHG false: six 64 x 64 x 256 products a step where
+// four are needed, and no exchange), or once (XCHG true: warpgroup 0 forms
+// S^T, warpgroup 1 dP^T, which it hands over in fp32 through shared memory;
+// warpgroup 0 forms p and ds and stores P^T and dS^T as bf16 A tiles that
+// both read from shared memory).  One two-stage cp.async ring of Q/dO tiles
+// feeds both.  With G = 1 each warpgroup stores its columns of dk and dv;
+// with G > 1 it stores them in fp32 to the block's slice of the workspace
+// [G, 2, B, S, Hkv, D], which dkv_sum_kernel adds in the order g = 0, 1,
+// ...: the GQA sum stays deterministic, with no atomics.
+template <int D, bool XCHG>
+__global__ void __launch_bounds__(2 * TC_THREADS, 1)
+flash_bwd_dkv_kernel_tc_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                              const bf16* __restrict__ v, const bf16* __restrict__ dO,
+                              const float* __restrict__ lse, const float* __restrict__ delta,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv,
+                              float* __restrict__ ws, int G, int B, int S, int Hq, int Hkv,
+                              int64_t qsB, int64_t qsS, int64_t qsH, int64_t ksB, int64_t ksS,
+                              int64_t ksH, int64_t vsB, int64_t vsS, int64_t vsH, int64_t dsB,
+                              int64_t dsS, int64_t dsH, int kv_len, int causal, int window,
+                              float softcap, float scale) {
+  constexpr uint32_t TILE = DkvSplit<D>::TILE;
+  constexpr int HALF = D / 2;                // dk/dv columns of a warpgroup
+  constexpr int NACC = HALF / 2;
+  extern __shared__ __align__(1024) uint8_t smem_tc[];
+  const uint32_t s0 = tc::smem_addr(smem_tc);
+  const uint32_t sK = (s0 + 1023u) & ~1023u, sV = sK + TILE, sQO = sK + 2 * TILE;
+  const uint32_t sRows = sK + 6 * TILE;
+  const float* rows_s = reinterpret_cast<const float*>(smem_tc + (sRows - s0));
+  const uint32_t sP = sRows + DkvSplit<D>::ROWS, sDS = sP + TT * TT * sizeof(bf16);
+  float* xdp = reinterpret_cast<float*>(smem_tc + (sDS + TT * TT * sizeof(bf16) - s0));
+
+  const int id = blockIdx.x, per_tile = G * Hkv * B;
+  const int k0 = id / per_tile * TT;
+  const int g = id % per_tile % G, hk = id % per_tile / G % Hkv, b = id % per_tile / G / Hkv;
+  const int rep = Hq / Hkv, rg = rep / G;
+  const int wg = threadIdx.x / TC_THREADS, tid = threadIdx.x % TC_THREADS;
+  const int warp = tid >> 5, lane = tid & 31;
+
+  const int nq = (S + TT - 1) / TT;
+  const int k_last = min(k0 + TT, S) - 1;
+  const int qlo = causal ? k0 / TT : 0;
+  const int qhi = window > 0 ? min(nq, (k_last + window - 1) / TT + 1) : nq;
+  const int nqt = max(qhi - qlo, 0);
+  const int n = k0 < kv_len ? rg * nqt : 0;
+
+  // step i: head g * rg + i / nqt of the group, q tile qlo + i % nqt, into
+  // ring stage `st`, by all 256 threads
+  auto issue = [&](int i, int st) {
+    const int h = hk * rep + g * rg + i / nqt, q0 = (qlo + i % nqt) * TT;
+    const uint32_t sQ = sQO + st * 2 * TILE;
+    tc::load_tile<D, 2 * TC_THREADS>(sQ, q + b * qsB + h * qsH, qsS, q0, S, threadIdx.x);
+    tc::load_tile<D, 2 * TC_THREADS>(sQ + TILE, dO + b * dsB + h * dsH, dsS, q0, S,
+                                     threadIdx.x);
+    if (threadIdx.x < 2 * TT) {
+      const int r = threadIdx.x & (TT - 1);
+      const bool in = q0 + r < S;
+      const float* src = (threadIdx.x < TT ? lse : delta) + ((int64_t)b * Hq + h) * S +
+                         (in ? q0 + r : 0);
+      tc::cp_async4(sRows + (st * 2 * TT + threadIdx.x) * sizeof(float), src, in ? 4 : 0);
+    }
+  };
+
+  tc::load_tile<D, 2 * TC_THREADS>(sK, k + b * ksB + hk * ksH, ksS, k0, S, threadIdx.x);
+  tc::load_tile<D, 2 * TC_THREADS>(sV, v + b * vsB + hk * vsH, vsS, k0, S, threadIdx.x);
+  tc::cp_async_commit();
+  if (n > 0) issue(0, 0);
+  tc::cp_async_commit();
+
+  // this thread's accumulator rows: keys k0 + r0 and k0 + r0 + 8; its
+  // columns 8 j + c2, c2 + 1 of its warpgroup's half
+  const int r0 = warp * 16 + (lane >> 2), c2 = 2 * (lane & 3);
+  const uint32_t half = wg * (HALF / 64) * tc::CHUNK_BYTES;   // the half's first chunk
+  float dk_acc[NACC], dv_acc[NACC];
+#pragma unroll
+  for (int i = 0; i < NACC; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+  for (int i = 0; i < n; ++i) {
+    const int st = i & 1;
+    if (i + 1 < n) issue(i + 1, st ^ 1);
+    tc::cp_async_commit();
+    tc::cp_async_wait<1>();                 // this step's tiles (and K, V) have landed
+    tc::fence_proxy_async();
+    __syncthreads();
+
+    const int q0 = (qlo + i % nqt) * TT;
+    const uint32_t sQ = sQO + st * 2 * TILE, sO = sQ + TILE;
+    const float* Ls = rows_s + st * 2 * TT;
+    const float* Es = Ls + TT;
+    auto live_at = [&](int x, int& col) {
+      const int jj = x >> 2, e = x & 3;
+      col = 8 * jj + c2 + (e & 1);
+      const int kp = k0 + r0 + 8 * (e >> 1), qp = q0 + col;
+      return qp < S && Ls[col] > 0.5f * NEG_INF && live_pair(qp, kp, kv_len, causal, window);
+    };
+
+    if constexpr (!XCHG) {
+      float s[32], dp[32];                  // S^T and dP^T: keys x q rows
+      tc::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        tc::wgmma_ss_n64(s, tc::desc_k(sK, ks), tc::desc_k(sQ, ks), ks);
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        tc::wgmma_ss_n64(dp, tc::desc_k(sV, ks), tc::desc_k(sO, ks), ks);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(s);
+      tc::fence_regs(dp);
+#pragma unroll
+      for (int x = 0; x < 32; ++x) {
+        int col;
+        const bool live = live_at(x, col);
+        p_ds(s[x], dp[x], live ? Ls[col] * tc::LOG2E : 0.f, Es[col], live, scale, softcap, s[x],
+             dp[x]);
+      }
+      uint32_t ap[4][4], ad[4][4];
+      tc::to_a(s, ap);
+      tc::to_a(dp, ad);
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::RS<HALF>::mma(dv_acc, ap[kk], tc::desc_mn(sO + half, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::RS<HALF>::mma(dk_acc, ad[kk], tc::desc_mn(sQ + half, kk), 1);
+    } else {
+      float s[32];                          // warpgroup 0: S^T; 1: dP^T
+      const uint32_t sA = wg ? sV : sK, sB = wg ? sO : sQ;
+      tc::wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < D / 16; ++ks)
+        tc::wgmma_ss_n64(s, tc::desc_k(sA, ks), tc::desc_k(sB, ks), ks);
+      tc::wgmma_commit();
+      tc::wgmma_wait<0>();
+      tc::fence_regs(s);
+      if (wg) {
+#pragma unroll
+        for (int x = 0; x < 32; ++x) xdp[x * TC_THREADS + tid] = s[x];
+      }
+      __syncthreads();                      // dP^T is in shared memory
+      if (!wg) {
+#pragma unroll
+        for (int jj = 0; jj < 8; ++jj)
+#pragma unroll
+          for (int eh = 0; eh < 2; ++eh) {  // rows r0 (eh 0) and r0 + 8
+            float p[2], ds[2];
+#pragma unroll
+            for (int e1 = 0; e1 < 2; ++e1) {
+              const int x = 4 * jj + 2 * eh + e1;
+              int col;
+              const bool live = live_at(x, col);
+              p_ds(s[x], xdp[x * TC_THREADS + tid], live ? Ls[col] * tc::LOG2E : 0.f, Es[col],
+                   live, scale, softcap, p[e1], ds[e1]);
+            }
+            const int row = r0 + 8 * eh;
+            const uint32_t off = row * 128 + ((jj ^ (row & 7)) << 4) + c2 * sizeof(bf16);
+            *reinterpret_cast<uint32_t*>(smem_tc + (sP + off - s0)) = tc::pack_bf16(p[0], p[1]);
+            *reinterpret_cast<uint32_t*>(smem_tc + (sDS + off - s0)) =
+                tc::pack_bf16(ds[0], ds[1]);
+          }
+      }
+      tc::fence_proxy_async();              // the A tiles, for wgmma's reads
+      __syncthreads();
+      tc::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_ss_n128_tb(dv_acc, tc::desc_k(sP, kk), tc::desc_mn(sO + half, kk), 1);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        tc::wgmma_ss_n128_tb(dk_acc, tc::desc_k(sDS, kk), tc::desc_mn(sQ + half, kk), 1);
+    }
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(dv_acc);
+    tc::fence_regs(dk_acc);
+    __syncthreads();                        // the stage is free for step i + 2
+  }
+  tc::cp_async_wait<0>();
+
+  // rows r0 and r0 + 8 are keys if `rows` > 0 and > 8
+  const int rows = S - k0 - r0;
+  const int64_t row0 = (((int64_t)b * S + k0 + r0) * Hkv + hk) * D + wg * HALF + c2;
+  const int64_t row_step = (int64_t)8 * Hkv * D;
+  if (G == 1) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (rows <= 8 * e) continue;
+#pragma unroll
+      for (int j = 0; j < HALF / 8; ++j) {
+        const int x = 4 * j + 2 * e;
+        *reinterpret_cast<uint32_t*>(dk + row0 + e * row_step + 8 * j) =
+            tc::pack_bf16(dk_acc[x] * scale, dk_acc[x + 1] * scale);
+        *reinterpret_cast<uint32_t*>(dv + row0 + e * row_step + 8 * j) =
+            tc::pack_bf16(dv_acc[x], dv_acc[x + 1]);
+      }
+    }
+  } else {
+    const int64_t n_out = (int64_t)B * S * Hkv * D;
+    float* wk = ws + 2 * g * n_out + row0;
+    float* wv = wk + n_out;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (rows <= 8 * e) continue;
+#pragma unroll
+      for (int j = 0; j < HALF / 8; ++j) {
+        const int x = 4 * j + 2 * e;
+        *reinterpret_cast<float2*>(wk + e * row_step + 8 * j) = make_float2(dk_acc[x], dk_acc[x + 1]);
+        *reinterpret_cast<float2*>(wv + e * row_step + 8 * j) = make_float2(dv_acc[x], dv_acc[x + 1]);
+      }
+    }
+  }
+}
+
+// dk = scale * sum_g ws[g, 0], dv = sum_g ws[g, 1], g = 0, 1, .. in order;
+// n (a multiple of 4) elements each
+__global__ void dkv_sum_kernel(const float* __restrict__ ws, bf16* __restrict__ dk,
+                               bf16* __restrict__ dv, int G, int64_t n, float scale) {
+  for (int64_t i = 4 * ((int64_t)blockIdx.x * blockDim.x + threadIdx.x); i < n;
+       i += 4 * (int64_t)gridDim.x * blockDim.x) {
+    float a[4] = {0.f, 0.f, 0.f, 0.f}, c[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int g = 0; g < G; ++g) {
+      const float4 x = *reinterpret_cast<const float4*>(ws + 2 * g * n + i);
+      const float4 y = *reinterpret_cast<const float4*>(ws + (2 * g + 1) * n + i);
+      a[0] += x.x; a[1] += x.y; a[2] += x.z; a[3] += x.w;
+      c[0] += y.x; c[1] += y.y; c[2] += y.z; c[3] += y.w;
+    }
+    *reinterpret_cast<uint2*>(dk + i) =
+        make_uint2(tc::pack_bf16(a[0] * scale, a[1] * scale), tc::pack_bf16(a[2] * scale, a[3] * scale));
+    *reinterpret_cast<uint2*>(dv + i) = make_uint2(tc::pack_bf16(c[0], c[1]), tc::pack_bf16(c[2], c[3]));
+  }
+}
+
 struct Strides {
   const long long *q, *k, *v, *o, *dO;
 };
@@ -858,6 +1142,37 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dO,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int D, bool XCHG>
+int launch_dkv_split(const void* q, const void* k, const void* v, const void* dO,
+                     const void* lse, const void* delta, void* dk, void* dv, void* ws, int B,
+                     int S, int Hq, int Hkv, Strides st_, int kv_len, int causal, int window,
+                     float softcap, cudaStream_t st) {
+  auto kern = flash_bwd_dkv_kernel_tc_split<D, XCHG>;
+  const size_t smem = DkvSplit<D>::bytes(XCHG);
+  const int G = dkv_split(B, S, Hq, Hkv);
+  if (G > 1 && ws == nullptr) return kBadArgs;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const int blocks = (S + TT - 1) / TT * Hkv * B * G;
+  kern<<<blocks, 2 * TC_THREADS, smem, st>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+      static_cast<const bf16*>(dO), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+      static_cast<float*>(ws), G, B, S, Hq, Hkv, st_.q[0], st_.q[1], st_.q[2], st_.k[0],
+      st_.k[1], st_.k[2], st_.v[0], st_.v[1], st_.v[2], st_.dO[0], st_.dO[1], st_.dO[2], kv_len,
+      causal, window, softcap, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || G == 1) return static_cast<int>(err);
+  const int64_t n = (int64_t)B * S * Hkv * D;
+  const int sum_blocks = static_cast<int>(std::min<int64_t>((n / 4 + 255) / 256, 1056));
+  dkv_sum_kernel<<<sum_blocks, 256, 0, st>>>(static_cast<const float*>(ws),
+                                            static_cast<bf16*>(dk), static_cast<bf16*>(dv), G,
+                                            n, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool bad_args(int B, int S, int Hq, int Hkv, int kv_len) {
   return B <= 0 || S <= 0 || Hkv <= 0 || Hq % Hkv != 0 || kv_len <= 0 || kv_len > S;
 }
@@ -898,11 +1213,22 @@ extern "C" int rt_flash_attention_bwd_dq(
   return kBadArgs;
 }
 
+// How many blocks share each key tile's query heads in K5 (the G of
+// flash_bwd_dkv_kernel_tc_split): 1 for every instance but bf16 at head dim
+// 256.  Above 1 the caller passes K5 an fp32 workspace of 2 G B S Hkv D
+// elements.
+extern "C" int rt_flash_attention_bwd_dkv_split(int B, int S, int Hq, int Hkv, int D,
+                                                int dtype) {
+  if (bad_args(B, S, Hq, Hkv, S)) return kBadArgs;
+  return dtype == kBFloat16 && D == 256 ? dkv_split(B, S, Hq, Hkv) : 1;
+}
+
 // as above; dk and dv are dense [B, S, Hkv, D] tensors of k's dtype, and
-// delta is K4's output.
+// delta is K4's output; ws is the workspace that
+// rt_flash_attention_bwd_dkv_split asks for (null when it says 1).
 extern "C" int rt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dO, const void* lse,
-    const void* delta, void* dk, void* dv, int B, int S, int Hq, int Hkv, int D,
+    const void* delta, void* dk, void* dv, void* ws, int B, int S, int Hq, int Hkv, int D,
     const long long* q_strides, const long long* k_strides, const long long* v_strides,
     const long long* do_strides, int kv_len, int causal, int window, float softcap,
     int dtype, void* stream) {
@@ -924,7 +1250,9 @@ extern "C" int rt_flash_attention_bwd_dkv(
     if (D == 64) return RT_DKV_TC(64, 64);
     if (D == 112) return RT_DKV_TC(128, 112);
     if (D == 128) return RT_DKV_TC(128, 128);
-    if (D == 256) return RT_DKV(__nv_bfloat16, 256, 256);
+    if (D == 256)
+      return launch_dkv_split<256, RT_DKV_XCHG>(q, k, v, dO, lse, delta, dk, dv, ws, B, S, Hq,
+                                                Hkv, s, kv_len, causal, window, softcap, st);
   }
 #undef RT_DKV
 #undef RT_DKV_TC

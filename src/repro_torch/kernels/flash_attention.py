@@ -6,15 +6,18 @@ Kernel sources: ``csrc/flash_attention.cu`` (K3, forward) and
 kernels ``repro/kernels/flash_attention.py:_attn_fwd_kernel``,
 ``:_attn_bwd_dq_kernel`` and ``:_attn_bwd_dkv_kernel``.  The kernels stream
 K/V (or Q) tiles and mask the ragged edges themselves, so they take any S (no
-padding, and no plain fallback for long sequences).  All three in bf16 at head
-dim 64, 112 and 128 (training and serving prefill) run on the tensor cores
-(wgmma); fp32, and bf16 at head dim 256, run on the fp32 CUDA cores.  Head dim
-112 (Zamba2-7B's shared attention) runs head-dim-128 tiles in instances
-compiled for 112 (zero columns in the tiles, no padded copy).
+padding, and no plain fallback for long sequences).  In bf16 (training and
+serving prefill) K3 and K5 run on the tensor cores (wgmma) at every head dim,
+K4 at head dim 64, 112 and 128; K4 at head dim 256, and fp32, run on the fp32
+CUDA cores.  Head dim 112 (Zamba2-7B's shared attention) runs head-dim-128
+tiles in instances compiled for 112 (zero columns in the tiles, no padded
+copy).  K5 at head dim 256 may split a KV head's query heads over several
+blocks (``dkv_split``); its wrapper then gives it an fp32 workspace.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -106,6 +109,17 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
     return dq, delta
 
 
+@functools.cache
+def dkv_split(B: int, S: int, Hq: int, Hkv: int, D: int, dtype: int) -> int:
+    """K5's split of each KV head's query heads over blocks, as its C entry
+    chooses it from the shape (1 but for bf16 at head dim 256); above 1 the
+    kernel sums fp32 partials from a workspace in a fixed order."""
+    split = _build.library().rt_flash_attention_bwd_dkv_split(B, S, Hq, Hkv, D, dtype)
+    if split < 1:
+        _build.check(split, "rt_flash_attention_bwd_dkv_split")
+    return split
+
+
 def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True,
                                  window: int = 0, softcap: float = 0.0, kv_len: int = 0):
     """K5.  The forward's inputs, dO, lse and K4's delta on the card -> (dk
@@ -118,9 +132,13 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True
     strides = [_strides(t, name) for t in (q, k, v, do)]
     dk = torch.empty((B, S, Hkv, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, Hkv, D), dtype=v.dtype, device=q.device)
+    split = dkv_split(B, S, Hq, Hkv, D, DTYPES[q.dtype])
+    ws = (torch.empty((split, 2, B, S, Hkv, D), dtype=torch.float32, device=q.device)
+          if split > 1 else None)
     status = _build.library().rt_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), B, S, Hq, Hkv, D, *strides,
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(),
+        B, S, Hq, Hkv, D, *strides,
         kv_len, int(causal), int(window), float(softcap), DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "rt_flash_attention_bwd_dkv")

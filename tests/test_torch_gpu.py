@@ -343,6 +343,79 @@ def test_flash_bwd_kernels_are_deterministic(cuda, shape, window, cap):
         assert torch.equal(a, b), name
 
 
+# head dim 256 in bf16: gemma-2b's training micro-batch (MQA, rep 8) and
+# gemma2-9b's (rep 2, softcap 50, a 4096 window that cuts)
+HD256 = [pytest.param((2, 2048, 8, 1), 0, 0.0, id="gemma-2b"),
+         pytest.param((1, 8192, 16, 8), 4096, 50.0, id="gemma2-9b")]
+
+
+def _instances(prof) -> dict:
+    """Launches by flash kernel instance in a ``torch.profiler`` run."""
+    import re
+    out = {}
+    for e in prof.key_averages():
+        hit = re.search(r"flash_\w*kernel\w*<[^>]*>", e.key)
+        if hit and e.device_type == torch.autograd.DeviceType.CUDA:
+            out[hit.group(0)] = out.get(hit.group(0), 0) + e.count
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,window,cap", HD256)
+def test_hd256_tensor_core_kernels_match_plain(cuda, shape, window, cap):
+    """bf16 K3 and K5 at head dim 256 run their tensor-core instances
+    (``flash_fwd_kernel_tc<256, 256>``, ``flash_bwd_dkv_kernel_tc_split<256,
+    ..>``; K4 its CUDA-core one) and agree with the plain versions within
+    the JAX package's bf16 tolerance (2e-2) of each output's scale; lse and
+    delta within 1e-4."""
+    from torch.profiler import ProfilerActivity, profile
+
+    B, S, Hq, Hkv = shape
+    D = 256
+    g = torch.Generator(device=cuda).manual_seed(S + Hq)
+    q, do = (torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    kw = dict(window=window, softcap=cap)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+        dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
+        dk, dv = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+    launched = _instances(prof)
+    assert launched == {"flash_fwd_kernel_tc<256, 256>": 1,
+                        "flash_bwd_dq_kernel<__nv_bfloat16, 256, 256>": 1,
+                        "flash_bwd_dkv_kernel_tc_split<256, false>": 1}, launched
+    out_p, lse_p = flash_attention_fwd_ref(q, k, v, **kw)
+    dq_p, delta_p = flash_attention_bwd_dq_ref(q, k, v, out, lse, do, **kw)
+    dk_p, dv_p = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta_p, **kw)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
+    torch.testing.assert_close(delta, delta_p, rtol=1e-4, atol=1e-4)
+    for name, got, want in (("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p),
+                            ("dv", dv, dv_p)):
+        tol = 2e-2 * max(1.0, want.float().abs().max().item())
+        err = (got.float() - want.float()).abs().max().item()
+        assert got.dtype == torch.bfloat16 and err <= tol, (name, err, tol)
+
+
+@pytest.mark.gpu
+def test_hd256_dkv_is_deterministic_with_the_head_split(cuda):
+    """bf16 K5 at gemma-2b's shape splits each KV head's 8 query heads over
+    several blocks and sums their fp32 partials in a fixed order: five calls
+    give the same bits."""
+    B, S, Hq, Hkv, D = 2, 2048, 8, 1, 256
+    assert fa.dkv_split(B, S, Hq, Hkv, D, fa.DTYPES[torch.bfloat16]) > 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, do = (torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    runs = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta) for _ in range(5)]
+    torch.cuda.synchronize()
+    for r in runs[1:]:
+        assert torch.equal(r[0], runs[0][0]) and torch.equal(r[1], runs[0][1])
+
+
 @pytest.mark.gpu
 def test_bf16_grads_through_flash_match_plain_at_training_shape(cuda):
     """ops.flash_attention in bf16 at the training path's micro-batch: the
