@@ -7,7 +7,8 @@ Phases, each printing its own lines and its seconds; any failure exits
 nonzero and prints no result:
 
   1. the card (name and power limit from nvidia-smi) and the nvcc build of
-     every kernel from the sources in the checkout;
+     every kernel from the sources in the checkout, naming each instance
+     that spills and the head-dim-256 instances' registers;
   2. each CUDA kernel against its plain PyTorch version on the card: the
      shapes the Yi-6B serving and training paths give it in bf16 and fp32,
      plus window, softcap, MQA, ragged-length, head-dim 64/256, idle-row and
@@ -447,11 +448,10 @@ def phase_kernels(torch, F):
         bound=bound(2 * x.numel() * es + 4 * x.shape[1], 4 * x.numel(), "bfloat16"))
 
     # -- K3 flash forward: prefill bucket B=8, S=512, 32 q heads, 4 KV heads, hd 128
-    say(f"K3 flash_attention_fwd (out and lse; lse tol 1e-4; out: fp32 tol 1e-4; bf16 at hd "
-        f"64/128 (tensor cores) {BF16_FWD_TOL:g} of the output scale (at least 1), and every "
-        f"row within {K3_ROW_ULPS} bf16 ulps of its scale of the plain version with p rounded "
-        "to bf16 before P*V, as the kernel rounds it; bf16 at hd 256 too)")
-    from torch.autograd import DeviceType
+    say(f"K3 flash_attention_fwd (out and lse; lse tol 1e-4; out: fp32 tol 1e-4; bf16 (tensor "
+        f"cores) {BF16_FWD_TOL:g} of the output scale (at least 1), and every row within "
+        f"{K3_ROW_ULPS} bf16 ulps of its scale of the plain version with p rounded to bf16 "
+        "before P*V, as the kernel rounds it)")
     from torch.profiler import ProfilerActivity, profile
     main, n_tc = None, 0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -479,11 +479,7 @@ def phase_kernels(torch, F):
                            failures)
             main = main or (q, k, v, err)
         torch.cuda.synchronize()
-    launched = {}
-    for e in prof.key_averages():
-        hit = re.search(r"flash_fwd_kernel\w*<[^>]*>", e.key)
-        if e.device_type == DeviceType.CUDA and hit:
-            launched[hit.group(0)] = launched.get(hit.group(0), 0) + e.count
+    launched = profiled_instances(prof)
     say(f"  launched as: {launched}")
     if sum(c for name, c in launched.items() if "flash_fwd_kernel_tc" in name) != n_tc:
         failures.append(f"K3: {n_tc} bf16 cases did not all run flash_fwd_kernel_tc")
@@ -2557,7 +2553,7 @@ def hd112_checks(torch, F, failures) -> dict:
 # head dim 256 in bf16: K3 and K5 on the tensor cores, K4 on the CUDA cores
 HD256_INSTANCES = {"flash_attention_fwd": "flash_fwd_kernel_tc<256, 256>",
                    "flash_attention_bwd_dq": "flash_bwd_dq_kernel<__nv_bfloat16, 256, 256>",
-                   "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel_tc_split<256, "}
+                   "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel_tc_split<256>"}
 K5_REPEATS = 5
 
 
@@ -3996,7 +3992,7 @@ def main() -> int:
         say(f"[phase 1] card {torch.cuda.get_device_name(0)} ({smi}); tf32 off for matmul "
             f"and cudnn; nvcc build {build_s:.1f} s, {len(report)} kernel instances, "
             f"spilling: {spills or 'none'}; head dim 256 instances: "
-            f"{ {k: r for k, r in report.items() if '256, 256' in k or '<256, ' in k} }; "
+            f"{ {k: r for k, r in report.items() if k.startswith('flash_') and '256' in k} }; "
             f"{time.perf_counter() - t0:.1f} s")
 
         t0 = time.perf_counter()

@@ -530,12 +530,12 @@ int launch_tc(const void* q, const void* k, const void* v, void* out, void* lse,
 
 // q/k/v strides are (batch, seq, head) in elements; the last dim is dense.
 // out is a dense [B, S, Hq, D] tensor of q's dtype, lse a dense fp32 [B, Hq, S].
-// bf16 runs on the tensor cores, fp32 on the CUDA cores.  Head dim 112 (Zamba2-7B's shared
-// attention) runs D = 128 instances compiled with the true head dim DT = 112:
-// the tiles' columns 112-127 are zeros, stores skip them, and the scale is
-// 112^-0.5; at DT = D every such test folds away at compile time, so the
-// other head dims run exactly the code they ran before.  Any other dtype or
-// head dim is refused.
+// bf16 runs on the tensor cores, fp32 on the CUDA cores.  Head dim 112
+// (Zamba2-7B's shared attention) runs D = 128 instances compiled with the
+// true head dim DT = 112: the tiles' columns 112-127 are zeros, stores skip
+// them, and the scale is 112^-0.5; at DT = D every such test folds away at
+// compile time, so the other head dims run exactly the code they ran before.
+// Any other dtype or head dim is refused.
 extern "C" int rt_flash_attention_fwd(const void* q, const void* k, const void* v,
                                       void* out, void* lse, int B, int S, int Hq,
                                       int Hkv, int D, const long long* q_strides,

@@ -16,10 +16,10 @@
 // bytes.  Two instances:
 //
 // bf16 at head dim 64, 112 and 128 (the training path: Yi-6B, hd 128), and K5
-// at head dim 256, run every product on the tensor cores, bf16 operands with fp32 accumulators, tiles
-// of 64 rows kept bf16 in shared memory in wgmma's 128-byte-swizzled layout
-// (wgmma.cuh), one consumer warpgroup (128 threads) a block in K4 and two in
-// K5:
+// at head dim 256, run every product on the tensor cores, bf16 operands with
+// fp32 accumulators, tiles of 64 rows kept bf16 in shared memory in wgmma's
+// 128-byte-swizzled layout (wgmma.cuh), one consumer warpgroup (128 threads)
+// a block in K4 and two in K5:
 //   * K4, flash_bwd_dq_kernel_tc: a block owns 64 query rows of one q head;
 //     its Q and dO tiles are loaded once.  K/V tiles of 64 keys stream
 //     through a two-stage cp.async ring (the next tile's copy is in flight
@@ -90,14 +90,6 @@
 #include "wgmma.cuh"
 
 using namespace rt;
-
-// K5 at head dim 256: S^T and dP^T formed by both warpgroups (0), or once
-// and exchanged through shared memory (1); see flash_bwd_dkv_kernel_tc_split.
-// tools/torch_dkv_ab.py builds both and times them in turns: on an H100 80GB
-// HBM3 at 700 W, 0 took 0.427 ms at gemma-2b's training shape and 1 0.459.
-#ifndef RT_DKV_XCHG
-#define RT_DKV_XCHG 0
-#endif
 
 namespace {
 
@@ -792,12 +784,9 @@ flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // ---------------------------------------------------------------------------
 template <int D> struct DkvSplit {
   static constexpr uint32_t TILE = TT * D * sizeof(bf16);
-  static constexpr uint32_t ROWS = 2 * 2 * TT * sizeof(float);   // two stages of lse, delta
-  // the exchange of XCHG: P^T and dS^T as bf16 64 x 64 A tiles, dP^T in fp32
-  static constexpr uint32_t XBYTES = 2 * TT * TT * sizeof(bf16) + TT * TT * sizeof(float);
-  // K, V, two stages of (Q, dO) shared by both warpgroups, their lse/delta
-  // rows; 1 KB to align
-  static constexpr size_t bytes(bool xchg) { return 6 * TILE + ROWS + (xchg ? XBYTES : 0) + 1024; }
+  // K, V, two stages of (Q, dO) shared by both warpgroups and of their
+  // lse/delta rows; 1 KB to align
+  static constexpr size_t bytes = 6 * TILE + 2 * 2 * TT * sizeof(float) + 1024;
 };
 
 // the query heads of a KV head that one block walks: rep / G of them, so
@@ -821,17 +810,17 @@ int dkv_split(int B, int S, int Hq, int Hkv) {
 // warpgroups split the head dim: warpgroup w keeps dK and dV of columns
 // [128 w, 128 w + 128) in registers (64 + 64 fp32 a thread, where one
 // warpgroup holding all 256 columns would need 256).  S^T = K Q^T and
-// dP^T = V dO^T contract over the whole head dim, so they are either formed
-// by both warpgroups (XCHG false: six 64 x 64 x 256 products a step where
-// four are needed, and no exchange), or once (XCHG true: warpgroup 0 forms
-// S^T, warpgroup 1 dP^T, which it hands over in fp32 through shared memory;
-// warpgroup 0 forms p and ds and stores P^T and dS^T as bf16 A tiles that
-// both read from shared memory).  One two-stage cp.async ring of Q/dO tiles
-// feeds both.  With G = 1 each warpgroup stores its columns of dk and dv;
+// dP^T = V dO^T contract over the whole head dim, so both warpgroups form
+// both: six 64 x 64 x 256 products a step where four are needed.  Forming
+// each once (warpgroup 0 S^T, warpgroup 1 dP^T, handed over in fp32 through
+// shared memory, P^T and dS^T stored back as bf16 A tiles) was measured 7%
+// slower on the H100 at both gemma shapes (PERF.md): the products are not
+// what bounds a step.  One two-stage cp.async ring of Q/dO tiles feeds
+// both.  With G = 1 each warpgroup stores its columns of dk and dv;
 // with G > 1 it stores them in fp32 to the block's slice of the workspace
 // [G, 2, B, S, Hkv, D], which dkv_sum_kernel adds in the order g = 0, 1,
 // ...: the GQA sum stays deterministic, with no atomics.
-template <int D, bool XCHG>
+template <int D>
 __global__ void __launch_bounds__(2 * TC_THREADS, 1)
 flash_bwd_dkv_kernel_tc_split(const bf16* __restrict__ q, const bf16* __restrict__ k,
                               const bf16* __restrict__ v, const bf16* __restrict__ dO,
@@ -850,8 +839,6 @@ flash_bwd_dkv_kernel_tc_split(const bf16* __restrict__ q, const bf16* __restrict
   const uint32_t sK = (s0 + 1023u) & ~1023u, sV = sK + TILE, sQO = sK + 2 * TILE;
   const uint32_t sRows = sK + 6 * TILE;
   const float* rows_s = reinterpret_cast<const float*>(smem_tc + (sRows - s0));
-  const uint32_t sP = sRows + DkvSplit<D>::ROWS, sDS = sP + TT * TT * sizeof(bf16);
-  float* xdp = reinterpret_cast<float*>(smem_tc + (sDS + TT * TT * sizeof(bf16) - s0));
 
   const int id = blockIdx.x, per_tile = G * Hkv * B;
   const int k0 = id / per_tile * TT;
@@ -910,89 +897,37 @@ flash_bwd_dkv_kernel_tc_split(const bf16* __restrict__ q, const bf16* __restrict
     const uint32_t sQ = sQO + st * 2 * TILE, sO = sQ + TILE;
     const float* Ls = rows_s + st * 2 * TT;
     const float* Es = Ls + TT;
-    auto live_at = [&](int x, int& col) {
-      const int jj = x >> 2, e = x & 3;
-      col = 8 * jj + c2 + (e & 1);
-      const int kp = k0 + r0 + 8 * (e >> 1), qp = q0 + col;
-      return qp < S && Ls[col] > 0.5f * NEG_INF && live_pair(qp, kp, kv_len, causal, window);
-    };
-
-    if constexpr (!XCHG) {
-      float s[32], dp[32];                  // S^T and dP^T: keys x q rows
-      tc::wgmma_fence();
+    float s[32], dp[32];                    // S^T and dP^T: keys x q rows
+    tc::wgmma_fence();
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        tc::wgmma_ss_n64(s, tc::desc_k(sK, ks), tc::desc_k(sQ, ks), ks);
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(s, tc::desc_k(sK, ks), tc::desc_k(sQ, ks), ks);
 #pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        tc::wgmma_ss_n64(dp, tc::desc_k(sV, ks), tc::desc_k(sO, ks), ks);
-      tc::wgmma_commit();
-      tc::wgmma_wait<0>();
-      tc::fence_regs(s);
-      tc::fence_regs(dp);
+    for (int ks = 0; ks < D / 16; ++ks)
+      tc::wgmma_ss_n64(dp, tc::desc_k(sV, ks), tc::desc_k(sO, ks), ks);
+    tc::wgmma_commit();
+    tc::wgmma_wait<0>();
+    tc::fence_regs(s);
+    tc::fence_regs(dp);
 #pragma unroll
-      for (int x = 0; x < 32; ++x) {
-        int col;
-        const bool live = live_at(x, col);
-        p_ds(s[x], dp[x], live ? Ls[col] * tc::LOG2E : 0.f, Es[col], live, scale, softcap, s[x],
-             dp[x]);
-      }
-      uint32_t ap[4][4], ad[4][4];
-      tc::to_a(s, ap);
-      tc::to_a(dp, ad);
-      tc::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        tc::RS<HALF>::mma(dv_acc, ap[kk], tc::desc_mn(sO + half, kk), 1);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        tc::RS<HALF>::mma(dk_acc, ad[kk], tc::desc_mn(sQ + half, kk), 1);
-    } else {
-      float s[32];                          // warpgroup 0: S^T; 1: dP^T
-      const uint32_t sA = wg ? sV : sK, sB = wg ? sO : sQ;
-      tc::wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < D / 16; ++ks)
-        tc::wgmma_ss_n64(s, tc::desc_k(sA, ks), tc::desc_k(sB, ks), ks);
-      tc::wgmma_commit();
-      tc::wgmma_wait<0>();
-      tc::fence_regs(s);
-      if (wg) {
-#pragma unroll
-        for (int x = 0; x < 32; ++x) xdp[x * TC_THREADS + tid] = s[x];
-      }
-      __syncthreads();                      // dP^T is in shared memory
-      if (!wg) {
-#pragma unroll
-        for (int jj = 0; jj < 8; ++jj)
-#pragma unroll
-          for (int eh = 0; eh < 2; ++eh) {  // rows r0 (eh 0) and r0 + 8
-            float p[2], ds[2];
-#pragma unroll
-            for (int e1 = 0; e1 < 2; ++e1) {
-              const int x = 4 * jj + 2 * eh + e1;
-              int col;
-              const bool live = live_at(x, col);
-              p_ds(s[x], xdp[x * TC_THREADS + tid], live ? Ls[col] * tc::LOG2E : 0.f, Es[col],
-                   live, scale, softcap, p[e1], ds[e1]);
-            }
-            const int row = r0 + 8 * eh;
-            const uint32_t off = row * 128 + ((jj ^ (row & 7)) << 4) + c2 * sizeof(bf16);
-            *reinterpret_cast<uint32_t*>(smem_tc + (sP + off - s0)) = tc::pack_bf16(p[0], p[1]);
-            *reinterpret_cast<uint32_t*>(smem_tc + (sDS + off - s0)) =
-                tc::pack_bf16(ds[0], ds[1]);
-          }
-      }
-      tc::fence_proxy_async();              // the A tiles, for wgmma's reads
-      __syncthreads();
-      tc::wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        tc::wgmma_ss_n128_tb(dv_acc, tc::desc_k(sP, kk), tc::desc_mn(sO + half, kk), 1);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk)
-        tc::wgmma_ss_n128_tb(dk_acc, tc::desc_k(sDS, kk), tc::desc_mn(sQ + half, kk), 1);
+    for (int x = 0; x < 32; ++x) {
+      const int col = 8 * (x >> 2) + c2 + (x & 1);
+      const int kp = k0 + r0 + 8 * ((x >> 1) & 1), qp = q0 + col;
+      const bool live = qp < S && Ls[col] > 0.5f * NEG_INF &&
+                        live_pair(qp, kp, kv_len, causal, window);
+      p_ds(s[x], dp[x], live ? Ls[col] * tc::LOG2E : 0.f, Es[col], live, scale, softcap, s[x],
+           dp[x]);
     }
+    uint32_t ap[4][4], ad[4][4];
+    tc::to_a(s, ap);
+    tc::to_a(dp, ad);
+    tc::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::RS<HALF>::mma(dv_acc, ap[kk], tc::desc_mn(sO + half, kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      tc::RS<HALF>::mma(dk_acc, ad[kk], tc::desc_mn(sQ + half, kk), 1);
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::fence_regs(dv_acc);
@@ -1028,8 +963,10 @@ flash_bwd_dkv_kernel_tc_split(const bf16* __restrict__ q, const bf16* __restrict
 #pragma unroll
       for (int j = 0; j < HALF / 8; ++j) {
         const int x = 4 * j + 2 * e;
-        *reinterpret_cast<float2*>(wk + e * row_step + 8 * j) = make_float2(dk_acc[x], dk_acc[x + 1]);
-        *reinterpret_cast<float2*>(wv + e * row_step + 8 * j) = make_float2(dv_acc[x], dv_acc[x + 1]);
+        *reinterpret_cast<float2*>(wk + e * row_step + 8 * j) =
+            make_float2(dk_acc[x], dk_acc[x + 1]);
+        *reinterpret_cast<float2*>(wv + e * row_step + 8 * j) =
+            make_float2(dv_acc[x], dv_acc[x + 1]);
       }
     }
   }
@@ -1048,9 +985,10 @@ __global__ void dkv_sum_kernel(const float* __restrict__ ws, bf16* __restrict__ 
       a[0] += x.x; a[1] += x.y; a[2] += x.z; a[3] += x.w;
       c[0] += y.x; c[1] += y.y; c[2] += y.z; c[3] += y.w;
     }
-    *reinterpret_cast<uint2*>(dk + i) =
-        make_uint2(tc::pack_bf16(a[0] * scale, a[1] * scale), tc::pack_bf16(a[2] * scale, a[3] * scale));
-    *reinterpret_cast<uint2*>(dv + i) = make_uint2(tc::pack_bf16(c[0], c[1]), tc::pack_bf16(c[2], c[3]));
+    *reinterpret_cast<uint2*>(dk + i) = make_uint2(tc::pack_bf16(a[0] * scale, a[1] * scale),
+                                                   tc::pack_bf16(a[2] * scale, a[3] * scale));
+    *reinterpret_cast<uint2*>(dv + i) =
+        make_uint2(tc::pack_bf16(c[0], c[1]), tc::pack_bf16(c[2], c[3]));
   }
 }
 
@@ -1142,13 +1080,13 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dO,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool XCHG>
+template <int D>
 int launch_dkv_split(const void* q, const void* k, const void* v, const void* dO,
                      const void* lse, const void* delta, void* dk, void* dv, void* ws, int B,
                      int S, int Hq, int Hkv, Strides st_, int kv_len, int causal, int window,
                      float softcap, cudaStream_t st) {
-  auto kern = flash_bwd_dkv_kernel_tc_split<D, XCHG>;
-  const size_t smem = DkvSplit<D>::bytes(XCHG);
+  auto kern = flash_bwd_dkv_kernel_tc_split<D>;
+  const size_t smem = DkvSplit<D>::bytes;
   const int G = dkv_split(B, S, Hq, Hkv);
   if (G > 1 && ws == nullptr) return kBadArgs;
   cudaError_t err = cudaFuncSetAttribute(
@@ -1251,8 +1189,8 @@ extern "C" int rt_flash_attention_bwd_dkv(
     if (D == 112) return RT_DKV_TC(128, 112);
     if (D == 128) return RT_DKV_TC(128, 128);
     if (D == 256)
-      return launch_dkv_split<256, RT_DKV_XCHG>(q, k, v, dO, lse, delta, dk, dv, ws, B, S, Hq,
-                                                Hkv, s, kv_len, causal, window, softcap, st);
+      return launch_dkv_split<256>(q, k, v, dO, lse, delta, dk, dv, ws, B, S, Hq, Hkv, s,
+                                   kv_len, causal, window, softcap, st);
   }
 #undef RT_DKV
 #undef RT_DKV_TC

@@ -364,10 +364,10 @@ def _instances(prof) -> dict:
 @pytest.mark.parametrize("shape,window,cap", HD256)
 def test_hd256_tensor_core_kernels_match_plain(cuda, shape, window, cap):
     """bf16 K3 and K5 at head dim 256 run their tensor-core instances
-    (``flash_fwd_kernel_tc<256, 256>``, ``flash_bwd_dkv_kernel_tc_split<256,
-    ..>``; K4 its CUDA-core one) and agree with the plain versions within
-    the JAX package's bf16 tolerance (2e-2) of each output's scale; lse and
-    delta within 1e-4."""
+    (``flash_fwd_kernel_tc<256, 256>``, ``flash_bwd_dkv_kernel_tc_split<256>``;
+    K4 its CUDA-core one) and agree with the plain versions within the JAX
+    package's bf16 tolerance (2e-2) of each output's scale; lse and delta
+    within 1e-4."""
     from torch.profiler import ProfilerActivity, profile
 
     B, S, Hq, Hkv = shape
@@ -384,7 +384,7 @@ def test_hd256_tensor_core_kernels_match_plain(cuda, shape, window, cap):
     launched = _instances(prof)
     assert launched == {"flash_fwd_kernel_tc<256, 256>": 1,
                         "flash_bwd_dq_kernel<__nv_bfloat16, 256, 256>": 1,
-                        "flash_bwd_dkv_kernel_tc_split<256, false>": 1}, launched
+                        "flash_bwd_dkv_kernel_tc_split<256>": 1}, launched
     out_p, lse_p = flash_attention_fwd_ref(q, k, v, **kw)
     dq_p, delta_p = flash_attention_bwd_dq_ref(q, k, v, out, lse, do, **kw)
     dk_p, dv_p = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta_p, **kw)

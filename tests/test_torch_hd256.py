@@ -4,6 +4,8 @@ GQA with softcap 50 and a window that cuts, and a gemma2-like model's
 layered train step against the JAX package's gradients.  The CUDA kernels
 at this head dim are held against the same plain versions on the card by
 ``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -81,6 +83,11 @@ GEMMA = dict(name="g", arch_type="dense", num_layers=2, d_model=64, num_heads=4,
 M, ROWS, SEQ = 2, 2, 24
 
 
+def _full_leaf(leaf: torch.Tensor, shape, stacked: bool) -> np.ndarray:
+    """A partitioned storage leaf of one data rank as the full array."""
+    return zp.host_unpartition_leaf(leaf.numpy(), shape, 1, stacked=stacked)
+
+
 def test_gemma2_like_layered_step_matches_jax_at_hd256():
     """The port's layered, partitioned gradient of the mean token loss
     against ``jax.grad`` of the JAX package's ``loss_fn`` (its kernels off),
@@ -108,8 +115,8 @@ def test_gemma2_like_layered_step_matches_jax_at_hd256():
         storage, {k: torch.from_numpy(v) for k, v in batch.items()})
     assert torch.isfinite(metrics["loss"]) and metrics["ntok"].item() == M * ROWS * SEQ
     tmpl = stepfn.full_template(tcfg)
-    full = {k: tree.tree_map(lambda l, shape, st=(k == "layers"): zp.host_unpartition_leaf(
-        l.numpy(), shape, 1, stacked=st), grads[k], tmpl[k]) for k in grads}
+    full = {k: tree.tree_map(functools.partial(_full_leaf, stacked=k == "layers"), grads[k],
+                             tmpl[k]) for k in grads}
     wants = {tuple(p.key for p in path): np.asarray(leaf)
              for path, leaf in jax.tree_util.tree_leaves_with_path(want)}
     pairs = list(tree.leaves_with_path(full))
