@@ -235,9 +235,9 @@ def say(*parts) -> None:
 
 
 def ptxas_report(log: str) -> dict:
-    """The build log's ``-Xptxas -v`` lines by kernel instance (demangled
-    with ``c++filt`` where the machine has it): registers, stack frame and
-    spill bytes."""
+    """The build log's ``-Xptxas -v`` lines by kernel instance, demangled
+    with ``c++filt`` (mangled, with a warning, where that fails): registers,
+    stack frame and spill bytes."""
     out, name = {}, None
     for ln in log.splitlines():
         m = re.search(r"(?:Compiling entry function|Function properties for) '?(\w+)'?", ln)
@@ -258,8 +258,9 @@ def ptxas_report(log: str) -> dict:
         plain = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
                                text=True, check=True).stdout.splitlines()
     except (OSError, subprocess.CalledProcessError):
-        plain = names
+        plain = []
     if len(plain) != len(names):
+        say("  warning: c++filt could not demangle the build log's kernel names")
         plain = names
     return {re.sub(r"^(?:void )?(?:\(anonymous namespace\)::)?", "", p).split("(")[0]: out[n]
             for n, p in zip(names, plain) if n.startswith("_Z")}
@@ -2557,15 +2558,14 @@ HD256_INSTANCES = {"flash_attention_fwd": "flash_fwd_kernel_tc<256, 256>",
 K5_REPEATS = 5
 
 
-def hd256_checks(torch, F, failures, tensor_cores: bool = True) -> dict:
+def hd256_checks(torch, F, failures) -> dict:
     """K3-K5 at head dim 256 (both gemma configs) against their plain
     versions with phase 2's training-shape tolerances, at gemma-2b's
     training micro-batch (q [2, 2048, 8, 256], k/v [.., 1, 256]: MQA, rep 8)
     and gemma2-9b's (q [1, 8192, 16, 256], k/v [.., 8, 256], softcap 50,
     window 4096).  The bf16 launches must be ``HD256_INSTANCES``, and K5 must
     give the same bits over ``K5_REPEATS`` calls at gemma-2b's shape, where
-    it splits each KV head's query heads over blocks (``tensor_cores`` false
-    skips both: kernels from before the tensor-core instances).  Then each
+    it splits each KV head's query heads over blocks.  Then each
     kernel's time, bound and SDPA's time at both shapes.  Returns
     {"hd256": rows at gemma-2b's shape, "gemma2": rows at gemma2-9b's}."""
     from torch.profiler import ProfilerActivity, profile
@@ -2584,27 +2584,25 @@ def hd256_checks(torch, F, failures, tensor_cores: bool = True) -> dict:
         torch.cuda.synchronize()
     launched = profiled_instances(prof)
     say(f"  hd 256 launched as: {launched}")
-    if tensor_cores:
-        for kernel, inst in HD256_INSTANCES.items():
-            n = sum(c for name, c in launched.items() if name.startswith(inst))
-            if n != 2:
-                failures.append(f"hd 256: {kernel} ran {n} of its 2 launches as {inst}")
-        g = torch.Generator(device="cuda").manual_seed(SEED)
-        q, do = (torch.randn(2, 2048, 8, 256, generator=g, device="cuda").bfloat16()
-                 for _ in range(2))
-        k, v = (torch.randn(2, 2048, 1, 256, generator=g, device="cuda").bfloat16()
-                for _ in range(2))
-        out, lse = fa.flash_attention_fwd_cuda(q, k, v)
-        _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
-        split = fa.dkv_split(2, 2048, 8, 1, 256, fa.DTYPES[torch.bfloat16])
-        runs = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
-                for _ in range(K5_REPEATS)]
-        same = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
-        say(f"  K5 at gemma-2b's shape, query heads split over {split} blocks a key tile: "
-            f"{K5_REPEATS} calls {'bit for bit equal' if same else 'DIFFER'}")
-        if split < 2 or not same:
-            failures.append(f"hd 256: K5 split {split}, repeated calls equal: {same}")
-        del q, do, k, v, out, lse, delta, runs
+    for kernel, inst in HD256_INSTANCES.items():
+        n = sum(c for name, c in launched.items() if name.startswith(inst))
+        if n != 2:
+            failures.append(f"hd 256: {kernel} ran {n} of its 2 launches as {inst}")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, do = (torch.randn(2, 2048, 8, 256, generator=g, device="cuda").bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(2, 2048, 1, 256, generator=g, device="cuda").bfloat16()
+            for _ in range(2))
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    split = fa.dkv_split(2, 2048, 8, 1, 256, fa.DTYPES[torch.bfloat16])
+    runs = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta) for _ in range(K5_REPEATS)]
+    same = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+    say(f"  K5 at gemma-2b's shape, query heads split over {split} blocks a key tile: "
+        f"{K5_REPEATS} calls {'bit for bit equal' if same else 'DIFFER'}")
+    if split < 2 or not same:
+        failures.append(f"hd 256: K5 split {split}, repeated calls equal: {same}")
+    del q, do, k, v, out, lse, delta, runs
     return {"hd256": attention_times(torch, F, g2b, 2, 2048, errs, "hd 256 (gemma-2b)"),
             "gemma2": attention_times(torch, F, g9b, 1, 8192, errs9, "hd 256 (gemma2-9b)",
                                       window=w, softcap=cap)}
@@ -3860,13 +3858,13 @@ GEMMA_TRAIN = {"gemma-2b": dict(layers=0, batch=8, seq=2048, steps=5),
 GEMMA_MB = 4
 
 
-def train_gemma(torch, smi, arch: str, tensor_cores: bool = True) -> dict:
+def train_gemma(torch, smi, arch: str) -> dict:
     """``launch.train`` of ``arch`` at ``GEMMA_TRAIN``'s cut: finite losses,
     exact K1-K6 launches a step (``family_step_launches``); then one more
     step on the run's state, profiled (``profile_step``: device ms by kernel
     group, the idle share; the attention kernels' share), whose K3 and K5
-    launches must all be the tensor-core instances (``HD256_INSTANCES``; not
-    checked when ``tensor_cores`` is false).  Returns the run's launches."""
+    launches must all be the tensor-core instances (``HD256_INSTANCES``).
+    Returns the run's launches."""
     from repro_torch import configs
     from repro_torch.core import stepfn
     from repro_torch.core.accumulation import AccumConfig
@@ -3920,12 +3918,11 @@ def train_gemma(torch, smi, arch: str, tensor_cores: bool = True) -> dict:
     say(f"  {arch} step: attention (K3-K5) {attn:.1f} device-ms, "
         f"{100 * attn / sum(ms for ms, _ in prof.values()):.1f}% of device time; flash "
         f"instances {launched}")
-    if tensor_cores:
-        for kernel, inst in HD256_INSTANCES.items():
-            n = sum(c for name, c in launched.items() if name.startswith(inst))
-            if n != per_step[kernel]:
-                problems.append(f"{arch}: {n} of a step's {per_step[kernel]} {kernel} "
-                                f"launches ran {inst}")
+    for kernel, inst in HD256_INSTANCES.items():
+        n = sum(c for name, c in launched.items() if name.startswith(inst))
+        if n != per_step[kernel]:
+            problems.append(f"{arch}: {n} of a step's {per_step[kernel]} {kernel} launches "
+                            f"ran {inst}")
     del state, step
     say(f"  after {arch}: {free_card(torch)}")
     if problems:
@@ -3933,11 +3930,11 @@ def train_gemma(torch, smi, arch: str, tensor_cores: bool = True) -> dict:
     return counts
 
 
-def phase_gemma(torch, smi, tensor_cores: bool = True) -> dict:
+def phase_gemma(torch, smi) -> dict:
     """Phase 17: ``train_gemma`` for each of ``GEMMA_TRAIN``; their launches."""
     out = {}
     for arch in GEMMA_TRAIN:
-        for k, v in train_gemma(torch, smi, arch, tensor_cores).items():
+        for k, v in train_gemma(torch, smi, arch).items():
             out[k] = out.get(k, 0) + v
     return out
 
@@ -3988,6 +3985,9 @@ def main() -> int:
         _build.library()
         report = ptxas_report(_build.build_log())
         spills = {k: r for k, r in report.items() if r.get("spill_stores")}
+        missing = [i for i in HD256_INSTANCES.values() if i not in report]
+        if missing:
+            raise AssertionError(f"phase 1: no -Xptxas -v record of {missing}")
         say(smi)
         say(f"[phase 1] card {torch.cuda.get_device_name(0)} ({smi}); tf32 off for matmul "
             f"and cudnn; nvcc build {build_s:.1f} s, {len(report)} kernel instances, "

@@ -38,7 +38,7 @@ ENTRY_POINTS = {
     "rt_flash_attention_bwd_dq": [_P] * 8 + [_I] * 5 + [_LL3] * 5
                                  + [_I, _I, _I, _F, _I, _P],
     "rt_flash_attention_bwd_dkv_split": [_I] * 6,
-    "rt_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 5 + [_LL3] * 4
+    "rt_flash_attention_bwd_dkv": [_P] * 9 + [_I] * 6 + [_LL3] * 4
                                   + [_I, _I, _I, _F, _I, _P],
     "rt_paged_attention_decode": [_P] * 8 + [_I] * 8 + [_F, _I, _P],
     "rt_adamw": [_P, _P, _P, _P, _P, _LL, _F, _F, _F, _F, _F, _F, _I, _P],

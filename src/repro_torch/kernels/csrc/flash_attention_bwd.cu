@@ -1082,13 +1082,12 @@ int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dO,
 
 template <int D>
 int launch_dkv_split(const void* q, const void* k, const void* v, const void* dO,
-                     const void* lse, const void* delta, void* dk, void* dv, void* ws, int B,
-                     int S, int Hq, int Hkv, Strides st_, int kv_len, int causal, int window,
-                     float softcap, cudaStream_t st) {
+                     const void* lse, const void* delta, void* dk, void* dv, void* ws, int G,
+                     int B, int S, int Hq, int Hkv, Strides st_, int kv_len, int causal,
+                     int window, float softcap, cudaStream_t st) {
   auto kern = flash_bwd_dkv_kernel_tc_split<D>;
   const size_t smem = DkvSplit<D>::bytes;
-  const int G = dkv_split(B, S, Hq, Hkv);
-  if (G > 1 && ws == nullptr) return kBadArgs;
+  if (G < 1 || (Hq / Hkv) % G != 0 || (G > 1 && ws == nullptr)) return kBadArgs;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1162,15 +1161,18 @@ extern "C" int rt_flash_attention_bwd_dkv_split(int B, int S, int Hq, int Hkv, i
 }
 
 // as above; dk and dv are dense [B, S, Hkv, D] tensors of k's dtype, and
-// delta is K4's output; ws is the workspace that
-// rt_flash_attention_bwd_dkv_split asks for (null when it says 1).
+// delta is K4's output; split is the G that rt_flash_attention_bwd_dkv_split
+// chose and ws the fp32 workspace of 2 G B S Hkv D elements it asks for
+// (null when G is 1).  A G that does not divide Hq / Hkv, or above 1 for an
+// instance that does not split, is refused.
 extern "C" int rt_flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dO, const void* lse,
-    const void* delta, void* dk, void* dv, void* ws, int B, int S, int Hq, int Hkv, int D,
-    const long long* q_strides, const long long* k_strides, const long long* v_strides,
-    const long long* do_strides, int kv_len, int causal, int window, float softcap,
-    int dtype, void* stream) {
+    const void* delta, void* dk, void* dv, void* ws, int split, int B, int S, int Hq,
+    int Hkv, int D, const long long* q_strides, const long long* k_strides,
+    const long long* v_strides, const long long* do_strides, int kv_len, int causal,
+    int window, float softcap, int dtype, void* stream) {
   if (bad_args(B, S, Hq, Hkv, kv_len)) return kBadArgs;
+  if (split != 1 && !(dtype == kBFloat16 && D == 256)) return kBadArgs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides s{q_strides, k_strides, v_strides, nullptr, do_strides};
 #define RT_DKV(T_, D_, DT_) \
@@ -1189,8 +1191,8 @@ extern "C" int rt_flash_attention_bwd_dkv(
     if (D == 112) return RT_DKV_TC(128, 112);
     if (D == 128) return RT_DKV_TC(128, 128);
     if (D == 256)
-      return launch_dkv_split<256>(q, k, v, dO, lse, delta, dk, dv, ws, B, S, Hq, Hkv, s,
-                                   kv_len, causal, window, softcap, st);
+      return launch_dkv_split<256>(q, k, v, dO, lse, delta, dk, dv, ws, split, B, S, Hq, Hkv,
+                                   s, kv_len, causal, window, softcap, st);
   }
 #undef RT_DKV
 #undef RT_DKV_TC

@@ -109,12 +109,20 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
     return dq, delta
 
 
-@functools.cache
-def dkv_split(B: int, S: int, Hq: int, Hkv: int, D: int, dtype: int) -> int:
+def dkv_split(B: int, S: int, Hq: int, Hkv: int, D: int, dtype: int,
+              device: int | None = None) -> int:
     """K5's split of each KV head's query heads over blocks, as its C entry
-    chooses it from the shape (1 but for bf16 at head dim 256); above 1 the
-    kernel sums fp32 partials from a workspace in a fixed order."""
-    split = _build.library().rt_flash_attention_bwd_dkv_split(B, S, Hq, Hkv, D, dtype)
+    chooses it from the shape and the card's SM count (1 but for bf16 at head
+    dim 256; ``device`` defaults to the current card); above 1 the kernel
+    sums fp32 partials from a workspace in a fixed order."""
+    return _dkv_split(B, S, Hq, Hkv, D, dtype,
+                      torch.cuda.current_device() if device is None else device)
+
+
+@functools.cache
+def _dkv_split(B: int, S: int, Hq: int, Hkv: int, D: int, dtype: int, device: int) -> int:
+    with torch.cuda.device(device):
+        split = _build.library().rt_flash_attention_bwd_dkv_split(B, S, Hq, Hkv, D, dtype)
     if split < 1:
         _build.check(split, "rt_flash_attention_bwd_dkv_split")
     return split
@@ -132,13 +140,13 @@ def flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, *, causal: bool = True
     strides = [_strides(t, name) for t in (q, k, v, do)]
     dk = torch.empty((B, S, Hkv, D), dtype=k.dtype, device=q.device)
     dv = torch.empty((B, S, Hkv, D), dtype=v.dtype, device=q.device)
-    split = dkv_split(B, S, Hq, Hkv, D, DTYPES[q.dtype])
+    split = dkv_split(B, S, Hq, Hkv, D, DTYPES[q.dtype], q.device.index)
     ws = (torch.empty((split, 2, B, S, Hkv, D), dtype=torch.float32, device=q.device)
           if split > 1 else None)
     status = _build.library().rt_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
         delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(),
-        B, S, Hq, Hkv, D, *strides,
+        split, B, S, Hq, Hkv, D, *strides,
         kv_len, int(causal), int(window), float(softcap), DTYPES[q.dtype],
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(status, "rt_flash_attention_bwd_dkv")

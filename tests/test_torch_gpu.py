@@ -417,6 +417,24 @@ def test_hd256_dkv_is_deterministic_with_the_head_split(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("D,split", [(256, 3), (128, 2)])
+def test_dkv_refuses_a_split_it_cannot_take(cuda, monkeypatch, D, split):
+    """K5's C entry takes the split its wrapper sized the workspace for and
+    refuses one that does not divide a KV head's query heads (8 / 3), or one
+    above 1 for an instance that does not split (head dim 128)."""
+    from repro_torch.kernels._build import KernelError
+    B, S, Hq, Hkv = 1, 256, 8, 1
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, do = (torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    monkeypatch.setattr(fa, "dkv_split", lambda *args: split)
+    with pytest.raises(KernelError):
+        fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+
+
+@pytest.mark.gpu
 def test_bf16_grads_through_flash_match_plain_at_training_shape(cuda):
     """ops.flash_attention in bf16 at the training path's micro-batch: the
     gradients autograd gets from K3 then K4 + K5 equal the plain forward and
