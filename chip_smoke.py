@@ -8,7 +8,8 @@ nonzero and prints no result:
 
   1. the card (name and power limit from nvidia-smi) and the nvcc build of
      every kernel from the sources in the checkout, naming each instance
-     that spills and the head-dim-256 instances' registers;
+     that spills and the head-dim-256 instances' registers (a spill of one
+     of those fails the run);
   2. each CUDA kernel against its plain PyTorch version on the card: the
      shapes the Yi-6B serving and training paths give it in bf16 and fp32,
      plus window, softcap, MQA, ragged-length, head-dim 64/256, idle-row and
@@ -183,13 +184,16 @@ nonzero and prints no result:
      both at full width, bf16 compute over fp32 state, layered +
      partitioned: step time, tok/s, MFU, peak memory, exact launch counts,
      then one profiled step (device ms of GEMM, K3, K4, K5 and the rest,
-     the idle share) whose K3 and K5 launches must be the head-dim-256
+     the idle share) whose K3, K4 and K5 launches must be the head-dim-256
      tensor-core instances.
 Phase 2 also holds K3-K5 at head dim 256 at gemma-2b's training shape (q [2,
 2048, 8, 256], k/v [2, 2048, 1, 256]) and gemma2-9b's (q [1, 8192, 16, 256],
-k/v [.., 8, 256], softcap 50, window 4096), bf16 (K3 and K5 on the tensor
-cores, K4 on the CUDA cores), with K5's bits equal over repeated calls, and
-times them beside their bound and SDPA's time.
+k/v [.., 8, 256], softcap 50, window 4096), bf16 on the tensor cores, with
+K4's bits equal over repeated calls at both shapes and K5's at gemma-2b's,
+and times them beside their bound and SDPA's time.  Wherever bf16 K4 is
+held, every dq row is also held to the plain version with ds rounded to
+bf16 (``check_dq_rows``); at both gemma shapes a control, a K4 that skipped
+a key tile, must fail that check.
 """
 from __future__ import annotations
 
@@ -213,7 +217,7 @@ HBM_BYTES_PER_S = 3.35e12                  # H100 SXM device memory
 PEAK_FLOPS = {"bfloat16": 989e12,          # dense bf16 tensor-core rate
               "float32": 67e12}            # fp32 off the tensor cores
 FP32_TOL = 1e-4                            # kernel vs plain: summation order only
-# bf16 K3 and K4/K5 on the tensor cores (hd 64 and 128) vs plain, times the
+# bf16 K3 and K4/K5 on the tensor cores (every head dim) vs plain, times the
 # output scale: the JAX package's own bf16 tolerances, forward
 # (tests/test_kernels.py::test_flash_attention_dtypes) and backward
 # (::test_flash_attention_grads_bf16).  The tensor-core products take p (and
@@ -225,6 +229,16 @@ BF16_BWD_TOL = 2e-2
 # own scale (the row's largest |out|).  Both sides round out to bf16 (up to
 # one ulp apart) and round p against a different running max.
 K3_ROW_ULPS = 2
+# bf16 K4 on the tensor cores against the plain version that rounds ds to
+# bf16 as the kernel does (round_ds): every row within this many bf16 ulps of
+# its own scale (the row's largest |dq|).  Both sides round dq to bf16, and a
+# ds that lies near a rounding edge may round to neighbours on the two sides.
+# A row's scale is taken at least K4_ROW_FLOOR times the output's scale (at
+# least 1): below that a row is a cancellation, as the first query row, whose
+# one key gives dP = delta and ds made of fp32 rounding alone (the plain
+# version's may be exactly zero, the kernel's not).
+K4_ROW_ULPS = 4
+K4_ROW_FLOOR = 2.0 ** -10
 # K6's fp32 outputs, element by element: |kernel - plain| <= atol + rtol |plain|
 # (where v is near zero the update is large, and so is p's fp32 spacing)
 K6_RTOL, K6_ATOL = 1e-5, 1e-6
@@ -348,12 +362,15 @@ def tolerance(torch, ref, rel: bool = False, bf16_rel: float = 0.0) -> float:
     return FP32_TOL * max(1.0, scale) if rel else FP32_TOL
 
 
-def row_ulps(torch, got, want) -> float:
+def row_ulps(torch, got, want, floor: float = 0.0) -> float:
     """The worst row's largest |got - want|, in bf16 ulps of that row's scale
-    (its largest |want| over the last dim); a row whose ``want`` is all zero
-    must be exactly zero (inf otherwise)."""
+    (its largest |want| over the last dim, at least ``floor`` times the whole
+    output's scale, itself at least 1).  With no floor, a row whose ``want``
+    is all zero must be exactly zero (inf otherwise)."""
     err = (got.float() - want.float()).abs().amax(-1)
     scale = want.float().abs().amax(-1)
+    if floor:
+        scale = scale.clamp(min=floor * max(1.0, scale.max().item()))
     ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)
     ratio = torch.where(scale > 0, err / ulp, err * math.inf).nan_to_num(0.0, math.inf)
     return ratio.max().item()
@@ -410,6 +427,39 @@ def check_rows(torch, name, got, want_r, failures) -> None:
         f"its scale (limit {K3_ROW_ULPS}) {'ok' if ok else 'FAIL'}")
     if not ok:
         failures.append(name + " [out, by row]")
+
+
+def check_dq_rows(torch, name, dq, q, k, v, out, lse, do, kw, failures,
+                  control: bool = False) -> None:
+    """bf16 K4 on the tensor cores against the plain version with ds rounded
+    to bf16: every row within K4_ROW_ULPS of its scale (``row_ulps`` with
+    K4_ROW_FLOOR).  ``control``: the plain dq of a K4 that skipped the
+    diagonal key tile of the last query tile (its last 64 keys) must fail
+    the same check; its error against the scale-wide limit is printed
+    beside it."""
+    from repro_torch.kernels import flash_attention as fa
+    want_r = fa.plain_bwd_dq(q, k, v, out, lse, do, round_ds=True, **kw)[0]
+    r = row_ulps(torch, dq, want_r, K4_ROW_FLOOR)
+    ok = r <= K4_ROW_ULPS
+    say(f"  {name} [dq vs plain with ds rounded to bf16]: worst row {r:.2f} bf16 ulps of "
+        f"its scale (limit {K4_ROW_ULPS}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        failures.append(name + " [dq, by row]")
+    if control:
+        S = q.shape[1]
+        bad = fa.plain_bwd_dq(q, k, v, out, lse, do, round_ds=True, kv_len=S - 64, **kw)[0]
+        r_bad = row_ulps(torch, bad, want_r, K4_ROW_FLOOR)
+        bad_err = (bad.float() - want_r.float()).abs().max().item()
+        scale_tol = BF16_BWD_TOL * max(1.0, want_r.float().abs().max().item())
+        say(f"  control (the last query tile's diagonal key tile skipped): worst row "
+            f"{r_bad:.1f} bf16 ulps of its scale, limit {K4_ROW_ULPS}: "
+            f"{'rejected' if r_bad > K4_ROW_ULPS else 'NOT REJECTED'}; max abs err "
+            f"{bad_err:.3e}, {bad_err / scale_tol:.2f}x the {BF16_BWD_TOL:g}-of-scale limit "
+            f"{scale_tol:.3e}")
+        if r_bad <= K4_ROW_ULPS:
+            failures.append(name + ": the dq row check did not reject its control")
+        del bad
+    del want_r
 
 
 def phase_kernels(torch, F):
@@ -661,9 +711,10 @@ def phase_kernels(torch, F):
     # -- K4/K5 flash backward: training micro-batch 2 x 2048, 32 q heads, 4 KV heads
     say("K4 flash_attention_bwd_dq (dq, delta) and K5 flash_attention_bwd_dkv (dk, dv), "
         "fed the K3 forward's out and lse; fp32 outputs (delta included) tol 1e-4 of the "
-        f"output scale; bf16 on the tensor cores (K4 at hd 64/128, K5 at every head dim) "
+        "output scale; bf16 on the tensor cores (K4 and K5 at every head dim) "
         f"{BF16_BWD_TOL:g} of the output scale (at least 1), their products taking p and ds "
-        "rounded to bf16; K4 in bf16 at hd 256 (CUDA cores) one ulp")
+        f"rounded to bf16, and K4's every dq row within {K4_ROW_ULPS} bf16 ulps of its scale "
+        "of the plain version with ds rounded to bf16")
     main = None
     for (B, S, Hq, Hkv, D), dtype, kw in [
             ((2, 2048, 32, 4, 128), torch.bfloat16, dict(causal=True)),
@@ -679,14 +730,15 @@ def phase_kernels(torch, F):
         do = randn(B, S, Hq, D, dtype=dtype)
         out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
         name = f"q={[B, S, Hq, D]} kv_heads={Hkv} {str(dtype)[6:]} {kw}"
-        # the tensor-core instances: K4 in bf16 at hd 64 and 128, K5 in bf16;
-        # K4 at hd 256 keeps one ulp
+        # bf16 runs the tensor-core instances of K4 and K5 at every head dim
         bf16 = dtype == torch.bfloat16
-        tol4 = BF16_BWD_TOL if bf16 and D in (64, 128) else 0.0
         dq, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
         dq_p, delta_p = fa.plain_bwd_dq(q, k, v, out, lse, do, **kw)
         err4 = check_case(torch, "K4 " + name, (dq, delta), (dq_p, delta_p), failures,
-                          parts=(" [dq]", " [delta]"), rel=True, bf16_rel=tol4)
+                          parts=(" [dq]", " [delta]"), rel=True,
+                          bf16_rel=BF16_BWD_TOL if bf16 else 0.0)
+        if bf16:
+            check_dq_rows(torch, "K4 " + name, dq, q, k, v, out, lse, do, kw, failures)
         got = fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw)
         want = fa.plain_bwd_dkv(q, k, v, do, lse, delta_p, **kw)
         err5 = check_case(torch, "K5 " + name, got, want, failures,
@@ -1902,14 +1954,15 @@ PAPER_ARGV = ["--arch", "paper-x", "--size", "160", "--grid", "reduced", "--simu
 
 def shape_checks(torch, cfg, mb: int, S: int, label: str, *, attention: bool = True,
                  dtype=None, errs: dict | None = None, window: int = 0,
-                 softcap: float = 0.0) -> list:
+                 softcap: float = 0.0, dq_control: bool = False) -> list:
     """K1-K5 at a micro-batch of mb x S tokens of ``cfg`` (in ``dtype``, bf16
     unless given) against their plain versions, with phase 2's training-shape
-    tolerances: K1/K2 on [mb * S, d_model] rows, K3 (and in bf16 its row
-    check), K4 and K5 on q [mb, S, num_heads, head_dim], k/v [mb, S,
+    tolerances: K1/K2 on [mb * S, d_model] rows, K3 and K4 (and in bf16 their
+    row checks) and K5 on q [mb, S, num_heads, head_dim], k/v [mb, S,
     num_kv_heads, head_dim], causal (with ``window`` and ``softcap`` where
-    given); K1/K2 alone when ``attention`` is false.  ``errs`` collects each
-    kernel's max_abs_err.  Returns the failures."""
+    given); K1/K2 alone when ``attention`` is false.  ``dq_control`` also
+    runs K4's row check on its control (``check_dq_rows``).  ``errs``
+    collects each kernel's max_abs_err.  Returns the failures."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rmsnorm as rn
 
@@ -1949,7 +2002,11 @@ def shape_checks(torch, cfg, mb: int, S: int, label: str, *, attention: bool = T
         errs["flash_attention_bwd_dq"] = check_case(
             torch, "K4 " + name, (dq, delta), (dq_p, delta_p), failures,
             parts=(" [dq]", " [delta]"), rel=True, bf16_rel=BF16_BWD_TOL)
-        del dq, dq_p
+        del dq_p
+        if dtype == torch.bfloat16:
+            check_dq_rows(torch, "K4 " + name, dq, q, k, v, out, lse, do, kw, failures,
+                          control=dq_control)
+        del dq
         errs["flash_attention_bwd_dkv"] = check_case(
             torch, "K5 " + name, fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta, **kw),
             fa.plain_bwd_dkv(q, k, v, do, lse, delta_p, **kw), failures,
@@ -2551,11 +2608,11 @@ def hd112_checks(torch, F, failures) -> dict:
     return attention_times(torch, F, cfg, 2, 2048, errs, "hd 112")
 
 
-# head dim 256 in bf16: K3 and K5 on the tensor cores, K4 on the CUDA cores
+# head dim 256 in bf16: K3, K4 and K5 on the tensor cores
 HD256_INSTANCES = {"flash_attention_fwd": "flash_fwd_kernel_tc<256, 256>",
-                   "flash_attention_bwd_dq": "flash_bwd_dq_kernel<__nv_bfloat16, 256, 256>",
+                   "flash_attention_bwd_dq": "flash_bwd_dq_kernel_tc_split<256>",
                    "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel_tc_split<256>"}
-K5_REPEATS = 5
+BWD_REPEATS = 5
 
 
 def hd256_checks(torch, F, failures) -> dict:
@@ -2563,24 +2620,24 @@ def hd256_checks(torch, F, failures) -> dict:
     versions with phase 2's training-shape tolerances, at gemma-2b's
     training micro-batch (q [2, 2048, 8, 256], k/v [.., 1, 256]: MQA, rep 8)
     and gemma2-9b's (q [1, 8192, 16, 256], k/v [.., 8, 256], softcap 50,
-    window 4096).  The bf16 launches must be ``HD256_INSTANCES``, and K5 must
-    give the same bits over ``K5_REPEATS`` calls at gemma-2b's shape, where
-    it splits each KV head's query heads over blocks.  Then each
-    kernel's time, bound and SDPA's time at both shapes.  Returns
+    window 4096).  The bf16 launches must be ``HD256_INSTANCES``; K4 must
+    give the same bits over ``BWD_REPEATS`` calls at both shapes, and K5 at
+    gemma-2b's, where it splits each KV head's query heads over blocks.
+    Then each kernel's time, bound and SDPA's time at both shapes.  Returns
     {"hd256": rows at gemma-2b's shape, "gemma2": rows at gemma2-9b's}."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch import configs
     from repro_torch.kernels import flash_attention as fa
-    say("K3-K5 at head dim 256 (both gemma configs; bf16: K3 and K5 on the tensor cores, K4 on "
-        "the CUDA cores; phase 2's training-shape tolerances)")
+    say("K3-K5 at head dim 256 (both gemma configs; bf16 on the tensor cores; phase 2's "
+        "training-shape tolerances)")
     g2b, g9b = configs.get_config("gemma-2b"), configs.get_config("gemma2-9b")
     w, cap = g9b.sliding_window, g9b.attn_logit_softcap
     errs, errs9 = {}, {}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        failures += shape_checks(torch, g2b, 2, 2048, "gemma-2b", errs=errs)
+        failures += shape_checks(torch, g2b, 2, 2048, "gemma-2b", errs=errs, dq_control=True)
         failures += shape_checks(torch, g9b, 1, 8192, "gemma2-9b", errs=errs9, window=w,
-                                 softcap=cap)
+                                 softcap=cap, dq_control=True)
         torch.cuda.synchronize()
     launched = profiled_instances(prof)
     say(f"  hd 256 launched as: {launched}")
@@ -2589,20 +2646,32 @@ def hd256_checks(torch, F, failures) -> dict:
         if n != 2:
             failures.append(f"hd 256: {kernel} ran {n} of its 2 launches as {inst}")
     g = torch.Generator(device="cuda").manual_seed(SEED)
-    q, do = (torch.randn(2, 2048, 8, 256, generator=g, device="cuda").bfloat16()
-             for _ in range(2))
-    k, v = (torch.randn(2, 2048, 1, 256, generator=g, device="cuda").bfloat16()
-            for _ in range(2))
-    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
-    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
-    split = fa.dkv_split(2, 2048, 8, 1, 256, fa.DTYPES[torch.bfloat16])
-    runs = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta) for _ in range(K5_REPEATS)]
-    same = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
-    say(f"  K5 at gemma-2b's shape, query heads split over {split} blocks a key tile: "
-        f"{K5_REPEATS} calls {'bit for bit equal' if same else 'DIFFER'}")
-    if split < 2 or not same:
-        failures.append(f"hd 256: K5 split {split}, repeated calls equal: {same}")
-    del q, do, k, v, out, lse, delta, runs
+    for label, (B, S, Hq, Hkv), kw in (("gemma-2b", (2, 2048, 8, 1), {}),
+                                       ("gemma2-9b", (1, 8192, 16, 8),
+                                        dict(window=w, softcap=cap))):
+        q, do = (torch.randn(B, S, Hq, 256, generator=g, device="cuda").bfloat16()
+                 for _ in range(2))
+        k, v = (torch.randn(B, S, Hkv, 256, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
+        runs = [fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, **kw)
+                for _ in range(BWD_REPEATS)]
+        same = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+        say(f"  K4 at {label}'s shape: {BWD_REPEATS} calls "
+            f"{'bit for bit equal' if same else 'DIFFER'} (dq, delta)")
+        if not same:
+            failures.append(f"hd 256: K4's repeated calls differ at {label}'s shape")
+        if label == "gemma-2b":
+            delta = runs[0][1]
+            split = fa.dkv_split(B, S, Hq, Hkv, 256, fa.DTYPES[torch.bfloat16])
+            runs = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta)
+                    for _ in range(BWD_REPEATS)]
+            same = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+            say(f"  K5 at gemma-2b's shape, query heads split over {split} blocks a key "
+                f"tile: {BWD_REPEATS} calls {'bit for bit equal' if same else 'DIFFER'}")
+            if split < 2 or not same:
+                failures.append(f"hd 256: K5 split {split}, repeated calls equal: {same}")
+        del q, do, k, v, out, lse, runs
     return {"hd256": attention_times(torch, F, g2b, 2, 2048, errs, "hd 256 (gemma-2b)"),
             "gemma2": attention_times(torch, F, g9b, 1, 8192, errs9, "hd 256 (gemma2-9b)",
                                       window=w, softcap=cap)}
@@ -3862,8 +3931,8 @@ def train_gemma(torch, smi, arch: str) -> dict:
     """``launch.train`` of ``arch`` at ``GEMMA_TRAIN``'s cut: finite losses,
     exact K1-K6 launches a step (``family_step_launches``); then one more
     step on the run's state, profiled (``profile_step``: device ms by kernel
-    group, the idle share; the attention kernels' share), whose K3 and K5
-    launches must all be the tensor-core instances (``HD256_INSTANCES``).
+    group, the idle share; the attention kernels' share), whose K3, K4 and
+    K5 launches must all be the tensor-core instances (``HD256_INSTANCES``).
     Returns the run's launches."""
     from repro_torch import configs
     from repro_torch.core import stepfn
@@ -3988,6 +4057,10 @@ def main() -> int:
         missing = [i for i in HD256_INSTANCES.values() if i not in report]
         if missing:
             raise AssertionError(f"phase 1: no -Xptxas -v record of {missing}")
+        spilled = [i for i in HD256_INSTANCES.values()
+                   if report[i].get("spill_stores") or report[i].get("spill_loads")]
+        if spilled:
+            raise AssertionError(f"phase 1: the head dim 256 instances {spilled} spill")
         say(smi)
         say(f"[phase 1] card {torch.cuda.get_device_name(0)} ({smi}); tf32 off for matmul "
             f"and cudnn; nvcc build {build_s:.1f} s, {len(report)} kernel instances, "

@@ -15,11 +15,11 @@
 // products of (live pairs) x D multiply-adds per head, against O(S * D)
 // bytes.  Two instances:
 //
-// bf16 at head dim 64, 112 and 128 (the training path: Yi-6B, hd 128), and K5
-// at head dim 256, run every product on the tensor cores, bf16 operands with
+// bf16 at every head dim (64, 112, 128: the training path, Yi-6B at hd 128;
+// 256: gemma) runs every product on the tensor cores, bf16 operands with
 // fp32 accumulators, tiles of 64 rows kept bf16 in shared memory in wgmma's
 // 128-byte-swizzled layout (wgmma.cuh), one consumer warpgroup (128 threads)
-// a block in K4 and two in K5:
+// a block in K4 below head dim 256 and two otherwise:
 //   * K4, flash_bwd_dq_kernel_tc: a block owns 64 query rows of one q head;
 //     its Q and dO tiles are loaded once.  K/V tiles of 64 keys stream
 //     through a two-stage cp.async ring (the next tile's copy is in flight
@@ -50,6 +50,10 @@
 //     a block (one block an SM: 163 KB of shared memory at hd 128) halve the
 //     longest walk, and the heaviest-first order fills the SMs that the
 //     light blocks free, with no second pass over partial sums.
+//   * K4 at head dim 256, flash_bwd_dq_kernel_tc_split: dQ of 64 rows is 128
+//     fp32 registers a thread in one warpgroup, beside S and dP (it spilled),
+//     so two warpgroups split the head dim (128 columns, 64 registers each)
+//     and both form S and dP, which contract over the whole head dim;
 //   * K5 at head dim 256, flash_bwd_dkv_kernel_tc_split: dK + dV of 64 keys
 //     are 256 fp32 registers a thread in one warpgroup, so the two
 //     warpgroups split the head dim instead of the walk (128 each), and both
@@ -60,9 +64,8 @@
 //   * p and ds enter their products rounded to bf16 (the plain version keeps
 //     them fp32), so the outputs agree to bf16 rounding of the sums' terms.
 //
-// fp32, and K4 in bf16 at head dim 256, keep the first version on the fp32
-// CUDA cores, flash_bwd_dq_kernel / flash_bwd_dkv_kernel (K4's dQ at hd 256,
-// 128 fp32 registers beside S and dP, spilled on the tensor cores):
+// fp32 keeps the first version on the fp32 CUDA cores, flash_bwd_dq_kernel /
+// flash_bwd_dkv_kernel:
 //   * K4: grid (q-block of 32 rows, q head, batch), the forward's k-tile
 //     loop bounds; Q and dO rows are staged once, K/V stream through shared
 //     memory in 32-key tiles.  A warp owns 8 query rows: a lane owns one key
@@ -425,7 +428,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 on the tensor cores (head dim 64, 112 and 128)
+// bf16 on the tensor cores (head dim 64, 112 and 128; K4 at 256 too)
 // ---------------------------------------------------------------------------
 using bf16 = __nv_bfloat16;
 constexpr int TC_THREADS = 128;        // one warpgroup
@@ -459,20 +462,27 @@ __device__ __forceinline__ void p_ds(float s_raw, float dp, float lse2, float de
   if (softcap > 0.f) ds *= 1.f - t * t;
 }
 
-// K4.  Grid: one block per (q tile, q head, batch), numbered so that the
-// q tiles with the most keys come first under causal.
-template <int D, int DT = D>
-__global__ void __launch_bounds__(TC_THREADS)
-flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                       const bf16* __restrict__ v, const bf16* __restrict__ o,
-                       const bf16* __restrict__ dO, const float* __restrict__ lse,
-                       bf16* __restrict__ dq, float* __restrict__ delta_out, int B, int S,
-                       int Hq, int Hkv, int64_t qsB, int64_t qsS, int64_t qsH, int64_t ksB,
-                       int64_t ksS, int64_t ksH, int64_t vsB, int64_t vsS, int64_t vsH,
-                       int64_t osB, int64_t osS, int64_t osH, int64_t dsB, int64_t dsS,
-                       int64_t dsH, int kv_len, int causal, int window, float softcap,
-                       float scale) {
+// K4 on the tensor cores.  Grid: one block per (q tile, q head, batch),
+// numbered so that the q tiles with the most keys come first under causal.
+// WG consumer warpgroups a block split dQ's head dim: warpgroup w keeps
+// columns [w D / WG, (w + 1) D / WG) in registers.  S = Q K^T and dP = dO V^T
+// contract over the whole head dim, so every warpgroup forms both.
+template <int D, int DT, int WG>
+__device__ __forceinline__ void dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                                      const bf16* __restrict__ v, const bf16* __restrict__ o,
+                                      const bf16* __restrict__ dO,
+                                      const float* __restrict__ lse, bf16* __restrict__ dq,
+                                      float* __restrict__ delta_out, int B, int S, int Hq,
+                                      int Hkv, int64_t qsB, int64_t qsS, int64_t qsH,
+                                      int64_t ksB, int64_t ksS, int64_t ksH, int64_t vsB,
+                                      int64_t vsS, int64_t vsH, int64_t osB, int64_t osS,
+                                      int64_t osH, int64_t dsB, int64_t dsS, int64_t dsH,
+                                      int kv_len, int causal, int window, float softcap,
+                                      float scale) {
+  static_assert(WG == 1 || DT == D, "a split head dim has no zero columns");
   constexpr uint32_t TILE = DqTc<D>::TILE;
+  constexpr int N = D / WG;                // dq columns of a warpgroup
+  constexpr int NT = WG * TC_THREADS;
   extern __shared__ __align__(1024) uint8_t smem_tc[];
   const uint32_t s0 = tc::smem_addr(smem_tc);
   const uint32_t sQ = (s0 + 1023u) & ~1023u, sO = sQ + TILE, sKV = sQ + 2 * TILE;
@@ -483,7 +493,8 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int q0 = (nq - 1 - id / per_tile) * TT;
   const int h = id % per_tile % Hq, b = id % per_tile / Hq;
   const int hk = h / (Hq / Hkv);
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wg = threadIdx.x / TC_THREADS, tid = threadIdx.x % TC_THREADS;
+  const int warp = tid >> 5, lane = tid & 31;
   const bf16* kb = k + b * ksB + hk * ksH;
   const bf16* vb = v + b * vsB + hk * vsH;
   const bf16* dob = dO + b * dsB + h * dsH;
@@ -493,21 +504,22 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int lo = window > 0 ? max(q0 - window + 1, 0) / TT : 0;
   const int n = hi - lo;
 
-  tc::load_tile<D, TC_THREADS, DT>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
-  tc::load_tile<D, TC_THREADS, DT>(sO, dob, dsS, q0, S, tid);
+  tc::load_tile<D, NT, DT>(sQ, q + b * qsB + h * qsH, qsS, q0, S, threadIdx.x);
+  tc::load_tile<D, NT, DT>(sO, dob, dsS, q0, S, threadIdx.x);
   if (n > 0) {
-    tc::load_tile<D, TC_THREADS, DT>(sKV, kb, ksS, lo * TT, S, tid);
-    tc::load_tile<D, TC_THREADS, DT>(sKV + TILE, vb, vsS, lo * TT, S, tid);
+    tc::load_tile<D, NT, DT>(sKV, kb, ksS, lo * TT, S, threadIdx.x);
+    tc::load_tile<D, NT, DT>(sKV + TILE, vb, vsS, lo * TT, S, threadIdx.x);
   }
   tc::cp_async_commit();
 
   // delta = rowsum(dO * O) of the tile's rows, from global memory while the
-  // tiles land: D/8 lanes a row, warp w the rows 16 w .. 16 w + 15
+  // tiles land: D/8 lanes a row, the block's warp w the rows RPW w ..
+  // RPW w + RPW - 1
   {
-    constexpr int CPR = D / 8, RPP = 32 / CPR;
-    const int j = lane % CPR;
+    constexpr int CPR = D / 8, RPP = 32 / CPR, RPW = TT / (NT / 32);
+    const int w = threadIdx.x >> 5, j = lane % CPR;
 #pragma unroll
-    for (int r = warp * 16 + lane / CPR; r < warp * 16 + 16; r += RPP) {
+    for (int r = w * RPW + lane / CPR; r < w * RPW + RPW; r += RPP) {
       const int qp = q0 + r;
       float part = 0.f;
       if (qp < S && (DT == D || j * 8 < DT)) {
@@ -528,8 +540,9 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
   __syncthreads();
 
-  // this thread's accumulator rows r0 and r0 + 8: lse (base 2), delta, and
-  // whether the row is a real one that saw a key in the forward
+  // this thread's accumulator rows r0 and r0 + 8 (the same in every
+  // warpgroup): lse (base 2), delta, and whether the row is a real one that
+  // saw a key in the forward; its columns 8 j + c2, c2 + 1 of its warpgroup's
   const int r0 = warp * 16 + (lane >> 2), c2 = 2 * (lane & 3);
   float lse2[2], dlt[2];
   bool row_live[2];
@@ -541,18 +554,19 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
     lse2[e] = row_live[e] ? l * tc::LOG2E : 0.f;
     dlt[e] = delta_s[r0 + 8 * e];
   }
+  const uint32_t chunk0 = wg * (N / 64) * tc::CHUNK_BYTES;   // its columns' first chunk
 
-  float acc[D / 2];
+  float acc[N / 2];
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < N / 2; ++i) acc[i] = 0.f;
 
   for (int i = 0; i < n; ++i) {
     const int k0 = (lo + i) * TT;
     const uint32_t sK = sKV + (i & 1) * 2 * TILE, sV = sK + TILE;
     if (i + 1 < n) {
       const uint32_t nK = sKV + ((i + 1) & 1) * 2 * TILE;
-      tc::load_tile<D, TC_THREADS, DT>(nK, kb, ksS, k0 + TT, S, tid);
-      tc::load_tile<D, TC_THREADS, DT>(nK + TILE, vb, vsS, k0 + TT, S, tid);
+      tc::load_tile<D, NT, DT>(nK, kb, ksS, k0 + TT, S, threadIdx.x);
+      tc::load_tile<D, NT, DT>(nK + TILE, vb, vsS, k0 + TT, S, threadIdx.x);
     }
     tc::cp_async_commit();
     tc::cp_async_wait<1>();                 // this tile (and Q, dO) has landed
@@ -588,7 +602,7 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
     tc::wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) tc::RS<D>::mma(acc, a[kk], tc::desc_mn(sK, kk), 1);
+    for (int kk = 0; kk < 4; ++kk) tc::RS<N>::mma(acc, a[kk], tc::desc_mn(sK + chunk0, kk), 1);
     tc::wgmma_commit();
     tc::wgmma_wait<0>();
     tc::fence_regs(acc);
@@ -600,13 +614,46 @@ flash_bwd_dq_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int e = 0; e < 2; ++e) {
     const int qp = q0 + r0 + 8 * e;
     if (qp >= S) continue;
-    bf16* out = dq + (((int64_t)b * S + qp) * Hq + h) * DT + c2;
+    bf16* out = dq + (((int64_t)b * S + qp) * Hq + h) * DT + wg * N + c2;
 #pragma unroll
-    for (int j = 0; j < DT / 8; ++j)
+    for (int j = 0; j < DT / WG / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
           tc::pack_bf16(acc[4 * j + 2 * e] * scale, acc[4 * j + 2 * e + 1] * scale);
   }
 }
+
+#define RT_DQ_TC_PARAMS                                                                    \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,     \
+      const bf16 *__restrict__ o, const bf16 *__restrict__ dO,                            \
+      const float *__restrict__ lse, bf16 *__restrict__ dq, float *__restrict__ delta_out, \
+      int B, int S, int Hq, int Hkv, int64_t qsB, int64_t qsS, int64_t qsH, int64_t ksB,  \
+      int64_t ksS, int64_t ksH, int64_t vsB, int64_t vsS, int64_t vsH, int64_t osB,       \
+      int64_t osS, int64_t osH, int64_t dsB, int64_t dsS, int64_t dsH, int kv_len,        \
+      int causal, int window, float softcap, float scale
+#define RT_DQ_TC_ARGS                                                                      \
+  q, k, v, o, dO, lse, dq, delta_out, B, S, Hq, Hkv, qsB, qsS, qsH, ksB, ksS, ksH, vsB,  \
+      vsS, vsH, osB, osS, osH, dsB, dsS, dsH, kv_len, causal, window, softcap, scale
+
+// K4 at head dim 64, 112 and 128: one warpgroup holds all of dQ (D/2 fp32 a
+// thread)
+template <int D, int DT = D>
+__global__ void __launch_bounds__(TC_THREADS) flash_bwd_dq_kernel_tc(RT_DQ_TC_PARAMS) {
+  dq_tc<D, DT, 1>(RT_DQ_TC_ARGS);
+}
+
+// K4 at head dim 256: two warpgroups, 128 columns of dQ each (64 fp32 a
+// thread, where one warpgroup holding all 256 needs 128 beside S and dP, and
+// spilled).  Both form S and dP: K5's split kernel measured that cheaper than
+// forming them once and exchanging them through shared memory.  Shared
+// memory is DqTc<256>: Q, dO and two stages of (K, V), 32 KB each, delta's
+// 64 floats and 1 KB to align: 197,888 B, one block an SM.
+template <int D>
+__global__ void __launch_bounds__(2 * TC_THREADS, 1)
+flash_bwd_dq_kernel_tc_split(RT_DQ_TC_PARAMS) {
+  dq_tc<D, D, 2>(RT_DQ_TC_ARGS);
+}
+#undef RT_DQ_TC_PARAMS
+#undef RT_DQ_TC_ARGS
 
 // K5's epilogue: one warpgroup's accumulators into shared memory (thread t
 // of one warpgroup holds the same elements as thread t of the other) ...
@@ -1038,18 +1085,26 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dO,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K4's tensor-core kernel at head dim D on WG warpgroups: at 256 two, which
+// split dQ's head dim, else one
 template <int D, int DT = D>
 int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, const void* dO,
                  const void* lse, void* dq, void* delta, int B, int S, int Hq, int Hkv,
                  Strides st_, int kv_len, int causal, int window, float softcap,
                  cudaStream_t st) {
-  auto kern = flash_bwd_dq_kernel_tc<D, DT>;
+  constexpr int WG = D == 256 ? 2 : 1;
+  auto kern = [] {
+    if constexpr (WG == 2)
+      return flash_bwd_dq_kernel_tc_split<D>;
+    else
+      return flash_bwd_dq_kernel_tc<D, DT>;
+  }();
   const size_t smem = DqTc<D>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int blocks = (S + TT - 1) / TT * Hq * B;
-  kern<<<blocks, TC_THREADS, smem, st>>>(
+  kern<<<blocks, WG * TC_THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(o), static_cast<const bf16*>(dO),
       static_cast<const float*>(lse), static_cast<bf16*>(dq), static_cast<float*>(delta), B,
@@ -1143,7 +1198,7 @@ extern "C" int rt_flash_attention_bwd_dq(
     if (D == 64) return RT_DQ_TC(64, 64);
     if (D == 112) return RT_DQ_TC(128, 112);
     if (D == 128) return RT_DQ_TC(128, 128);
-    if (D == 256) return RT_DQ(__nv_bfloat16, 256, 256);
+    if (D == 256) return RT_DQ_TC(256, 256);
   }
 #undef RT_DQ
 #undef RT_DQ_TC

@@ -7,11 +7,11 @@ kernels ``repro/kernels/flash_attention.py:_attn_fwd_kernel``,
 ``:_attn_bwd_dq_kernel`` and ``:_attn_bwd_dkv_kernel``.  The kernels stream
 K/V (or Q) tiles and mask the ragged edges themselves, so they take any S (no
 padding, and no plain fallback for long sequences).  In bf16 (training and
-serving prefill) K3 and K5 run on the tensor cores (wgmma) at every head dim,
-K4 at head dim 64, 112 and 128; K4 at head dim 256, and fp32, run on the fp32
-CUDA cores.  Head dim 112 (Zamba2-7B's shared attention) runs head-dim-128
-tiles in instances compiled for 112 (zero columns in the tiles, no padded
-copy).  K5 at head dim 256 may split a KV head's query heads over several
+serving prefill) K3, K4 and K5 run on the tensor cores (wgmma) at every head
+dim; at head dim 256 K4's and K5's two warpgroups split the head dim.  fp32
+runs on the fp32 CUDA cores.  Head dim 112 (Zamba2-7B's shared attention)
+runs head-dim-128 tiles in instances compiled for 112 (zero columns in the
+tiles, no padded copy).  K5 at head dim 256 may split a KV head's query heads over several
 blocks (``dkv_split``); its wrapper then gives it an fp32 workspace.
 """
 from __future__ import annotations

@@ -111,14 +111,19 @@ def _ds(p, t, do_f, v_f, delta):
 
 
 def flash_attention_bwd_dq_ref(q, k, v, out, lse, do, *, causal: bool = True,
-                               window: int = 0, softcap: float = 0.0, kv_len: int = 0):
-    """K4's function: (dq like q, delta = rowsum(dO * O) fp32 [B, Hq, S])."""
+                               window: int = 0, softcap: float = 0.0, kv_len: int = 0,
+                               round_ds: bool = False):
+    """K4's function: (dq like q, delta = rowsum(dO * O) fp32 [B, Hq, S]).
+    ``round_ds`` (off by default; for the tests) rounds ds to bf16 before the
+    dS*K product, as the tensor-core kernel does; the sums stay fp32."""
     D = q.shape[-1]
     rep = q.shape[2] // k.shape[2]
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
     p, t, _, kf = _recompute_p(q, k, lse, causal=causal, window=window,
                                softcap=softcap, kv_len=kv_len)
     ds = _ds(p, t, do.float(), v.float().repeat_interleave(rep, dim=2), delta)
+    if round_ds:
+        ds = ds.to(torch.bfloat16).float()
     dq = torch.einsum("bhqk,bkhd->bqhd", ds, kf) * D ** -0.5
     return dq.to(q.dtype), delta
 

@@ -323,11 +323,15 @@ def test_flash_bwd_kernels_match_plain(cuda, dtype, shape, window, cap, causal, 
     ((2, 300, 16, 1, 128), 40, 30.0),
     ((1, 200, 12, 4, 64), 0, 0.0),
     pytest.param((1, 300, 32, 8, 112), 0, 0.0, id="hd112"),
+    pytest.param((2, 2048, 8, 1, 256), 0, 0.0, id="hd256-gemma-2b"),
+    pytest.param((1, 8192, 16, 8, 256), 4096, 50.0, id="hd256-gemma2-9b"),
 ])
 def test_flash_bwd_kernels_are_deterministic(cuda, shape, window, cap):
     """bf16 K4 and K5 (the tensor-core instances): two launches on the same
     inputs give bit-identical dq, delta, dk and dv.  K5 sums the GQA heads
-    and its two warpgroups' partials inside the block, in a fixed order."""
+    and its two warpgroups' partials inside the block, in a fixed order (at
+    head dim 256 its blocks' fp32 partials too); K4 sums nothing across
+    blocks or warpgroups."""
     B, S, Hq, Hkv, D = shape
     g = torch.Generator(device=cuda).manual_seed(S)
     q, do = (torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16() for _ in range(2))
@@ -363,11 +367,15 @@ def _instances(prof) -> dict:
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,window,cap", HD256)
 def test_hd256_tensor_core_kernels_match_plain(cuda, shape, window, cap):
-    """bf16 K3 and K5 at head dim 256 run their tensor-core instances
-    (``flash_fwd_kernel_tc<256, 256>``, ``flash_bwd_dkv_kernel_tc_split<256>``;
-    K4 its CUDA-core one) and agree with the plain versions within the JAX
-    package's bf16 tolerance (2e-2) of each output's scale; lse and delta
-    within 1e-4."""
+    """bf16 K3, K4 and K5 at head dim 256 run their tensor-core instances
+    (``flash_fwd_kernel_tc<256, 256>``, ``flash_bwd_dq_kernel_tc_split<256>``,
+    ``flash_bwd_dkv_kernel_tc_split<256>``) and agree with the plain versions
+    within the JAX package's bf16 tolerance (2e-2) of each output's scale;
+    lse and delta within 1e-4.  Every dq row is within four bf16 ulps of its
+    own scale (its largest |dq|, at least 2^-10 of the output's) of the plain
+    version with ds rounded to bf16 as the kernel rounds it, so that the
+    rows that see a thousand keys, whose dq is far below the scale of the
+    first rows', are held too."""
     from torch.profiler import ProfilerActivity, profile
 
     B, S, Hq, Hkv = shape
@@ -383,14 +391,20 @@ def test_hd256_tensor_core_kernels_match_plain(cuda, shape, window, cap):
         torch.cuda.synchronize()
     launched = _instances(prof)
     assert launched == {"flash_fwd_kernel_tc<256, 256>": 1,
-                        "flash_bwd_dq_kernel<__nv_bfloat16, 256, 256>": 1,
+                        "flash_bwd_dq_kernel_tc_split<256>": 1,
                         "flash_bwd_dkv_kernel_tc_split<256>": 1}, launched
     out_p, lse_p = flash_attention_fwd_ref(q, k, v, **kw)
     dq_p, delta_p = flash_attention_bwd_dq_ref(q, k, v, out, lse, do, **kw)
     dk_p, dv_p = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta_p, **kw)
+    dq_r, _ = flash_attention_bwd_dq_ref(q, k, v, out, lse, do, round_ds=True, **kw)
     torch.cuda.synchronize()
     torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
     torch.testing.assert_close(delta, delta_p, rtol=1e-4, atol=1e-4)
+    err = (dq.float() - dq_r.float()).abs().amax(-1)
+    scale = dq_r.float().abs().amax(-1)
+    scale = scale.clamp(min=2.0 ** -10 * max(1.0, scale.max().item()))
+    ulp = torch.ldexp(torch.ones_like(scale), torch.frexp(scale).exponent - 8)
+    assert bool((err <= 4 * ulp).all()), (err / ulp).max().item()
     for name, got, want in (("out", out, out_p), ("dq", dq, dq_p), ("dk", dk, dk_p),
                             ("dv", dv, dv_p)):
         tol = 2e-2 * max(1.0, want.float().abs().max().item())

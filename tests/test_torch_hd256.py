@@ -1,9 +1,10 @@
 """Head dim 256 (both gemma configs) on the CPU: the plain K3, K4 and K5
 against the JAX package's Pallas kernels in interpret mode, under MQA and
-GQA with softcap 50 and a window that cuts, and a gemma2-like model's
-layered train step against the JAX package's gradients.  The CUDA kernels
-at this head dim are held against the same plain versions on the card by
-``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
+GQA with softcap 50 and a window that cuts; the plain dq with ds rounded to
+bf16, as the tensor-core K4 forms it, against the Pallas dq kernel; and a
+gemma2-like model's layered train step against the JAX package's gradients.
+The CUDA kernels at this head dim are held against the same plain versions
+on the card by ``tests/test_torch_gpu.py`` and ``chip_smoke.py``."""
 import functools
 
 import jax
@@ -70,6 +71,36 @@ def test_flash_plain_matches_pallas_at_hd256(shape, window, dtype):
     for name, got, want in (("dq", dq_t, dq_j), ("dk", dk_t, dk_j), ("dv", dv_t, dv_j)):
         assert got.dtype == TDT[dtype]
         np.testing.assert_allclose(_np(got), _np(want), rtol=tol, atol=tol, err_msg=name)
+
+
+@pytest.mark.parametrize("shape,window", [((1, 96, 8, 1), 40), ((1, 128, 4, 2), 48)],
+                         ids=["mqa-rep8", "gemma2-rep2"])
+def test_dq_with_ds_rounded_to_bf16_matches_pallas_at_hd256(shape, window):
+    """The tensor-core K4 at head dim 256 rounds ds to bf16 before dS K (the
+    plain version keeps it fp32 unless asked with ``round_ds``); that dq
+    stays within the JAX package's bf16 tolerance (2e-2, tests/test_kernels.py)
+    of the Pallas ``_attn_bwd_dq_kernel`` in interpret mode, fed the Pallas
+    forward's out and lse, with softcap 50 and a window that cuts.  This is
+    the tolerance ``chip_smoke.py`` and ``tests/test_torch_gpu.py`` hold the
+    kernel to, and the plain version they hold its rows against."""
+    B, S, Hq, Hkv = shape
+    D, cap = 256, 50.0
+    rng = np.random.default_rng(S + window + Hq + 1)
+    q, do = (rng.standard_normal((B, S, Hq, D), np.float32) for _ in range(2))
+    k, v = (rng.standard_normal((B, S, Hkv, D), np.float32) for _ in range(2))
+    qj, kj, vj, doj = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v, do))
+    kw = dict(causal=True, window=window, softcap=cap)
+    out_j, lse_j = jax_flash_fwd(qj, kj, vj, block_q=32, block_k=32, interpret=True, **kw)
+    dq_j, _, _ = jax_flash_bwd(qj, kj, vj, out_j, lse_j, doj, block_q=32, block_k=32,
+                               interpret=True, **kw)
+    qt, kt, vt, dot = (torch.from_numpy(a).bfloat16() for a in (q, k, v, do))
+    out_t = torch.tensor(_np(out_j)).bfloat16()
+    lse_t = torch.tensor(np.asarray(lse_j))
+    got, _ = fa.plain_bwd_dq(qt, kt, vt, out_t, lse_t, dot, round_ds=True, **kw)
+    # the rounding is real: the fp32-ds plain version differs from it
+    plain, _ = fa.plain_bwd_dq(qt, kt, vt, out_t, lse_t, dot, **kw)
+    assert got.dtype == torch.bfloat16 and not torch.equal(got, plain)
+    np.testing.assert_allclose(_np(got), _np(dq_j), rtol=2e-2, atol=2e-2)
 
 
 # a gemma2-like stack at head dim 256: 2 layers (one local, one global),
