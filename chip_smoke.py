@@ -152,7 +152,7 @@ nonzero and prints no result:
      (2 L + 1 model all-reduces and one logits all-gather a call for an
      attention stack; 3 L seq all-reduces a sequence-sharded step) and exact
      K1/K3/K7 launches of the group's calls; decode ms a step of both;
- 14. the ``kernels`` line (launches over phases 4-13, 15 and 17), and as the last
+ 14. the ``kernels`` line (launches over phases 4-13, 15, 17 and 18), and as the last
      line ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}``;
  15. (run before 14's lines) the pod axis and what one card shows of the
      failure-shrink, on a world-size-1 NCCL grid with pod, data and model
@@ -186,6 +186,19 @@ nonzero and prints no result:
      then one profiled step (device ms of GEMM, K3, K4, K5 and the rest,
      the idle share) whose K3, K4 and K5 launches must be the head-dim-256
      tensor-core instances.
+ 18. (run before 14's lines) granite-20b (48 query heads on one KV head of
+     128, LayerNorm, plain GELU): K3-K5 and K7 at its shapes against their
+     plain versions as phase 2 holds the gemma shapes (K5 split over
+     ``GRANITE_SPLIT`` blocks, its bits equal over repeated calls), with
+     each kernel's time, bound and SDPA's time; served at full depth through
+     ``launch.serve.main`` (bf16 weights made on the card from the seed,
+     exact K3/K7 launches and no K1, every request's budget, finite logits,
+     TTFT, ITL, tok/s, peak memory), 10 decode steps profiled; then the dry
+     run's peak for its 6-layer training cut and ``launch.train`` at that
+     cut (8 x 2048 in 4 micro-batches, 3 steps): exact launches, finite
+     losses, the peak within 0.5-2x of the dry run's, one profiled step whose
+     K5 launches run the grouped instance at the split ``dkv_split`` keeps
+     for granite's micro-batch (``GRANITE_SPLIT``) beside its partial sum.
 Phase 2 also holds K3-K5 at head dim 256 at gemma-2b's training shape (q [2,
 2048, 8, 256], k/v [2, 2048, 1, 256]) and gemma2-9b's (q [1, 8192, 16, 256],
 k/v [.., 8, 256], softcap 50, window 4096), bf16 on the tensor cores, with
@@ -193,7 +206,8 @@ K4's bits equal over repeated calls at both shapes and K5's at gemma-2b's,
 and times them beside their bound and SDPA's time.  Wherever bf16 K4 is
 held, every dq row is also held to the plain version with ds rounded to
 bf16 (``check_dq_rows``); at both gemma shapes a control, a K4 that skipped
-a key tile, must fail that check.
+a key tile, must fail that check.  It also times K3-K5 in fp32 at the
+training shape beside SDPA in fp32 and the bound at the fp32 rate.
 """
 from __future__ import annotations
 
@@ -463,6 +477,7 @@ def check_dq_rows(torch, name, dq, q, k, v, out, lse, do, kw, failures,
 
 
 def phase_kernels(torch, F):
+    from repro_torch import configs
     from repro_torch.kernels import adamw as aw
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -633,28 +648,12 @@ def phase_kernels(torch, F):
             failures.append("paged: ctx == 0 rows are not zero")
         if not torch.equal(got, pa.paged_attention_cuda(qd, kp, vp, bt, cl, **kw)):
             failures.append(f"paged: two calls differ, ctx={ctx}")
-        main = main or (qd, kp, vp, bt, cl, err)
-    qd, kp, vp, bt, cl, err = main
-    R, Hq, D = qd.shape
-    Hkv = kp.shape[1]
-    es = qd.element_size()
-    live = int(cl.sum())
-    # ms: back-to-back launches from Python, as every kernel is timed; the
-    # wrapper's host cost exceeds the kernel here, so device_ms is the
-    # kernel's own time, from a CUDA graph of the same calls
+        main = main or (err,)
     rows["paged_attention_decode"] = dict(
-        shape=f"q [{R}, {Hq}, {D}] pools [{kp.shape[0]}, {Hkv}, {kp.shape[2]}, {D}] "
-              f"bf16, ctx {cl.tolist()}",
-        max_abs_err=err,
-        ms=cuda_ms(torch, lambda: pa.paged_attention_cuda(qd, kp, vp, bt, cl), 200),
-        device_ms=graph_ms(torch, lambda: pa.paged_attention_cuda(qd, kp, vp, bt, cl)),
-        plain_ms=cuda_ms(torch, lambda: pa.plain(qd, kp, vp, bt, cl), 20),
-        library_ms=None,
-        bound=bound(es * (2 * qd.numel() + 2 * live * Hkv * D) + 4 * (bt.numel() + R),
-                    4 * Hq * D * live, "bfloat16"))
-    k7 = rows["paged_attention_decode"]
-    say(f"  K7 at the phase-2 shape: back-to-back launches from Python {k7['ms']:.4f} ms a "
-        f"call; device time {k7['device_ms']:.4f} ms a launch (a CUDA graph of 50 launches)")
+        paged_times(torch, configs.get_config("yi-6b"), "the phase-2 shape"),
+        shape="q [8, 32, 128] pools [2049, 4, 16, 128] bf16, ctx "
+              "[577, 65, 301, 512, 130, 449, 96, 260]",
+        max_abs_err=main[-1])
     # -- K2 RMSNorm backward: training rows mb*S = 2*2048, d_model 4096
     say("K2 rmsnorm_bwd (dx and dscale; fp32 tol 1e-4 of the output scale, bf16 one ulp)")
     main = None
@@ -801,6 +800,18 @@ def phase_kernels(torch, F):
     for key, by_kernel in hd256_checks(torch, F, failures).items():
         for name, r in by_kernel.items():
             rows[name][key] = r
+    torch.cuda.empty_cache()
+
+    # -- K3-K5 in fp32 (the CUDA-core kernels) at the training shape, beside
+    # SDPA in fp32 and the bound at the fp32 rate
+    say("K3-K5 in fp32 at the training shape (the CUDA-core kernels; fp32 tolerances)")
+    errs = {}
+    yi = configs.get_config("yi-6b")
+    failures += shape_checks(torch, yi, 2, 2048, "training shape", dtype=torch.float32,
+                             errs=errs)
+    for name, r in attention_times(torch, F, yi, 2, 2048, errs, "the training shape",
+                                   dtype=torch.float32).items():
+        rows[name]["fp32"] = r
     torch.cuda.empty_cache()
 
     # -- K6 AdamW: the largest storage leaf of the 8-layer Yi-6B, the stacked w_up
@@ -977,36 +988,25 @@ def phase_train_parity(torch):
 # ---------------------------------------------------------------------------
 # Phase 4: the full model through the serving engine
 # ---------------------------------------------------------------------------
-def phase_engine(torch, np, smi):
-    from repro_torch import configs
-    from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import paged_attention as pa
-    from repro_torch.kernels import rmsnorm as rn
-    from repro_torch.models import transformer as T
-    from repro_torch.serving import steps
+def warm_engine(cfg, params) -> None:
+    """One short request through an engine on a small pool (cuBLAS handles,
+    the allocator) before a counted run."""
     from repro_torch.serving.cache import PagedCacheConfig
     from repro_torch.serving.engine import ServingEngine
-    from repro_torch.serving.scheduler import Request, SchedulerConfig, poisson_trace
-
-    cfg = configs.get_config("yi-6b")
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
-    torch.cuda.synchronize()
-    n_params = sum(p.numel() for _, p in T.named_parameters(params))
-    say(f"  Yi-6B: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
-        f"parameters in bf16, made on the card in {time.perf_counter() - t0:.1f} s")
-
-    # warm-up on a small pool (cuBLAS handles, allocator); not counted
+    from repro_torch.serving.scheduler import Request, SchedulerConfig
     warm = ServingEngine(cfg, params, SchedulerConfig(
         cache=PagedCacheConfig(num_blocks=64, block_size=16, max_blocks_per_seq=8),
         max_batch=2))
     warm.submit(Request(rid=0, prompt=tuple(range(1, 65)), max_new_tokens=4))
     warm.run()
-    del warm
 
-    # every prefill/decode call's logits must be finite: checked on the card,
-    # read once at the end
+
+@contextlib.contextmanager
+def finite_logits(torch):
+    """Inside the block every paged prefill and decode call's logits are
+    checked finite on the card; yields the list of those checks, read once
+    at the end."""
+    from repro_torch.serving import steps
     finite = []
     wrapped = {n: getattr(steps, n) for n in ("paged_prefill_step", "paged_decode_step")}
 
@@ -1017,6 +1017,36 @@ def phase_engine(torch, np, smi):
             return logits, cache
         return step
 
+    for n, fn in wrapped.items():
+        setattr(steps, n, probe(fn))
+    try:
+        yield finite
+    finally:
+        for n, fn in wrapped.items():
+            setattr(steps, n, fn)
+
+
+def phase_engine(torch, np, smi):
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.cache import PagedCacheConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import SchedulerConfig, poisson_trace
+
+    cfg = configs.get_config("yi-6b")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in T.named_parameters(params))
+    say(f"  Yi-6B: {cfg.num_layers} layers, d_model {cfg.d_model}, {n_params / 1e9:.3f} B "
+        f"parameters in bf16, made on the card in {time.perf_counter() - t0:.1f} s")
+
+    warm_engine(cfg, params)
+
     reqs = poisson_trace(np.random.default_rng(SEED), n_requests=16, rate=0.5,
                          vocab=cfg.vocab_size,
                          prompt_lens=[64, 512, 128, 320, 256, 96, 448, 200],
@@ -1024,9 +1054,7 @@ def phase_engine(torch, np, smi):
     pcfg = PagedCacheConfig(num_blocks=2048, block_size=16, max_blocks_per_seq=36)
     eng = ServingEngine(cfg, params, SchedulerConfig(cache=pcfg, max_batch=8))
     eng.submit_all(reqs)
-    for n, fn in wrapped.items():
-        setattr(steps, n, probe(fn))
-    try:
+    with finite_logits(torch) as finite:
         torch.cuda.synchronize()
         rn.launches = fa.launches = pa.launches = 0
         t0 = time.perf_counter()
@@ -1035,9 +1063,6 @@ def phase_engine(torch, np, smi):
         dt = time.perf_counter() - t0
         counts = {"rmsnorm": rn.launches, "flash_attention_fwd": fa.launches,
                   "paged_attention_decode": pa.launches}
-    finally:
-        for n, fn in wrapped.items():
-            setattr(steps, n, fn)
     st = eng.stats
     want = {"rmsnorm": (2 * cfg.num_layers + 1) * (st["prefill_calls"] + st["decode_steps"]),
             "flash_attention_fwd": cfg.num_layers * st["prefill_calls"],
@@ -2184,11 +2209,11 @@ def free_card(torch) -> str:
             f"reserved {torch.cuda.memory_reserved() / 1e9:.2f} GB")
 
 
-def moe_profile(torch, np, cfg, eng) -> None:
-    """A profiler window over 10 decode steps of a running engine: device
-    time a step, its GEMM time, and the GEMM time inside the MoE block's
-    ``moe.dispatch`` / ``moe.combine`` ranges (the one-hot dispatch and
-    combine) and ``moe.experts``.  Reports; never fails the run."""
+def decode_profile(torch, eng, label: str, skip=()):
+    """A profiler window over 10 decode steps of a running engine: wall and
+    device ms a step, the idle share, and GEMM against K7 by device ms
+    (device events named in ``skip``, profiler ranges, are not kernels).
+    Returns the profile and its number of steps."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2200,13 +2225,32 @@ def moe_profile(torch, np, cfg, eng) -> None:
             n += 1
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    ranges = {"moe.dispatch": 0.0, "moe.combine": 0.0, "moe.experts": 0.0}
-    # the ranges show on the device timeline too: kernels only
+    if n < 10:
+        raise AssertionError(f"{label}: the engine ran {n} of 10 decode steps")
     kern = [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.key not in ranges]
-    dev_ms = sum(e.self_device_time_total for e in kern) / 1e3
-    gemm_ms = sum(e.self_device_time_total for e in kern
-                  if any(k in e.key.lower() for k in GEMM_NAMES)) / 1e3
+            if e.device_type == DeviceType.CUDA and e.key not in skip]
+    dev = sum(e.self_device_time_total for e in kern) / 1e3
+    gemm = sum(e.self_device_time_total for e in kern
+               if any(k in e.key.lower() for k in GEMM_NAMES)) / 1e3
+    k7 = sum(e.self_device_time_total for e in kern if "paged_decode_kernel" in e.key) / 1e3
+    say(f"  profile {label}, {n} engine steps (decode, 8 slots): wall {wall_ms / n:.3f} ms, "
+        f"device busy {dev / n:.3f} ms a step (idle {100 - 100 * dev / wall_ms:.1f}%), "
+        f"launches {sum(e.count for e in kern) // n} a step; GEMM {gemm / n:.3f} ms, K7 "
+        f"{k7 / n:.3f} ms, other {(dev - gemm - k7) / n:.3f} ms")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        say(f"    {e.self_device_time_total / n / 1e3:8.3f} ms x{e.count // n:<4d} {e.key[:90]}")
+    return prof, n
+
+
+MOE_RANGES = ("moe.dispatch", "moe.combine", "moe.experts")
+
+
+def moe_profile(torch, cfg, eng) -> None:
+    """``decode_profile`` over 10 decode steps of a running engine, then the
+    GEMM time inside the MoE block's ``moe.dispatch`` / ``moe.combine``
+    ranges (the one-hot dispatch and combine) and ``moe.experts``."""
+    prof, n = decode_profile(torch, eng, cfg.name, skip=MOE_RANGES)
+    ranges = dict.fromkeys(MOE_RANGES, 0.0)
 
     def gemm_in(ev) -> float:
         us = sum(k.duration for k in ev.kernels if any(g in k.name.lower() for g in GEMM_NAMES))
@@ -2215,12 +2259,9 @@ def moe_profile(torch, np, cfg, eng) -> None:
     for ev in prof.events():
         if ev.name in ranges:
             ranges[ev.name] += gemm_in(ev) / 1e3
-    n = max(n, 1)
     dc = ranges["moe.dispatch"] + ranges["moe.combine"]
-    say(f"  profile {cfg.name}, {n} engine steps (decode, 8 slots): wall {wall_ms / n:.3f} ms, "
-        f"device busy {dev_ms / n:.3f} ms a step (idle {100 - 100 * dev_ms / wall_ms:.1f}%), "
-        f"GEMM {gemm_ms / n:.3f} ms, of which one-hot dispatch + combine {dc / n:.3f} ms "
-        f"({100 * dc / max(gemm_ms, 1e-9):.1f}%), experts {ranges['moe.experts'] / n:.3f} ms")
+    say(f"  {cfg.name}: GEMM inside one-hot dispatch + combine {dc / n:.3f} ms a step, inside "
+        f"the experts {ranges['moe.experts'] / n:.3f} ms")
 
 
 def serve_moe(torch, np, smi, arch: str) -> dict:
@@ -2247,12 +2288,7 @@ def serve_moe(torch, np, smi, arch: str) -> dict:
         f"{cfg.experts_per_token}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
         f"{n_params / 1e9:.3f} B parameters in bf16 (router fp32), made on the card in "
         f"{time.perf_counter() - t0:.1f} s; {free_card(torch)}")
-    warm = ServingEngine(cfg, params, SchedulerConfig(
-        cache=PagedCacheConfig(num_blocks=64, block_size=16, max_blocks_per_seq=8),
-        max_batch=2))
-    warm.submit(Request(rid=0, prompt=tuple(range(1, 65)), max_new_tokens=4))
-    warm.run()
-    del warm
+    warm_engine(cfg, params)
     reqs = poisson_trace(np.random.default_rng(SEED), n_requests=n_req, rate=0.5,
                          vocab=cfg.vocab_size, prompt_lens=prompts, max_new=outs)
     pcfg = PagedCacheConfig(num_blocks=2048, block_size=16, max_blocks_per_seq=36)
@@ -2298,7 +2334,7 @@ def serve_moe(torch, np, smi, arch: str) -> dict:
                 arrival=eng.t) for i in range(8)])
             eng.step()
             eng.step()
-            moe_profile(torch, np, cfg, eng)
+            moe_profile(torch, cfg, eng)
         except Exception as e:  # noqa: BLE001 — the breakdown is optional; say why it is missing
             say(f"  profile: not measured ({type(e).__name__}: {e})")
     del eng, params
@@ -2487,19 +2523,22 @@ def live_pairs(S: int, window: int = 0) -> int:
 
 
 def attention_times(torch, F, cfg, B: int, S: int, errs: dict, label: str,
-                    window: int = 0, softcap: float = 0.0) -> dict:
-    """K3, K4 and K5 at q [B, S, Hq, hd], k/v [B, S, Hkv, hd] of ``cfg``, bf16,
-    causal (with ``window`` and ``softcap`` where given): each kernel's ms, its
-    bound (the live pairs of the window) and SDPA's ms (forward; backward dq,
-    dk and dv together; causal, without softcap or window, which it does not
-    take), with ``errs``' max_abs_err from ``shape_checks``; printed, one
-    line a kernel."""
+                    window: int = 0, softcap: float = 0.0, dtype=None) -> dict:
+    """K3, K4 and K5 at q [B, S, Hq, hd], k/v [B, S, Hkv, hd] of ``cfg``, in
+    ``dtype`` (bf16 unless given), causal (with ``window`` and ``softcap``
+    where given): each kernel's ms, its bound (the live pairs of the window,
+    at the dtype's peak rate) and SDPA's ms (forward; backward dq, dk and dv
+    together; causal, without softcap or window, which it does not take),
+    with ``errs``' max_abs_err from ``shape_checks``; printed, one line a
+    kernel."""
     from repro_torch.kernels import flash_attention as fa
     g = torch.Generator(device="cuda").manual_seed(SEED)
     Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q, do = (torch.randn(B, S, Hq, D, generator=g, device="cuda").to(torch.bfloat16)
+    dtype = dtype or torch.bfloat16
+    dt = str(dtype)[6:]
+    q, do = (torch.randn(B, S, Hq, D, generator=g, device="cuda").to(dtype)
              for _ in range(2))
-    k, v = (torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(torch.bfloat16)
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device="cuda").to(dtype)
             for _ in range(2))
     kw = dict(window=window, softcap=softcap)
     out, lse = fa.flash_attention_fwd_cuda(q, k, v, **kw)
@@ -2524,24 +2563,22 @@ def attention_times(torch, F, cfg, B: int, S: int, errs: dict, label: str,
             max_abs_err=errs["flash_attention_fwd"],
             ms=cuda_ms(torch, lambda: fa.flash_attention_fwd_cuda(q, k, v, **kw), 20),
             library_ms=sdpa_fwd,
-            bound=bound(es * (2 * q.numel() + 2 * k.numel()) + io, 4 * D * pairs, "bfloat16")),
+            bound=bound(es * (2 * q.numel() + 2 * k.numel()) + io, 4 * D * pairs, dt)),
         "flash_attention_bwd_dq": dict(
             max_abs_err=errs["flash_attention_bwd_dq"],
             ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do,
                                                                      **kw), 20),
             library_ms=sdpa_bwd,
-            bound=bound(es * (4 * q.numel() + 2 * k.numel()) + 2 * io, 6 * D * pairs,
-                        "bfloat16")),
+            bound=bound(es * (4 * q.numel() + 2 * k.numel()) + 2 * io, 6 * D * pairs, dt)),
         "flash_attention_bwd_dkv": dict(
             max_abs_err=errs["flash_attention_bwd_dkv"],
             ms=cuda_ms(torch, lambda: fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta,
                                                                       **kw), 20),
             library_ms=sdpa_bwd,
-            bound=bound(es * (2 * q.numel() + 4 * k.numel()) + 2 * io, 8 * D * pairs,
-                        "bfloat16"))}
+            bound=bound(es * (2 * q.numel() + 4 * k.numel()) + 2 * io, 8 * D * pairs, dt))}
     for name, r in rows.items():
         say(f"  time {name} at {label}, q [{B}, {S}, {Hq}, {D}] k/v [{B}, {S}, {Hkv}, {D}] "
-            f"bf16 causal{f' window {window} softcap {softcap:g}' if window or softcap else ''}"
+            f"{dt} causal{f' window {window} softcap {softcap:g}' if window or softcap else ''}"
             f": kernel_ms={r['ms']:.4f} bound_ms={r['bound'][0]:.4f} "
             f"({r['bound'][1]}, {100 * r['bound'][0] / r['ms']:.0f}%) library_ms (SDPA"
             f"{'' if name.endswith('fwd') else ' backward, dq dk dv together'})="
@@ -3835,26 +3872,21 @@ DRYRUN_ARGV = ["-m", "repro_torch.launch.dryrun", "--arch", "yi-6b", "--shape", 
 DRYRUN_TIMEOUT_S = 120
 
 
-def phase_dryrun(torch, smi, phase5: dict) -> None:
-    """(a) ``roofline.analyze`` of phase 5's step on ``meta`` tensors
-    (``stepfn.build_train_step`` as ``launch.train`` builds it from
-    ``TRAIN_ARGV``: Yi-6B cut to 8 layers, bf16 compute over fp32
-    partitioned state and fp32 moments, layered, 8 x 2048 tokens in 4
-    micro-batches, one rank) against phase 5's records; (b) the production
-    dry run of Yi-6B ``train_4k`` on the 16 x 16 grid in a subprocess."""
-    from repro_torch import configs, tree
+def meta_costs(torch, cfg, B: int, S: int, M: int, steps: int):
+    """``roofline.analyze`` on ``meta`` tensors of the step ``launch.train``
+    builds for ``cfg`` at B x S tokens in M micro-batches over ``steps``
+    steps: layered + partitioned, bf16 compute over fp32 state and fp32
+    moments, one rank."""
+    from repro_torch import tree
     from repro_torch.core import dist as D
     from repro_torch.core import roofline, stepfn
     from repro_torch.core.accumulation import AccumConfig
     from repro_torch.launch import dryrun
     from repro_torch.optim.adam import AdamConfig
 
-    cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=TRAIN_LAYERS)
-    B, S, M = 8, 2048, TRAIN_MB
     step = stepfn.build_train_step(
         cfg, AccumConfig(method="layered", partitioned=True, n_microbatches=M),
-        AdamConfig(lr=3e-3, warmup_steps=max(TRAIN_STEPS // 10, 1), decay_steps=TRAIN_STEPS))
-    t0 = time.perf_counter()
+        AdamConfig(lr=3e-3, warmup_steps=max(steps // 10, 1), decay_steps=steps))
     meta = torch.device("meta")
     storage = dryrun.storage_specs(cfg, D.LOCAL, True)
     opt = {"mu": tree.tree_map(lambda t: torch.empty_like(t, device=meta), storage),
@@ -3862,7 +3894,23 @@ def phase_dryrun(torch, smi, phase5: dict) -> None:
            "step": torch.empty((), dtype=torch.int32, device=meta)}
     batch = {k: torch.empty((M, B // M, S), dtype=torch.int32, device=meta)
              for k in ("tokens", "labels", "mask")}
-    costs = roofline.analyze(step, storage, opt, batch, see=roofline.attention_seen(cfg, S))
+    return roofline.analyze(step, storage, opt, batch, see=roofline.attention_seen(cfg, S))
+
+
+def phase_dryrun(torch, smi, phase5: dict) -> None:
+    """(a) ``roofline.analyze`` of phase 5's step on ``meta`` tensors
+    (``stepfn.build_train_step`` as ``launch.train`` builds it from
+    ``TRAIN_ARGV``: Yi-6B cut to 8 layers, bf16 compute over fp32
+    partitioned state and fp32 moments, layered, 8 x 2048 tokens in 4
+    micro-batches, one rank) against phase 5's records; (b) the production
+    dry run of Yi-6B ``train_4k`` on the 16 x 16 grid in a subprocess."""
+    from repro_torch import configs
+    from repro_torch.core import roofline
+
+    cfg = dataclasses.replace(configs.get_config("yi-6b"), num_layers=TRAIN_LAYERS)
+    B, S = 8, 2048
+    t0 = time.perf_counter()
+    costs = meta_costs(torch, cfg, B, S, TRAIN_MB, TRAIN_STEPS)
     t_meta = time.perf_counter() - t0
     mem = costs.memory
     steady = phase5["records"][1:]
@@ -3927,23 +3975,30 @@ GEMMA_TRAIN = {"gemma-2b": dict(layers=0, batch=8, seq=2048, steps=5),
 GEMMA_MB = 4
 
 
-def train_gemma(torch, smi, arch: str) -> dict:
-    """``launch.train`` of ``arch`` at ``GEMMA_TRAIN``'s cut: finite losses,
-    exact K1-K6 launches a step (``family_step_launches``); then one more
-    step on the run's state, profiled (``profile_step``: device ms by kernel
-    group, the idle share; the attention kernels' share), whose K3, K4 and
-    K5 launches must all be the tensor-core instances (``HD256_INSTANCES``).
-    Returns the run's launches."""
+def train_family(torch, smi, arch: str, run: dict, insts: dict) -> tuple[dict, dict]:
+    """``launch.train`` of ``arch`` at ``run``'s cut (layers, 0 for the
+    config's depth; batch x seq tokens in ``GEMMA_MB`` micro-batches; steps):
+    finite losses, exact K1-K6 launches a step (``family_step_launches``);
+    then one more step on the run's state, profiled (``profile_step``:
+    device ms by kernel group, the idle share; the attention kernels' share),
+    whose K3, K4 and K5 launches must all be ``insts``' instances, and which
+    must launch K5's partial sum once a K5 launch where K5 splits a KV head's
+    query heads over blocks at the micro-batch's shape (``dkv_split``), else
+    never.  Returns (the run's launches, {"records": the run's records,
+    "profile": the profiled step's (device ms, launches) by kernel, "split":
+    K5's split})."""
     from repro_torch import configs
     from repro_torch.core import stepfn
     from repro_torch.core.accumulation import AccumConfig
     from repro_torch.data.synthetic import DataConfig, batch_for
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train
     from repro_torch.optim.adam import AdamConfig
 
-    run = GEMMA_TRAIN[arch]
     cfg = configs.get_config(arch)
     cfg = dataclasses.replace(cfg, num_layers=run["layers"] or cfg.num_layers)
+    split = fa.dkv_split(run["batch"] // GEMMA_MB, run["seq"], cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim, fa.DTYPES[torch.bfloat16])
     argv = ["--arch", arch, "--global-batch", str(run["batch"]), "--seq-len", str(run["seq"]),
             "--microbatches", str(GEMMA_MB), "--steps", str(run["steps"]), "--lr", "3e-3",
             "--seed", str(SEED)] + (["--layers", str(run["layers"])] if run["layers"] else [])
@@ -3986,26 +4041,270 @@ def train_gemma(torch, smi, arch: str) -> dict:
     attn = sum(ms for k, (ms, _) in prof.items() if re.search(ATTENTION_KERNEL, k))
     say(f"  {arch} step: attention (K3-K5) {attn:.1f} device-ms, "
         f"{100 * attn / sum(ms for ms, _ in prof.values()):.1f}% of device time; flash "
-        f"instances {launched}")
-    for kernel, inst in HD256_INSTANCES.items():
+        f"instances {launched}; K5 splits a KV head's query heads over {split} blocks")
+    for kernel, inst in insts.items():
         n = sum(c for name, c in launched.items() if name.startswith(inst))
         if n != per_step[kernel]:
             problems.append(f"{arch}: {n} of a step's {per_step[kernel]} {kernel} launches "
                             f"ran {inst}")
+    n_sum = launched.get("dkv_sum_kernel", 0)
+    if n_sum != (split > 1) * per_step["flash_attention_bwd_dkv"]:
+        problems.append(f"{arch}: {n_sum} launches of K5's partial sum in a step of "
+                        f"{per_step['flash_attention_bwd_dkv']} K5 launches at split {split}")
     del state, step
     say(f"  after {arch}: {free_card(torch)}")
     if problems:
         raise AssertionError("; ".join(problems))
-    return counts
+    return counts, dict(records=res["records"], profile=prof, split=split)
 
 
 def phase_gemma(torch, smi) -> dict:
-    """Phase 17: ``train_gemma`` for each of ``GEMMA_TRAIN``; their launches."""
+    """Phase 17: ``train_family`` for each of ``GEMMA_TRAIN``, whose K3, K4
+    and K5 launches must all be ``HD256_INSTANCES``; their launches."""
     out = {}
-    for arch in GEMMA_TRAIN:
-        for k, v in train_gemma(torch, smi, arch).items():
+    for arch, run in GEMMA_TRAIN.items():
+        for k, v in train_family(torch, smi, arch, run, HD256_INSTANCES)[0].items():
             out[k] = out.get(k, 0) + v
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: granite-20b on the card
+# ---------------------------------------------------------------------------
+# granite-20b (52 layers of width 6144, 48 query heads on one KV head of 128,
+# LayerNorm, plain GELU): served at full depth through launch.serve (40.63 GB
+# of bf16 weights made on the card), trained through launch.train at full
+# width cut to 6 layers (full depth's fp32 state, 325 GB, does not fit), 8 x
+# 2048 tokens in 4 micro-batches, 3 steps
+GRANITE = "granite-20b"
+GRANITE_MB = (2, 2048)                       # the training micro-batch: B, S
+GRANITE_SPLIT = 4                            # K5's G there (PERF.md, PR 27)
+GRANITE_TRAIN = dict(layers=6, batch=8, seq=2048, steps=3)
+GRANITE_SERVE_ARGV = ["--arch", GRANITE, "--requests", "8", "--rate", "0.5",
+                      "--prompt-lens", "64,512,128,320,256,96,448,200", "--max-new", "16,24,32",
+                      "--block-size", "16", "--num-blocks", "2048", "--max-batch", "8",
+                      "--seed", str(SEED)]
+# K3-K5 at granite's training micro-batch in bf16: K5 in its grouped
+# instance (G = GRANITE_SPLIT), beside its partial sum, dkv_sum_kernel
+GRANITE_INSTANCES = {"flash_attention_fwd": "flash_fwd_kernel_tc<128, 128>",
+                     "flash_attention_bwd_dq": "flash_bwd_dq_kernel_tc<128, 128>",
+                     "flash_attention_bwd_dkv": "flash_bwd_dkv_kernel_tc_grouped<128>"}
+
+
+def paged_times(torch, cfg, label: str) -> dict:
+    """K7 at ``cfg``'s heads, phase 2's timing shape (8 slots, contexts
+    65-577, 16-token blocks, a pool of 2049 blocks, bf16): ms back to back
+    from Python, as every kernel is timed, and device ms, a CUDA graph's of
+    the same calls (the wrapper's host cost exceeds the kernel); the plain
+    version's ms; the bound; no library call."""
+    from repro_torch.kernels import paged_attention as pa
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    Hq, Hkv, D, bs = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim, 16
+    ctx = [577, 65, 301, 512, 130, 449, 96, 260]
+    R, N = len(ctx), 2049
+    maxb = -(-max(ctx) // bs) + 1
+    q = torch.randn(R, Hq, D, generator=g, device="cuda").bfloat16()
+    kp, vp = (torch.randn(N, Hkv, bs, D, generator=g, device="cuda").bfloat16()
+              for _ in range(2))
+    bt = torch.randperm(N - 1, generator=g, device="cuda")[:R * maxb].view(R, maxb).int()
+    cl = torch.tensor(ctx, dtype=torch.int32, device="cuda")
+    live = sum(ctx)
+    row = dict(ms=cuda_ms(torch, lambda: pa.paged_attention_cuda(q, kp, vp, bt, cl), 200),
+               device_ms=graph_ms(torch, lambda: pa.paged_attention_cuda(q, kp, vp, bt, cl)),
+               plain_ms=cuda_ms(torch, lambda: pa.plain(q, kp, vp, bt, cl), 20),
+               library_ms=None,
+               bound=bound(2 * (2 * q.numel() + 2 * live * Hkv * D) + 4 * (bt.numel() + R),
+                           4 * Hq * D * live, "bfloat16"))
+    say(f"  time paged_attention_decode at {label}, q [{R}, {Hq}, {D}] kv heads {Hkv} bf16, "
+        f"ctx {ctx}: kernel_ms={row['ms']:.4f} device_ms={row['device_ms']:.4f} plain_ms="
+        f"{row['plain_ms']:.4f} bound_ms={row['bound'][0]:.4f} ({row['bound'][1]})")
+    return row
+
+
+def granite_checks(torch, F, failures) -> dict:
+    """K3-K5 at granite-20b's training micro-batch (q [2, 2048, 48, 128], k/v
+    [.., 1, 128]: MQA, rep 48) against their plain versions with phase 2's
+    training-shape tolerances, K4's row check and its skipped-tile control
+    included; the bf16 launches must be ``GRANITE_INSTANCES``.  K5 must split
+    each key tile's 48 query heads over ``GRANITE_SPLIT`` blocks and give the
+    same bits over ``BWD_REPEATS`` calls.  K7 at rep 48 (``paged_checks``).
+    Then each kernel's time, bound and SDPA's time.  Returns {"granite":
+    rows by kernel}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    say("K3-K5 and K7 at granite-20b's shapes (MQA, rep 48, head dim 128; phase 2's "
+        "training-shape tolerances)")
+    cfg = configs.get_config(GRANITE)
+    B, S = GRANITE_MB
+    Hq, Hkv, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    errs = {}
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        failures += shape_checks(torch, cfg, B, S, GRANITE, errs=errs, dq_control=True)
+        torch.cuda.synchronize()
+    launched = profiled_instances(prof)
+    say(f"  granite-20b launched as: {launched}")
+    for kernel, inst in GRANITE_INSTANCES.items():
+        n = sum(c for name, c in launched.items() if name.startswith(inst))
+        if n != 1:
+            failures.append(f"granite-20b: {kernel} ran {n} of its 1 launch as {inst}")
+    split = fa.dkv_split(B, S, Hq, Hkv, D, fa.DTYPES[torch.bfloat16])
+    if launched.get("dkv_sum_kernel", 0) != (split > 1):
+        failures.append(f"granite-20b: K5 at split {split} ran its partial sum "
+                        f"{launched.get('dkv_sum_kernel', 0)} times")
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    q, do = (torch.randn(B, S, Hq, D, generator=g, device="cuda").bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device="cuda").bfloat16() for _ in range(2))
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    runs = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta) for _ in range(BWD_REPEATS)]
+    same = all(torch.equal(a, b) for r in runs[1:] for a, b in zip(r, runs[0]))
+    say(f"  K5 at granite-20b's shape, query heads split over {split} blocks a key tile "
+        f"(kept: {GRANITE_SPLIT}): {BWD_REPEATS} calls {'bit for bit equal' if same else 'DIFFER'}")
+    if split != GRANITE_SPLIT or not same:
+        failures.append(f"granite-20b: K5 split {split} (the rule's G is {GRANITE_SPLIT}), "
+                        f"repeated calls equal: {same}")
+    del q, do, k, v, out, lse, delta, runs
+    failures += paged_checks(torch, cfg, GRANITE)
+    rows = attention_times(torch, F, cfg, B, S, errs, GRANITE)
+    rows["paged_attention_decode"] = paged_times(torch, cfg, GRANITE)
+    torch.cuda.empty_cache()
+    return {"granite": rows}
+
+
+def serve_granite(torch, np, smi) -> dict:
+    """granite-20b at full depth through ``launch.serve.main``: bf16 weights
+    made on the card from ``SEED`` (passed in, as the entry point would draw
+    them), 8 requests of ``GRANITE_SERVE_ARGV``; every request's budget, the
+    tokens in the vocabulary, every call's logits finite, exact K3 and K7
+    launches and no K1 (LayerNorm); then 10 decode steps profiled."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rmsnorm as rn
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.cache import PagedCacheConfig
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.scheduler import Request, SchedulerConfig, poisson_trace
+
+    cfg = configs.get_config(GRANITE)
+    L = cfg.num_layers
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED), "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for _, p in T.named_parameters(params))
+    say(f"  granite-20b: {L} layers, d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+        f"heads of {cfg.head_dim}, {n_params / 1e9:.3f} B parameters in bf16, made on the card "
+        f"in {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+    warm_engine(cfg, params)
+    with finite_logits(torch) as finite:
+        torch.cuda.synchronize()
+        rn.launches = fa.launches = pa.launches = 0
+        res = serve.main(GRANITE_SERVE_ARGV, params=params)
+        counts = {"rmsnorm": rn.launches, "flash_attention_fwd": fa.launches,
+                  "paged_attention_decode": pa.launches}
+    want = {"rmsnorm": 0, "flash_attention_fwd": L * res["prefill_calls"],
+            "paged_attention_decode": L * res["decode_steps"]}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    say(f"  granite-20b engine on {smi}: {res['requests']} requests, {res['emitted_tokens']} "
+        f"tokens, {res['prefill_calls']} prefill calls, {res['decode_steps']} decode steps, "
+        f"{res['preemptions']} preemptions in {res['seconds']:.3f} s -> {res['tok_per_s']:.1f} "
+        f"tok/s; TTFT ms p50 {res['ttft_ms']['p50']:.2f} p99 {res['ttft_ms']['p99']:.2f}; ITL ms "
+        f"p50 {res['itl_ms']['p50']:.2f} p99 {res['itl_ms']['p99']:.2f}; peak memory "
+        f"{peak:.2f} GB")
+    say(f"  launches {counts} expected {want}")
+    a = dict(zip(GRANITE_SERVE_ARGV[::2], GRANITE_SERVE_ARGV[1::2]))
+    reqs = poisson_trace(np.random.default_rng(SEED), n_requests=int(a["--requests"]),
+                         rate=float(a["--rate"]), vocab=cfg.vocab_size,
+                         prompt_lens=[int(x) for x in a["--prompt-lens"].split(",")],
+                         max_new=[int(x) for x in a["--max-new"].split(",")])
+    out = res["outputs"]
+    problems = []
+    if sorted(out) != sorted(r.rid for r in reqs) or any(
+            len(out[r.rid]) != r.max_new_tokens for r in reqs):
+        problems.append("not every request finished its budget")
+    if any(not 0 <= t < cfg.vocab_size for toks in out.values() for t in toks):
+        problems.append("token outside the vocabulary")
+    if not finite or not bool(torch.stack(finite).all()):
+        problems.append("non-finite logits")
+    if counts != want:
+        problems.append(f"launch counts {counts} != {want}")
+    if problems:
+        raise AssertionError("granite-20b serving: " + "; ".join(problems))
+    rng = np.random.default_rng(SEED + 1)
+    eng = ServingEngine(cfg, params, SchedulerConfig(
+        cache=PagedCacheConfig(num_blocks=512, block_size=16, max_blocks_per_seq=36),
+        max_batch=8))
+    eng.submit_all([Request(rid=i, prompt=tuple(int(t) for t in rng.integers(
+        0, cfg.vocab_size, 256)), max_new_tokens=40) for i in range(8)])
+    eng.step()                                        # prefill of all 8, first decode
+    eng.step()
+    decode_profile(torch, eng, "granite-20b, contexts ~260")
+    del eng, params
+    return counts
+
+
+def granite_dryrun(torch) -> float:
+    """``meta_costs`` of ``GRANITE_TRAIN``'s run: its predicted peak GB,
+    printed."""
+    from repro_torch import configs
+
+    run = GRANITE_TRAIN
+    cfg = dataclasses.replace(configs.get_config(GRANITE), num_layers=run["layers"])
+    mem = meta_costs(torch, cfg, run["batch"], run["seq"], GEMMA_MB, run["steps"]).memory
+    pred = mem["device_bytes"] / 1e9
+    say(f"  the dry run of granite-20b's {run['layers']}-layer training step on meta: "
+        f"predicted peak {pred:.2f} GB (argument {mem['argument_bytes'] / 1e9:.2f}, temp "
+        f"{mem['temp_bytes'] / 1e9:.2f})")
+    return pred
+
+
+def phase_granite(torch, F, np, smi) -> tuple[dict, dict]:
+    """Phase 18: (a) the kernels at granite-20b's shapes (``granite_checks``),
+    (b) granite-20b served at full depth, (c) its dry-run peak and
+    ``train_family`` at ``GRANITE_TRAIN``'s cut (the profiled step's K5
+    launches the split ``dkv_split`` chose, ``GRANITE_SPLIT``), the measured
+    peak within 0.5-2x of the prediction.  Returns the launches of (b) and
+    (c), and (a)'s rows by kernel."""
+    t0 = time.perf_counter()
+    failures = []
+    rows = granite_checks(torch, F, failures)["granite"]
+    if failures:
+        raise AssertionError(f"kernels at granite-20b's shapes: {failures}")
+    say(f"  (a) {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+    counts = {}
+    t0 = time.perf_counter()
+    for name, c in serve_granite(torch, np, smi).items():
+        counts[name] = counts.get(name, 0) + c
+    say(f"  (b) {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+    t0 = time.perf_counter()
+    pred = granite_dryrun(torch)
+    train_counts, res = train_family(torch, smi, GRANITE, GRANITE_TRAIN, GRANITE_INSTANCES)
+    for name, c in train_counts.items():
+        counts[name] = counts.get(name, 0) + c
+    prof = res["profile"]
+    total = sum(ms for ms, _ in prof.values())
+    gemm = sum(ms for k, (ms, _) in prof.items() if any(n in k.lower() for n in GEMM_NAMES))
+    attn = sum(ms for k, (ms, _) in prof.items() if re.search(ATTENTION_KERNEL, k))
+    peak = max(r["peak_mem_gb"] for r in res["records"])
+    say(f"  granite-20b step: device {total:.1f} ms, GEMM {gemm:.1f} ms, attention (K3-K5) "
+        f"{attn:.1f} ms ({100 * attn / total:.1f}%), elementwise and the rest "
+        f"{total - gemm - attn:.1f} ms; peak {peak:.2f} GB against the dry run's {pred:.2f} GB "
+        f"(ratio {pred / peak:.3f})")
+    say(f"  (c) {time.perf_counter() - t0:.1f} s; {free_card(torch)}")
+    problems = []
+    if res["split"] != GRANITE_SPLIT:
+        problems.append(f"K5 split {res['split']} at the training micro-batch, not "
+                        f"{GRANITE_SPLIT}")
+    if not 0.5 <= pred / peak <= 2.0:
+        problems.append(f"predicted peak {pred:.2f} GB outside 0.5-2x of the measured "
+                        f"{peak:.2f} GB")
+    if problems:
+        raise AssertionError("granite-20b training: " + "; ".join(problems))
+    return counts, rows
 
 
 KERNELS = {
@@ -4134,6 +4433,13 @@ def main() -> int:
         gemma_counts = phase_gemma(torch, smi)
         say(f"[phase 17] the gemma family trained on the card ok; "
             f"{time.perf_counter() - t0:.1f} s")
+
+        t0 = time.perf_counter()
+        granite_counts, granite_rows = phase_granite(torch, F, np, smi)
+        for name, r in granite_rows.items():
+            rows[name]["granite"] = r
+        say(f"[phase 18] granite-20b's kernels held, served at full depth and trained at "
+            f"full width ok; {time.perf_counter() - t0:.1f} s")
     except Exception:  # noqa: BLE001 — report any phase's failure and exit nonzero
         traceback.print_exc()
         return 1
@@ -4142,12 +4448,12 @@ def main() -> int:
     # 9's (the plan-driven run's), 10's (the MoE serving and training runs),
     # 11's (the recurrent families' serving and training runs), 12's (the
     # families' pipelines and the input modes' training runs), 13's (the
-    # group serving calls), 15's (the pod axis's training runs) and 17's (the
-    # gemma training runs)
+    # group serving calls), 15's (the pod axis's training runs), 17's (the
+    # gemma training runs) and 18's (granite-20b's serving and training runs)
     counts = {name: sum(c.get(name, 0) for c in (
         serve_counts, train_counts, group_counts, pipe_counts, sup_counts, plan_counts,
         moe_counts, recurrent_counts, family_counts, group_serve_counts, pod_counts,
-        gemma_counts))
+        gemma_counts, granite_counts))
         for name in KERNELS}
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -4158,7 +4464,7 @@ def main() -> int:
          **({"device_ms": rows[name]["device_ms"]} if "device_ms" in rows[name] else {}),
          **{f"{hd}_{key}": (rows[name][hd]["bound"][0] if key == "bound_ms"
                             else rows[name][hd][key])
-            for hd in ("hd112", "hd256", "gemma2") if hd in rows[name]
+            for hd in ("hd112", "hd256", "gemma2", "granite", "fp32") if hd in rows[name]
             for key in ("ms", "bound_ms", "library_ms")}}
         for name, (src, rep) in KERNELS.items()]}
     say(f"[phase 14] total {time.perf_counter() - t_all:.1f} s")

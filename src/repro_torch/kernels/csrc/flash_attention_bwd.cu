@@ -41,6 +41,10 @@
 //     dV accumulators in registers throughout; at the end each adds the
 //     other's partial of one output through shared memory.  So the GQA sum
 //     stays in the block, in a fixed order, with no atomics (deterministic).
+//     Where the key tiles give fewer blocks than SMs (MQA: granite-20b's one
+//     KV head at 2 x 2048, 64 tiles for 132 SMs, each walking 48 query
+//     heads), a KV head's query heads are split over G blocks, as at head
+//     dim 256 below; elsewhere G is 1 and the block stores its sums itself;
 //   * Causal balance: blocks are numbered so that the heaviest launch first
 //     (K4: the last q tiles, which see the most keys; K5: the first key
 //     tiles, which see the most queries).  At the training shape K5 has
@@ -663,12 +667,12 @@ __device__ __forceinline__ void stash(const float (&acc)[N], float* dst, int t) 
   for (int i = 0; i < N; ++i) dst[i * TC_THREADS + t] = acc[i];
 }
 
-// ... and the other's added to them, scaled and stored as bf16: rows r0
-// (at out) and r0 + 8 (row_step further), while `rows` > 0 and > 8; the
-// columns below DT
+// ... and the other's added to them and stored: scaled, as bf16, at `out`,
+// or, given a workspace slice `ws`, unscaled in fp32 there; rows r0 and r0 + 8
+// (row_step further), while `rows` > 0 and > 8; the columns below DT
 template <int D, int DT = D>
 __device__ __forceinline__ void add_store(float (&acc)[D / 2], const float* src, int t,
-                                          bf16* out, int64_t row_step, int rows,
+                                          bf16* out, float* ws, int64_t row_step, int rows,
                                           float scale) {
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] += src[i * TC_THREADS + t];
@@ -678,38 +682,53 @@ __device__ __forceinline__ void add_store(float (&acc)[D / 2], const float* src,
 #pragma unroll
     for (int j = 0; j < DT / 8; ++j) {
       const int x = 4 * j + 2 * e;
-      *reinterpret_cast<uint32_t*>(out + e * row_step + 8 * j) =
-          tc::pack_bf16(acc[x] * scale, acc[x + 1] * scale);
+      if (ws)
+        *reinterpret_cast<float2*>(ws + e * row_step + 8 * j) = make_float2(acc[x], acc[x + 1]);
+      else
+        *reinterpret_cast<uint32_t*>(out + e * row_step + 8 * j) =
+            tc::pack_bf16(acc[x] * scale, acc[x + 1] * scale);
     }
   }
 }
 
-// K5.  Grid: one block per (key tile, KV head, batch), numbered so that
-// the key tiles with the most queries come first under causal.  Two
-// consumer warpgroups share the block's K and V and split its walk over
-// (rep head, q tile) steps, even steps to the first and odd to the second,
-// each with its own ring; at the end each adds the other's partial of one
-// output (dk or dv) through shared memory, in a fixed order.
-template <int D, int DT = D>
-__global__ void __launch_bounds__(2 * TC_THREADS)
-flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ dO,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        bf16* __restrict__ dk, bf16* __restrict__ dv, int B, int S, int Hq,
-                        int Hkv, int64_t qsB, int64_t qsS, int64_t qsH, int64_t ksB,
-                        int64_t ksS, int64_t ksH, int64_t vsB, int64_t vsS, int64_t vsH,
-                        int64_t dsB, int64_t dsS, int64_t dsH, int kv_len, int causal,
-                        int window, float softcap, float scale) {
+#define RT_DKV_TC_PARAMS                                                                  \
+  const bf16 *__restrict__ q, const bf16 *__restrict__ k, const bf16 *__restrict__ v,    \
+      const bf16 *__restrict__ dO, const float *__restrict__ lse,                        \
+      const float *__restrict__ delta, bf16 *__restrict__ dk, bf16 *__restrict__ dv,     \
+      float *__restrict__ ws, int G, int B, int S, int Hq, int Hkv, int64_t qsB,         \
+      int64_t qsS, int64_t qsH, int64_t ksB, int64_t ksS, int64_t ksH, int64_t vsB,      \
+      int64_t vsS, int64_t vsH, int64_t dsB, int64_t dsS, int64_t dsH, int kv_len,       \
+      int causal, int window, float softcap, float scale
+#define RT_DKV_TC_ARGS                                                                    \
+  q, k, v, dO, lse, delta, dk, dv, ws, G, B, S, Hq, Hkv, qsB, qsS, qsH, ksB, ksS, ksH,   \
+      vsB, vsS, vsH, dsB, dsS, dsH, kv_len, causal, window, softcap, scale
+
+// K5 at head dim 64, 112 and 128.  Grid: one block per (key tile, KV head,
+// batch, head group g of G), numbered so that the key tiles with the most
+// queries come first under causal; the block walks the rep / G query heads
+// of group g.  Two consumer warpgroups share the block's K and V and split
+// its walk over (head, q tile) steps, even steps to the first and odd to the
+// second, each with its own ring; at the end each adds the other's partial
+// of one output (dk or dv) through shared memory, in a fixed order.  Without
+// SPLIT, G is 1 and that sum is stored as bf16; with it (MQA with few key
+// tiles: granite-20b's one KV head of 48 query heads gives 64 blocks for
+// 132 SMs at 2 x 2048) in fp32 to the block's slice of the workspace [G, 2,
+// B, S, Hkv, D], which dkv_sum_kernel adds in the order g = 0, 1, ...:
+// deterministic, no atomics.
+template <int D, int DT, bool SPLIT>
+__device__ __forceinline__ void dkv_tc(RT_DKV_TC_PARAMS) {
+  static_assert(!SPLIT || DT == D, "a split instance has no zero columns");
+  if constexpr (!SPLIT) G = 1;
   constexpr uint32_t TILE = DkvTc<D>::TILE;
   constexpr int NACC = D / 2;
   extern __shared__ __align__(1024) uint8_t smem_tc[];
   const uint32_t s0 = tc::smem_addr(smem_tc);
   const uint32_t sK = (s0 + 1023u) & ~1023u, sV = sK + TILE;
 
-  const int id = blockIdx.x, per_tile = Hkv * B;
+  const int id = blockIdx.x, per_tile = G * Hkv * B;
   const int k0 = id / per_tile * TT;
-  const int hk = id % per_tile % Hkv, b = id % per_tile / Hkv;
-  const int rep = Hq / Hkv;
+  const int g = id % per_tile % G, hk = id % per_tile / G % Hkv, b = id % per_tile / G / Hkv;
+  const int rep = Hq / Hkv, rg = rep / G;
   const int wg = threadIdx.x / TC_THREADS, tid = threadIdx.x % TC_THREADS;
   const int warp = tid >> 5, lane = tid & 31;
   // this warpgroup's ring: two stages of (Q, dO) tiles, then its lse/delta rows
@@ -717,18 +736,19 @@ flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const uint32_t sRows = sK + 10 * TILE + wg * 4 * TT * sizeof(float);
   const float* rows_s = reinterpret_cast<const float*>(smem_tc + (sRows - s0));
 
-  // q tiles that can see a key of this block, for each rep head
+  // q tiles that can see a key of this block, for each head of the group
   const int nq = (S + TT - 1) / TT;
   const int k_last = min(k0 + TT, S) - 1;
   const int qlo = causal ? k0 / TT : 0;
   const int qhi = window > 0 ? min(nq, (k_last + window - 1) / TT + 1) : nq;
   const int nqt = max(qhi - qlo, 0);
-  const int n = k0 < kv_len ? rep * nqt : 0;
+  const int n = k0 < kv_len ? rg * nqt : 0;
   const int nw = (n - wg + 1) / 2;          // this warpgroup's steps wg, wg + 2, ..
 
-  // step i: rep head i / nqt, q tile qlo + i % nqt, into ring stage `st`
+  // step i: head g * rg + i / nqt of the group, q tile qlo + i % nqt, into
+  // ring stage `st`
   auto issue = [&](int i, int st) {
-    const int h = hk * rep + i / nqt, q0 = (qlo + i % nqt) * TT;
+    const int h = hk * rep + g * rg + i / nqt, q0 = (qlo + i % nqt) * TT;
     const uint32_t sQ = sQO + st * 2 * TILE;
     tc::load_tile<D, TC_THREADS, DT>(sQ, q + b * qsB + h * qsH, qsS, q0, S, tid);
     tc::load_tile<D, TC_THREADS, DT>(sQ + TILE, dO + b * dsB + h * dsH, dsS, q0, S, tid);
@@ -820,11 +840,27 @@ flash_bwd_dkv_kernel_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   const int64_t row0 = (((int64_t)b * S + k0 + r0) * Hkv + hk) * DT + c2;
   const int rows = S - k0 - r0;             // rows r0 and r0 + 8 are keys if > 0, > 8
+  float* w = nullptr;
+  if constexpr (SPLIT) w = ws + (2 * g + wg) * ((int64_t)B * S * Hkv * DT) + row0;
   if (wg == 0)
-    add_store<D, DT>(dk_acc, other, tid, dk + row0, (int64_t)8 * Hkv * DT, rows, scale);
+    add_store<D, DT>(dk_acc, other, tid, dk + row0, w, (int64_t)8 * Hkv * DT, rows, scale);
   else
-    add_store<D, DT>(dv_acc, other, tid, dv + row0, (int64_t)8 * Hkv * DT, rows, 1.f);
+    add_store<D, DT>(dv_acc, other, tid, dv + row0, w, (int64_t)8 * Hkv * DT, rows, 1.f);
 }
+
+template <int D, int DT = D>
+__global__ void __launch_bounds__(2 * TC_THREADS) flash_bwd_dkv_kernel_tc(RT_DKV_TC_PARAMS) {
+  dkv_tc<D, DT, false>(RT_DKV_TC_ARGS);
+}
+
+// G > 1 groups of a KV head's query heads (DT = D)
+template <int D>
+__global__ void __launch_bounds__(2 * TC_THREADS)
+flash_bwd_dkv_kernel_tc_grouped(RT_DKV_TC_PARAMS) {
+  dkv_tc<D, D, true>(RT_DKV_TC_ARGS);
+}
+#undef RT_DKV_TC_PARAMS
+#undef RT_DKV_TC_ARGS
 
 // ---------------------------------------------------------------------------
 // K5 in bf16 at head dim 256 on the tensor cores
@@ -836,17 +872,27 @@ template <int D> struct DkvSplit {
   static constexpr size_t bytes = 6 * TILE + 2 * 2 * TT * sizeof(float) + 1024;
 };
 
-// the query heads of a KV head that one block walks: rep / G of them, so
-// that a shape with few key tiles (gemma-2b's one KV head: 64 tiles for
-// 132 SMs) still fills the card; 1 where the key tiles alone give two
-// blocks an SM (gemma2-9b at S 8192: 1024)
-int dkv_split(int B, int S, int Hq, int Hkv) {
+// the query heads of a KV head that one K5 block walks: rep / G of them,
+// so that a shape with few key tiles still fills the card.  Both kernels
+// hold one block an SM.  At head dim 256: the smallest G at which the key
+// tiles give two blocks an SM (gemma-2b's one KV head, 64 tiles: 8; gemma2-9b
+// at S 8192: 1).  Below it: 1 wherever the key tiles alone give every SM a
+// block (Yi-6B's training shape: 256 tiles), so those shapes run as they
+// did before the split; else the smallest G at which the heaviest block,
+// the first key tile's rep / G x nkt steps under causal, walks no more than
+// an SM's share of all the blocks' steps, rep Hkv B nkt (nkt + 1) / 2 / sms
+// (granite-20b's one KV head of 48 query heads at 2 x 2048: 4)
+int dkv_split(int B, int S, int Hq, int Hkv, int D) {
   int dev = 0, sms = 132;
   if (cudaGetDevice(&dev) == cudaSuccess)
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int base = (S + TT - 1) / TT * Hkv * B, rep = Hq / Hkv;
-  for (int g = 1; g < rep; ++g)
-    if (rep % g == 0 && base * g >= 2 * sms) return g;
+  const int nkt = (S + TT - 1) / TT, base = nkt * Hkv * B, rep = Hq / Hkv;
+  if (D < 256 && base >= sms) return 1;
+  for (int g = 1; g < rep; ++g) {
+    const bool fills = D == 256 ? base * g >= 2 * sms
+                                : (int64_t)g * Hkv * B * (nkt + 1) >= 2 * sms;
+    if (rep % g == 0 && fills) return g;
+  }
   return rep;
 }
 
@@ -1114,39 +1160,27 @@ int launch_dq_tc(const void* q, const void* k, const void* v, const void* o, con
   return static_cast<int>(cudaGetLastError());
 }
 
+// K5's tensor-core kernel at head dim D over G head groups (at 256 the
+// kernel that splits the head dim between its warpgroups; below it the
+// grouped instance where G > 1), then, with G > 1, the sum of the groups'
+// fp32 partials in `ws`
 template <int D, int DT = D>
 int launch_dkv_tc(const void* q, const void* k, const void* v, const void* dO,
-                  const void* lse, const void* delta, void* dk, void* dv, int B, int S,
-                  int Hq, int Hkv, Strides st_, int kv_len, int causal, int window,
-                  float softcap, cudaStream_t st) {
-  auto kern = flash_bwd_dkv_kernel_tc<D, DT>;
-  const size_t smem = DkvTc<D>::bytes;
+                  const void* lse, const void* delta, void* dk, void* dv, void* ws, int G,
+                  int B, int S, int Hq, int Hkv, Strides st_, int kv_len, int causal,
+                  int window, float softcap, cudaStream_t st) {
+  auto kern = [G] {
+    if constexpr (D == 256)
+      return flash_bwd_dkv_kernel_tc_split<D>;
+    else
+      return G > 1 ? flash_bwd_dkv_kernel_tc_grouped<D> : flash_bwd_dkv_kernel_tc<D, DT>;
+  }();
+  const size_t smem = D == 256 ? DkvSplit<D>::bytes : DkvTc<D>::bytes;
+  if (G < 1 || (Hq / Hkv) % G != 0 || (G > 1 && (ws == nullptr || DT != D))) return kBadArgs;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int blocks = (S + TT - 1) / TT * Hkv * B;
-  kern<<<blocks, 2 * TC_THREADS, smem, st>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dO), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, S,
-      Hq, Hkv, st_.q[0], st_.q[1], st_.q[2], st_.k[0], st_.k[1], st_.k[2], st_.v[0],
-      st_.v[1], st_.v[2], st_.dO[0], st_.dO[1], st_.dO[2], kv_len, causal, window, softcap,
-      1.f / sqrtf(static_cast<float>(DT)));
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_dkv_split(const void* q, const void* k, const void* v, const void* dO,
-                     const void* lse, const void* delta, void* dk, void* dv, void* ws, int G,
-                     int B, int S, int Hq, int Hkv, Strides st_, int kv_len, int causal,
-                     int window, float softcap, cudaStream_t st) {
-  auto kern = flash_bwd_dkv_kernel_tc_split<D>;
-  const size_t smem = DkvSplit<D>::bytes;
-  if (G < 1 || (Hq / Hkv) % G != 0 || (G > 1 && ws == nullptr)) return kBadArgs;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const float scale = 1.f / sqrtf(static_cast<float>(D));
+  const float scale = 1.f / sqrtf(static_cast<float>(DT));
   const int blocks = (S + TT - 1) / TT * Hkv * B * G;
   kern<<<blocks, 2 * TC_THREADS, smem, st>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -1157,7 +1191,7 @@ int launch_dkv_split(const void* q, const void* k, const void* v, const void* dO
       causal, window, softcap, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess || G == 1) return static_cast<int>(err);
-  const int64_t n = (int64_t)B * S * Hkv * D;
+  const int64_t n = (int64_t)B * S * Hkv * DT;
   const int sum_blocks = static_cast<int>(std::min<int64_t>((n / 4 + 255) / 256, 1056));
   dkv_sum_kernel<<<sum_blocks, 256, 0, st>>>(static_cast<const float*>(ws),
                                             static_cast<bf16*>(dk), static_cast<bf16*>(dv), G,
@@ -1205,14 +1239,20 @@ extern "C" int rt_flash_attention_bwd_dq(
   return kBadArgs;
 }
 
-// How many blocks share each key tile's query heads in K5 (the G of
-// flash_bwd_dkv_kernel_tc_split): 1 for every instance but bf16 at head dim
-// 256.  Above 1 the caller passes K5 an fp32 workspace of 2 G B S Hkv D
-// elements.
+// the K5 instances that split a KV head's query heads over blocks: bf16 at
+// head dims 64, 128 and 256 (not fp32, and not 112, whose tiles are wider
+// than its rows)
+static bool splits(int D, int dtype) {
+  return dtype == kBFloat16 && (D == 64 || D == 128 || D == 256);
+}
+
+// How many blocks share each key tile's query heads in K5 (dkv_split's G):
+// 1 for an instance that does not split.  Above 1 the caller passes K5 an
+// fp32 workspace of 2 G B S Hkv D elements.
 extern "C" int rt_flash_attention_bwd_dkv_split(int B, int S, int Hq, int Hkv, int D,
                                                 int dtype) {
   if (bad_args(B, S, Hq, Hkv, S)) return kBadArgs;
-  return dtype == kBFloat16 && D == 256 ? dkv_split(B, S, Hq, Hkv) : 1;
+  return splits(D, dtype) ? dkv_split(B, S, Hq, Hkv, D) : 1;
 }
 
 // as above; dk and dv are dense [B, S, Hkv, D] tensors of k's dtype, and
@@ -1227,15 +1267,15 @@ extern "C" int rt_flash_attention_bwd_dkv(
     const long long* v_strides, const long long* do_strides, int kv_len, int causal,
     int window, float softcap, int dtype, void* stream) {
   if (bad_args(B, S, Hq, Hkv, kv_len)) return kBadArgs;
-  if (split != 1 && !(dtype == kBFloat16 && D == 256)) return kBadArgs;
+  if (split != 1 && !splits(D, dtype)) return kBadArgs;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides s{q_strides, k_strides, v_strides, nullptr, do_strides};
 #define RT_DKV(T_, D_, DT_) \
   launch_dkv<T_, D_, DT_>(q, k, v, dO, lse, delta, dk, dv, B, S, Hq, Hkv, s, kv_len, causal, \
                           window, softcap, st)
 #define RT_DKV_TC(D_, DT_) \
-  launch_dkv_tc<D_, DT_>(q, k, v, dO, lse, delta, dk, dv, B, S, Hq, Hkv, s, kv_len, causal, \
-                         window, softcap, st)
+  launch_dkv_tc<D_, DT_>(q, k, v, dO, lse, delta, dk, dv, ws, split, B, S, Hq, Hkv, s, kv_len, \
+                         causal, window, softcap, st)
   if (dtype == kFloat32) {
     if (D == 64) return RT_DKV(float, 64, 64);
     if (D == 112) return RT_DKV(float, 128, 112);
@@ -1245,9 +1285,7 @@ extern "C" int rt_flash_attention_bwd_dkv(
     if (D == 64) return RT_DKV_TC(64, 64);
     if (D == 112) return RT_DKV_TC(128, 112);
     if (D == 128) return RT_DKV_TC(128, 128);
-    if (D == 256)
-      return launch_dkv_split<256>(q, k, v, dO, lse, delta, dk, dv, ws, split, B, S, Hq, Hkv,
-                                   s, kv_len, causal, window, softcap, st);
+    if (D == 256) return RT_DKV_TC(256, 256);
   }
 #undef RT_DKV
 #undef RT_DKV_TC

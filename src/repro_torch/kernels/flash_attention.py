@@ -11,8 +11,9 @@ serving prefill) K3, K4 and K5 run on the tensor cores (wgmma) at every head
 dim; at head dim 256 K4's and K5's two warpgroups split the head dim.  fp32
 runs on the fp32 CUDA cores.  Head dim 112 (Zamba2-7B's shared attention)
 runs head-dim-128 tiles in instances compiled for 112 (zero columns in the
-tiles, no padded copy).  K5 at head dim 256 may split a KV head's query heads over several
-blocks (``dkv_split``); its wrapper then gives it an fp32 workspace.
+tiles, no padded copy).  bf16 K5 may split a KV head's query heads over several
+blocks (``dkv_split``: MQA with few key tiles, as gemma-2b's or granite-20b's
+training micro-batch); its wrapper then gives it an fp32 workspace.
 """
 from __future__ import annotations
 
@@ -112,9 +113,10 @@ def flash_attention_bwd_dq_cuda(q, k, v, out, lse, do, *, causal: bool = True,
 def dkv_split(B: int, S: int, Hq: int, Hkv: int, D: int, dtype: int,
               device: int | None = None) -> int:
     """K5's split of each KV head's query heads over blocks, as its C entry
-    chooses it from the shape and the card's SM count (1 but for bf16 at head
-    dim 256; ``device`` defaults to the current card); above 1 the kernel
-    sums fp32 partials from a workspace in a fixed order."""
+    chooses it from the shape and the card's SM count (1 in fp32, at head
+    dim 112, and below head dim 256 wherever the key tiles give every SM a
+    block; ``device`` defaults to the current card); above 1 the kernel sums
+    fp32 partials from a workspace in a fixed order."""
     return _dkv_split(B, S, Hq, Hkv, D, dtype,
                       torch.cuda.current_device() if device is None else device)
 

@@ -430,17 +430,56 @@ def test_hd256_dkv_is_deterministic_with_the_head_split(cuda):
         assert torch.equal(r[0], runs[0][0]) and torch.equal(r[1], runs[0][1])
 
 
+# granite-20b's training micro-batch (one KV head of 48 query heads: 64 key
+# tiles for 132 SMs) and the split K5 keeps there (PERF.md, PR 27)
+GRANITE_K5 = (2, 2048, 48, 1, 128)
+GRANITE_SPLIT = 4
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("D,split", [(256, 3), (128, 2)])
-def test_dkv_refuses_a_split_it_cannot_take(cuda, monkeypatch, D, split):
+def test_dkv_splits_granite_heads_and_not_yi(cuda):
+    """bf16 K5 at head dim 128 splits granite-20b's 48 query heads over
+    ``GRANITE_SPLIT`` blocks a key tile and sums their fp32 partials in a
+    fixed order: five calls give the same bits, within the plain version's
+    2e-2 of each output's scale.  At Yi-6B's training micro-batch the key
+    tiles alone give every SM a block, and K5 does not split."""
+    from torch.profiler import ProfilerActivity, profile
+
+    bf16 = fa.DTYPES[torch.bfloat16]
+    assert fa.dkv_split(2, 2048, 32, 4, 128, bf16) == 1
+    B, S, Hq, Hkv, D = GRANITE_K5
+    assert fa.dkv_split(B, S, Hq, Hkv, D, bf16) == GRANITE_SPLIT
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, do = (torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    out, lse = fa.flash_attention_fwd_cuda(q, k, v)
+    _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        runs = [fa.flash_attention_bwd_dkv_cuda(q, k, v, do, lse, delta) for _ in range(5)]
+        torch.cuda.synchronize()
+    assert _instances(prof) == {"flash_bwd_dkv_kernel_tc_grouped<128>": 5}, _instances(prof)
+    for r in runs[1:]:
+        assert torch.equal(r[0], runs[0][0]) and torch.equal(r[1], runs[0][1])
+    want = flash_attention_bwd_dkv_ref(q, k, v, do, lse, delta)
+    for name, got, w in zip(("dk", "dv"), runs[0], want):
+        tol = 2e-2 * max(1.0, w.float().abs().max().item())
+        err = (got.float() - w.float()).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D,split,dtype", [(256, 3, torch.bfloat16), (128, 3, torch.bfloat16),
+                                           (112, 2, torch.bfloat16), (128, 2, torch.float32)])
+def test_dkv_refuses_a_split_it_cannot_take(cuda, monkeypatch, D, split, dtype):
     """K5's C entry takes the split its wrapper sized the workspace for and
     refuses one that does not divide a KV head's query heads (8 / 3), or one
-    above 1 for an instance that does not split (head dim 128)."""
+    above 1 for an instance that does not split (head dim 112, whose tiles
+    are wider than its rows, and fp32)."""
     from repro_torch.kernels._build import KernelError
     B, S, Hq, Hkv = 1, 256, 8, 1
     g = torch.Generator(device=cuda).manual_seed(4)
-    q, do = (torch.randn(B, S, Hq, D, generator=g, device=cuda).bfloat16() for _ in range(2))
-    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).bfloat16() for _ in range(2))
+    q, do = (torch.randn(B, S, Hq, D, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, Hkv, D, generator=g, device=cuda).to(dtype) for _ in range(2))
     out, lse = fa.flash_attention_fwd_cuda(q, k, v)
     _, delta = fa.flash_attention_bwd_dq_cuda(q, k, v, out, lse, do)
     monkeypatch.setattr(fa, "dkv_split", lambda *args: split)

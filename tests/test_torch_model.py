@@ -32,6 +32,9 @@ CASES = {
     # window + softcaps + rmsnorm_p1 + tied and scaled embeddings + GeGLU
     "gemma2-9b-smoke": (jconfigs.get_config("gemma2-9b", smoke=True),
                         configs.get_config("gemma2-9b", smoke=True)),
+    # MQA (4 query heads on one KV head), LayerNorm with bias, plain GELU MLP
+    "granite-20b-smoke": (jconfigs.get_config("granite-20b", smoke=True),
+                          configs.get_config("granite-20b", smoke=True)),
 }
 TOL = dict(rtol=1e-5, atol=1e-5)
 

@@ -35,6 +35,9 @@ CASES = {
     # LayerNorm and a plain GELU MLP: no RMSNorm kernel on the path
     "paper-x32-smoke": (jconfigs.get_config("paper-x32", smoke=True),
                         configs.get_config("paper-x32", smoke=True)),
+    # MQA (4 query heads on one KV head), LayerNorm with bias, plain GELU MLP
+    "granite-20b-smoke": (jconfigs.get_config("granite-20b", smoke=True),
+                          configs.get_config("granite-20b", smoke=True)),
 }
 
 
