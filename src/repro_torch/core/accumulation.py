@@ -38,6 +38,16 @@ package's ``dshared_acc`` carry).  In the standard schedule autograd sums its
 uses across the checkpointed layers; in the layered one each flagged layer's
 recompute takes it as an input of its backward.
 
+Each phase of either schedule is a span of the thread's active tracer
+(``obs.trace.active``; nothing without one), timed on the card too:
+``accum.gather`` (the outer leaves once, each layer once a pass),
+``accum.forward``, ``accum.head``, ``accum.backward`` (a layer's recompute
+and back-propagation of every micro-batch), ``accum.add`` (a micro-batch's
+gradients into the fp32 accumulators; the first of a layer also makes them),
+``accum.reduce`` (a layer's, then the outer leaves') and
+``accum.embed_grad``.  The standard schedule has them per micro-batch; its
+gathers of partitioned leaves run inside its forward and backward.
+
 An MoE layer also returns the router's load-balance loss.  It enters the
 loss as ``router_aux_weight * aux / (M * L * D)`` a layer and micro-batch
 (D data ranks), as in the JAX package: the standard schedule adds it to each
@@ -57,6 +67,7 @@ from repro_torch.core import partition as zp
 from repro_torch.core.dist import LOCAL, AxisCtx
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig, apply_norm
+from repro_torch.obs import trace as obs_trace
 
 
 @dataclasses.dataclass(frozen=True)
@@ -197,6 +208,11 @@ def make_adapters(cfg: ModelConfig, axis: AxisCtx, acc: AccumConfig,
                     group=group, pod_sum=group == "data" and axis.pod is not None)
 
 
+def _phase(name: str, device: torch.device, **args):
+    """The span ``accum.<name>`` of the active tracer, timed on ``device``."""
+    return obs_trace.span(name, cat="accum", device=device, **args)
+
+
 def _accumulate(accs, grads) -> None:
     """fp32 accumulators += gradients (of any dtype; None: an unused leaf)."""
     for a, g in zip(accs, grads):
@@ -269,7 +285,8 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
     # ------------------------------------------------------------------
     def standard_grad(storage, batch):
         mbs, inv_n = setup(batch)
-        grads = tree.tree_map(torch.zeros_like, storage)
+        device = storage["embed"].device
+        grads = None
         okeys = outer_keys(storage)
 
         def leaf(s):
@@ -285,13 +302,14 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
                                  shared=shared, shared_flag=fl)
 
         nlls, auxs = [], None
-        for mb in mbs:
+        for m, mb in enumerate(mbs):
             # gathered per micro-batch, as standard ZeRO does; the layers
             # inside the (recomputed) layer function
-            outer_in = {k: tree.tree_map(leaf, storage[k]) for k in okeys}
-            layers_in = [tree.tree_map(lambda s: leaf(s[l]), storage["layers"])
-                         for l in range(L)]
-            with torch.enable_grad():
+            with _phase("gather", device, microbatch=m):
+                outer_in = {k: tree.tree_map(leaf, storage[k]) for k in okeys}
+                layers_in = [tree.tree_map(lambda s: leaf(s[l]), storage["layers"])
+                             for l in range(L)]
+            with _phase("forward", device, microbatch=m), torch.enable_grad():
                 outer = (ad.gather_ad(outer_in, ad.outer_shapes, layer=False) if part
                          else outer_in)
                 x, pos = T.embed_inputs(cfg, outer, mb, axis)
@@ -310,15 +328,23 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
                 if aux is not None:
                     loss = loss + aux * aux_ct
             wrt = tree.leaves(outer_in) + [t for lp in layers_in for t in tree.leaves(lp)]
-            dests = tree.leaves({k: grads[k] for k in okeys}) + [
-                t for l in range(L) for t in tree.leaves(layer_dest(grads["layers"], l))]
-            # frame embeddings leave the embedding unused: its gradient stays 0
-            _accumulate(dests, torch.autograd.grad(loss, wrt, allow_unused=True))
+            with _phase("backward", device, microbatch=m):
+                # frame embeddings leave the embedding unused: its gradient stays 0
+                g = torch.autograd.grad(loss, wrt, allow_unused=True)
+            with _phase("add", device, microbatch=m):
+                if grads is None:
+                    grads = tree.tree_map(torch.zeros_like, storage)
+                dests = tree.leaves({k: grads[k] for k in okeys}) + [
+                    t for l in range(L) for t in tree.leaves(layer_dest(grads["layers"], l))]
+                _accumulate(dests, g)
+            del g
             nlls.append(nll.detach())
             auxs = add_aux(auxs, aux)
         if not part:   # one sum per leaf over the data group, at the end
-            grads = dict(ad.reduce({k: grads[k] for k in okeys}, layer=False),
-                         layers=ad.reduce(grads["layers"], layer=True))
+            with _phase("reduce", device, layer="outer"):
+                g_outer = ad.reduce({k: grads[k] for k in okeys}, layer=False)
+            with _phase("reduce", device, layer="layers"):
+                grads = dict(g_outer, layers=ad.reduce(grads["layers"], layer=True))
         # the JAX package's aux metric here: the micro-batches' mean of the
         # layers' sum
         return grads, metrics(nlls, None if auxs is None else auxs / M, batch)
@@ -351,10 +377,10 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
 
     def layered_grad(storage, batch):
         mbs, inv_n = setup(batch)
-        okeys = outer_keys(storage)
-        outer = ad.gather_outer(storage)            # gathered once per step
-        shared = outer.get("shared")
         device = storage["embed"].device
+        with _phase("gather", device, layer="outer"):
+            outer = ad.gather_outer(storage)        # gathered once per step
+        shared = outer.get("shared")
         a_outer = ad.accumulators(ad.outer_shapes, device)
         # the stacked layer gradients (none with the per-layer update), each
         # element written by a layer's reduction
@@ -372,9 +398,10 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
         ckpt = []
         aux_total = None
         for l in range(L):
-            lp = ad.gather_layer(storage, l)        # one gather per layer
-            ckpt.append([ckpt_slice(x) for x in xs])
-            with torch.no_grad():
+            with _phase("gather", device, layer=l, phase="forward"):
+                lp = ad.gather_layer(storage, l)    # one gather per layer
+            with _phase("forward", device, layer=l), torch.no_grad():
+                ckpt.append([ckpt_slice(x) for x in xs])
                 for m in range(M):
                     xs[m], a = T.apply_layer(cfg, lp, xs[m], positions=pos[m],
                                              window=windows[l], axis=axis, shared=shared,
@@ -386,53 +413,66 @@ def make_grad_fn(cfg: ModelConfig, acc: AccumConfig, template: dict, *,
         wrt = tree.leaves(outer["final_norm"]) + [outer[head_key]]
         accs = tree.leaves(a_outer["final_norm"]) + [a_outer[head_key]]
         dxs, nlls = [], []
-        for mb, x in zip(mbs, xs):
-            x = x.requires_grad_()
-            with torch.enable_grad():
-                h = apply_norm(cfg, outer["final_norm"], x)
-                nll = T.head_loss(cfg, outer, h, mb, axis)
-                loss = nll * inv_n
-            dx, *g = torch.autograd.grad(loss, [x] + wrt)
-            _accumulate(accs, g)
-            dxs.append(dx.to(cfg.torch_dtype))
-            nlls.append(nll.detach())
+        with _phase("head", device):
+            for mb, x in zip(mbs, xs):
+                x = x.requires_grad_()
+                with torch.enable_grad():
+                    h = apply_norm(cfg, outer["final_norm"], x)
+                    nll = T.head_loss(cfg, outer, h, mb, axis)
+                    loss = nll * inv_n
+                dx, *g = torch.autograd.grad(loss, [x] + wrt)
+                _accumulate(accs, g)
+                dxs.append(dx.to(cfg.torch_dtype))
+                nlls.append(nll.detach())
         del xs
 
         # backward: reverse layer-major, one gather and one reduction per layer
         for l in reversed(range(L)):
-            x_in = [ckpt_restore(c, S) for c in ckpt[l]]
-            ckpt[l] = None
-            lp = ad.gather_layer(storage, l)
-            a_layer = ad.accumulators(ad.layer_shapes, device)
-            wrt, accs = tree.leaves(lp), tree.leaves(a_layer)
+            with _phase("gather", device, layer=l, phase="backward"):
+                x_in = [ckpt_restore(c, S) for c in ckpt[l]]
+                ckpt[l] = None
+                lp = ad.gather_layer(storage, l)
+            wrt = tree.leaves(lp)
             if flags[l]:     # the shared block's gradient, over every layer it follows
-                wrt, accs = wrt + tree.leaves(shared), accs + tree.leaves(a_outer["shared"])
-            for m in range(M):
-                xm = x_in[m].requires_grad_()
-                with torch.enable_grad():
-                    y, a = T.apply_layer(cfg, lp, xm, positions=pos[m], window=windows[l],
-                                         axis=axis, shared=shared, shared_flag=flags[l])
-                outs, cots = [y], [dxs[m]]
-                if a is not None:                   # the router's aux cotangent
-                    outs.append(a)
-                    cots.append(torch.full_like(a, aux_ct))
-                dx, *g = torch.autograd.grad(outs, [xm] + wrt, cots)
-                _accumulate(accs, g)
-                dxs[m] = dx
-            del lp, x_in, accs
-            dest = ad.reduce(a_layer, layer=True,
-                             out=None if grads_l is None else layer_dest(grads_l, l))
+                wrt = wrt + tree.leaves(shared)
+            a_layer = None
+            with _phase("backward", device, layer=l):
+                for m in range(M):
+                    xm = x_in[m].requires_grad_()
+                    with torch.enable_grad():
+                        y, a = T.apply_layer(cfg, lp, xm, positions=pos[m],
+                                             window=windows[l], axis=axis, shared=shared,
+                                             shared_flag=flags[l])
+                    outs, cots = [y], [dxs[m]]
+                    if a is not None:               # the router's aux cotangent
+                        outs.append(a)
+                        cots.append(torch.full_like(a, aux_ct))
+                    dx, *g = torch.autograd.grad(outs, [xm] + wrt, cots)
+                    with _phase("add", device, layer=l, microbatch=m):
+                        if a_layer is None:
+                            a_layer = ad.accumulators(ad.layer_shapes, device)
+                            accs = tree.leaves(a_layer)
+                            if flags[l]:
+                                accs = accs + tree.leaves(a_outer["shared"])
+                        _accumulate(accs, g)
+                    dxs[m] = dx
+            del lp, x_in, accs, g
+            with _phase("reduce", device, layer=l):
+                dest = ad.reduce(a_layer, layer=True,
+                                 out=None if grads_l is None else layer_dest(grads_l, l))
             del a_layer
             if layer_update is not None:
                 layer_update(l, dest)
             del dest
 
         # embed backward
-        for mb, dx in zip(mbs, dxs):
-            de = T.embed_grad(cfg, outer, mb, dx, axis)
-            if de is not None:
-                a_outer["embed"].add_(de)
-        g_outer = ad.reduce(a_outer, layer=False)
+        with _phase("embed_grad", device):
+            for mb, dx in zip(mbs, dxs):
+                de = T.embed_grad(cfg, outer, mb, dx, axis)
+                if de is not None:
+                    a_outer["embed"].add_(de)
+        with _phase("reduce", device, layer="outer"):
+            g_outer = ad.reduce(a_outer, layer=False)
         del a_outer
         grads = g_outer if grads_l is None else dict(g_outer, layers=grads_l)
         # the JAX package's aux metric here: the layers' mean of the

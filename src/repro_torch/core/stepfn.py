@@ -20,6 +20,7 @@ from repro_torch.core.dist import LOCAL, AxisCtx, with_expert_group, with_seq_gr
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adam import AdamConfig, adam_update, global_norm, leaf_update, step_scalars
 
 
@@ -225,12 +226,13 @@ def _gated_update(c: AdamConfig, storage: dict, opt: dict, grads: dict, metrics:
     storage, nor the moments, nor the step count, and its metrics say
     ``skipped``.  The JAX package's functional step keeps the pre-step state
     instead; the port updates in place, so the gate sits before the first
-    write."""
-    gnorm, gscale = global_norm(c, grads, sq_reduce=reduce, device=opt["step"].device)
-    if gate is not None and not gate(metrics["loss"], gnorm):
-        lr, _, _ = step_scalars(c, opt["step"] + 1)
-        return storage, opt, dict(metrics, lr=lr, grad_norm=gnorm, skipped=True)
-    storage, opt, om = adam_update(c, storage, opt, grads, gscale, fused=fused)
+    write.  The span ``step.update`` of the active tracer covers it."""
+    with obs_trace.span("update", cat="step", device=opt["step"].device):
+        gnorm, gscale = global_norm(c, grads, sq_reduce=reduce, device=opt["step"].device)
+        if gate is not None and not gate(metrics["loss"], gnorm):
+            lr, _, _ = step_scalars(c, opt["step"] + 1)
+            return storage, opt, dict(metrics, lr=lr, grad_norm=gnorm, skipped=True)
+        storage, opt, om = adam_update(c, storage, opt, grads, gscale, fused=fused)
     return storage, opt, dict(metrics, **om, grad_norm=gnorm)
 
 

@@ -5,8 +5,12 @@ Weights are random, drawn from ``--seed``, or read from ``--checkpoint-dir``:
 a flat full-layout parameter checkpoint (``checkpointing/store.py``'s files,
 the JAX package's ``layers__...`` leaves stacked ``[L, ...]``, one file per
 layer), as the JAX server loads.  ``--trace`` writes a Chrome trace of the
-engine's prefill and decode spans.  The run goes on the card unless
-``--device cpu`` is given (the plain PyTorch versions of the kernels).
+engine's prefill and decode spans (their args: launch and wait, a prefill's
+padding and its requests' queue waits, ``serving/engine.py``).  The result
+line's ``ttft_ms``, ``itl_ms`` and ``queue_ms`` are wall-clock percentiles
+over the finished requests (``ServingEngine.latency_summary``).  The run goes
+on the card unless ``--device cpu`` is given (the plain PyTorch versions of
+the kernels).
 
 ``--plan`` runs no engine: it ranks serving configurations (tensor-parallel
 width x live batch x cache layout, at ``--plan-mean-ctx`` live tokens a
@@ -146,7 +150,7 @@ def main(argv=None, *, params: dict | None = None) -> dict:
         "preemptions": engine.stats["preemptions"],
         "tok_per_s": engine.stats["emitted_tokens"] / dt,
         "mean_latency_steps": float(np.mean(lat)),
-        "ttft_ms": lsum["ttft_ms"], "itl_ms": lsum["itl_ms"],
+        "ttft_ms": lsum["ttft_ms"], "itl_ms": lsum["itl_ms"], "queue_ms": lsum["queue_ms"],
         "seconds": dt,
     }
     if tracer is not None:

@@ -31,7 +31,12 @@ or ``--resume auto`` hand the run to the supervisor
 the failure-shrink of a ``lose_replica`` fault, after which the leaving
 ranks' processes end and the survivors train on), where ``--steps`` is the
 total target.  ``--metrics`` streams JSONL records,
-``--trace`` writes a Chrome trace, and with ``--stages > 1`` both ``--trace``
+``--trace`` writes a Chrome trace: each train step, and inside it the
+accumulation schedule's phases (``accum.gather``, ``accum.forward``,
+``accum.head``, ``accum.backward``, ``accum.add``, ``accum.reduce``,
+``accum.embed_grad``, ``core/accumulation.py``) and the optimizer's
+``step.update``, each also timed on the card on its own lane; with
+``--stages > 1`` both ``--trace``
 and ``--drift-report`` add a profiled grad-only pass on batch 0 after
 training: the measured tick timeline, and its drift against the table's.
 The ranks share one filesystem: rank 0 writes, every rank reads.
@@ -186,9 +191,12 @@ def main(argv=None, *, keep_state: bool = False) -> dict:
                     help="stream per-step metrics (loss, step time, tokens/s, MFU) to this "
                          "JSONL file, flushed per record")
     ap.add_argument("--trace", default=None,
-                    help="write a Chrome-trace JSON of the run's phases here; with "
-                         "--stages > 1 it also holds the measured and the planned tick "
-                         "timelines")
+                    help="write a Chrome-trace JSON of the run's phases here: the train "
+                         "steps and, inside each, the accumulation schedule's accum.gather, "
+                         "accum.forward, accum.head, accum.backward, accum.add, "
+                         "accum.reduce, accum.embed_grad and the optimizer's step.update, "
+                         "host and device lanes; with --stages > 1 it also holds the "
+                         "measured and the planned tick timelines")
     ap.add_argument("--drift-report", default=None,
                     help="with --stages > 1: profile one grad-only pass tick by tick and "
                          "write the measured-vs-planned tick drift report (obs/drift.py) "
@@ -355,111 +363,112 @@ def _train(args, cfg, spec: PipeSpec | None, table, device: torch.device,
               "n_devices": n_devices, "partitioned": partitioned})
     tracer = obs_trace.Tracer() if args.trace and rank0 else None
     result: dict = {}
-    try:
-        if spec is not None:
-            with obs_trace.span(tracer, "build_step"):
-                step = stepfn.build_pipeline_train_step(cfg, spec, opt_cfg,
-                                                        partitioned=partitioned, axis=axis,
-                                                        table=table)
-            with obs_trace.span(tracer, "init_storage"):
-                storage = stepfn.init_pipeline_storage(cfg, args.seed, spec,
-                                                       partitioned=partitioned, device=device,
-                                                       axis=axis)
-        else:
-            acc = AccumConfig(method=args.method, partitioned=partitioned,
-                              n_microbatches=args.microbatches)
-            with obs_trace.span(tracer, "build_step"):
-                step = stepfn.build_train_step(cfg, acc, opt_cfg, axis=axis)
-            with obs_trace.span(tracer, "init_storage"):
-                storage = stepfn.init_storage(cfg, args.seed, partitioned=partitioned,
-                                              device=device, axis=axis)
-        opt = adam_init(storage, moment_dtype=opt_cfg.moment_dtype)
-        layout = _layout(args, axis)
-        start = 0
-        if args.resume and args.checkpoint_dir:
-            start = _resume_latest(args, cfg, layout, axis, storage, opt)
+    with obs_trace.active(tracer):
+        try:
+            if spec is not None:
+                with obs_trace.span("build_step"):
+                    step = stepfn.build_pipeline_train_step(cfg, spec, opt_cfg,
+                                                            partitioned=partitioned, axis=axis,
+                                                            table=table)
+                with obs_trace.span("init_storage"):
+                    storage = stepfn.init_pipeline_storage(cfg, args.seed, spec,
+                                                           partitioned=partitioned, device=device,
+                                                           axis=axis)
+            else:
+                acc = AccumConfig(method=args.method, partitioned=partitioned,
+                                  n_microbatches=args.microbatches)
+                with obs_trace.span("build_step"):
+                    step = stepfn.build_train_step(cfg, acc, opt_cfg, axis=axis)
+                with obs_trace.span("init_storage"):
+                    storage = stepfn.init_storage(cfg, args.seed, partitioned=partitioned,
+                                                  device=device, axis=axis)
+            opt = adam_init(storage, moment_dtype=opt_cfg.moment_dtype)
+            layout = _layout(args, axis)
+            start = 0
+            if args.resume and args.checkpoint_dir:
+                start = _resume_latest(args, cfg, layout, axis, storage, opt)
+                if rank0:
+                    print(f"resumed from step {start}", flush=True)
+            data = _data_cfg(args, cfg)
+            tokens_per_step = args.global_batch * args.seq_len
+
+            history, records = [], []
+            t_start = time.time()
+            for i in range(start, start + args.steps):
+                batch = batch_for(cfg, data, i, axis)
+                axis.reset_counts()
+                t0 = time.perf_counter()
+                with obs_trace.span("train step", cat="step", step=i):
+                    storage, opt, metrics = step(storage, opt, batch)
+                    loss = float(metrics["loss"])          # device sync: ends the step
+                dt = time.perf_counter() - t0
+                tok_s = tokens_per_step / dt
+                rec = {"step": i, "loss": loss, "lr": float(metrics["lr"]),
+                       "grad_norm": float(metrics["grad_norm"]), "step_time_s": dt,
+                       "tokens_per_s": tok_s,
+                       # per card: the grid's S*D*M cards share the step's flops
+                       "mfu": obs_metrics.mfu_estimate(cfg, global_batch=args.global_batch,
+                                                       seq_len=args.seq_len, step_time_s=dt,
+                                                       n_devices=n_devices)}
+                sink.log(rec)
+                rec.update(peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
+                                        if device.type == "cuda" else None),
+                           aux=float(metrics.get("aux", 0.0)),   # the router's load balance
+                           # this rank's collectives of the step: "group op" -> [calls, bytes]
+                           collectives={f"{g} {op}": list(c) for (g, op), c in axis.counts.items()})
+                records.append(rec)
+                history.append(loss)
+                if rank0 and i % args.log_every == 0:
+                    print(f"step {i:5d}  loss {loss:8.4f}"
+                          f"  lr {rec['lr']:.2e}"
+                          f"  gnorm {rec['grad_norm']:7.3f}"
+                          f"  {tok_s:9.0f} tok/s"
+                          f"  {time.time()-t_start:6.1f}s", flush=True)
+                if (args.checkpoint_every and args.checkpoint_dir
+                        and (i + 1) % args.checkpoint_every == 0):
+                    reshard.save_bundle(
+                        args.checkpoint_dir, {"params": storage, "mu": opt["mu"], "nu": opt["nu"],
+                                              "opt_step": opt["step"]}, cfg, layout, axis,
+                        step=i + 1, meta={"arch": args.arch, "loss": loss,
+                                          "layout": layout.to_meta(),
+                                          "moment_dtype": opt_cfg.moment_dtype},
+                        keep=args.keep_checkpoints)
+
+            # ---- the tick profiler: measured tick timeline + drift ----
+            if spec is not None and (args.trace or args.drift_report):
+                with obs_trace.span("tick profiling"):
+                    events = profile_ticks(cfg, spec, partitioned, axis, storage, data, device,
+                                            tracer, table)
+                predicted = table.timeline()
+                if tracer is not None and events:
+                    # the table's unit ticks at the measured mean tick length, so the
+                    # lanes align side by side
+                    mk = max(e[5] for e in events)
+                    obs_trace.add_timeline(tracer, predicted, pid=2, name="planned ticks",
+                                           scale_us=mk * 1e6 / max(table.n_ticks, 1))
+                if args.drift_report and rank0:
+                    rep = obs_drift.drift_report(events, predicted)
+                    obs_drift.save_report(rep, args.drift_report)
+                    print(obs_drift.format_report(rep), flush=True)
+                    sink.log(event="drift", record={"max_abs_drift": rep["max_abs_drift"],
+                                                    "matched": rep["overall"]["matched"],
+                                                    "missing": rep["overall"]["missing"],
+                                                    "extra": rep["overall"]["extra"]})
+                    result["max_abs_drift"] = rep["max_abs_drift"]
+
+            result.update({"arch": args.arch, "mesh": args.mesh, "stages": args.stages,
+                           "schedule": args.schedule if spec is not None else None,
+                           "first_loss": history[0], "last_loss": history[-1],
+                           "steps": len(history), "seconds": round(time.time() - t_start, 1)})
             if rank0:
-                print(f"resumed from step {start}", flush=True)
-        data = _data_cfg(args, cfg)
-        tokens_per_step = args.global_batch * args.seq_len
-
-        history, records = [], []
-        t_start = time.time()
-        for i in range(start, start + args.steps):
-            batch = batch_for(cfg, data, i, axis)
-            axis.reset_counts()
-            t0 = time.perf_counter()
-            with obs_trace.span(tracer, "train step", cat="step", step=i):
-                storage, opt, metrics = step(storage, opt, batch)
-                loss = float(metrics["loss"])          # device sync: ends the step
-            dt = time.perf_counter() - t0
-            tok_s = tokens_per_step / dt
-            rec = {"step": i, "loss": loss, "lr": float(metrics["lr"]),
-                   "grad_norm": float(metrics["grad_norm"]), "step_time_s": dt,
-                   "tokens_per_s": tok_s,
-                   # per card: the grid's S*D*M cards share the step's flops
-                   "mfu": obs_metrics.mfu_estimate(cfg, global_batch=args.global_batch,
-                                                   seq_len=args.seq_len, step_time_s=dt,
-                                                   n_devices=n_devices)}
-            sink.log(rec)
-            rec.update(peak_mem_gb=(torch.cuda.max_memory_allocated(device) / 1e9
-                                    if device.type == "cuda" else None),
-                       aux=float(metrics.get("aux", 0.0)),   # the router's load balance
-                       # this rank's collectives of the step: "group op" -> [calls, bytes]
-                       collectives={f"{g} {op}": list(c) for (g, op), c in axis.counts.items()})
-            records.append(rec)
-            history.append(loss)
-            if rank0 and i % args.log_every == 0:
-                print(f"step {i:5d}  loss {loss:8.4f}"
-                      f"  lr {rec['lr']:.2e}"
-                      f"  gnorm {rec['grad_norm']:7.3f}"
-                      f"  {tok_s:9.0f} tok/s"
-                      f"  {time.time()-t_start:6.1f}s", flush=True)
-            if (args.checkpoint_every and args.checkpoint_dir
-                    and (i + 1) % args.checkpoint_every == 0):
-                reshard.save_bundle(
-                    args.checkpoint_dir, {"params": storage, "mu": opt["mu"], "nu": opt["nu"],
-                                          "opt_step": opt["step"]}, cfg, layout, axis,
-                    step=i + 1, meta={"arch": args.arch, "loss": loss,
-                                      "layout": layout.to_meta(),
-                                      "moment_dtype": opt_cfg.moment_dtype},
-                    keep=args.keep_checkpoints)
-
-        # ---- the tick profiler: measured tick timeline + drift ----
-        if spec is not None and (args.trace or args.drift_report):
-            with obs_trace.span(tracer, "tick profiling"):
-                events = profile_ticks(cfg, spec, partitioned, axis, storage, data, device,
-                                        tracer, table)
-            predicted = table.timeline()
-            if tracer is not None and events:
-                # the table's unit ticks at the measured mean tick length, so the
-                # lanes align side by side
-                mk = max(e[5] for e in events)
-                obs_trace.add_timeline(tracer, predicted, pid=2, name="planned ticks",
-                                       scale_us=mk * 1e6 / max(table.n_ticks, 1))
-            if args.drift_report and rank0:
-                rep = obs_drift.drift_report(events, predicted)
-                obs_drift.save_report(rep, args.drift_report)
-                print(obs_drift.format_report(rep), flush=True)
-                sink.log(event="drift", record={"max_abs_drift": rep["max_abs_drift"],
-                                                "matched": rep["overall"]["matched"],
-                                                "missing": rep["overall"]["missing"],
-                                                "extra": rep["overall"]["extra"]})
-                result["max_abs_drift"] = rep["max_abs_drift"]
-
-        result.update({"arch": args.arch, "mesh": args.mesh, "stages": args.stages,
-                       "schedule": args.schedule if spec is not None else None,
-                       "first_loss": history[0], "last_loss": history[-1],
-                       "steps": len(history), "seconds": round(time.time() - t_start, 1)})
-        if rank0:
-            print(json.dumps(result), flush=True)
-        out = dict(result, records=records, device=str(device),
-                   execution=execution(args, table))
-        return dict(out, state={"storage": storage, "opt": opt}) if keep_state else out
-    finally:
-        if tracer is not None:
-            tracer.save(args.trace)
-        sink.close(extra=result or None)
+                print(json.dumps(result), flush=True)
+            out = dict(result, records=records, device=str(device),
+                       execution=execution(args, table))
+            return dict(out, state={"storage": storage, "opt": opt}) if keep_state else out
+        finally:
+            if tracer is not None:
+                tracer.save(args.trace)
+            sink.close(extra=result or None)
 
 
 def profile_ticks(cfg, spec: PipeSpec, partitioned: bool, axis: dist.AxisCtx, storage: dict,

@@ -221,7 +221,7 @@ class Supervisor:
         if self.sup.backoff_s > 0:
             time.sleep(self.sup.backoff_s * (2 ** (self.restarts - 1)))
         t0 = time.perf_counter()
-        with obs_trace.span(self.tracer, "recovery", cat="resilience", step=at_step):
+        with obs_trace.span("recovery", cat="resilience", step=at_step):
             resume = self._restore_or_init()
         rec_s = time.perf_counter() - t0
         lost = max(0, at_step - resume)
@@ -289,7 +289,7 @@ class Supervisor:
                                   f"{rows} rows does not split over the survivors")
         old_axis = self.axis
         t0 = time.perf_counter()
-        with obs_trace.span(self.tracer, "shrink", cat="resilience", step=at_step):
+        with obs_trace.span("shrink", cat="resilience", step=at_step):
             axis = dist.make_axis(new.data, new.model, new.stages,
                                   ranks=reshard.survivors(old_axis, new.data))
             moved = reshard.drain_bundle(self._bundle(), self.cfg, old, new, old_axis,
@@ -314,9 +314,14 @@ class Supervisor:
         a result dict (history, restart, shrink and skip counters, the final
         layout) and leaves the final state on ``self.storage`` / ``self.opt``.
         A rank that leaves in a failure-shrink returns there, its result's
-        ``left`` the step before which it left."""
+        ``left`` the step before which it left.  The run's spans, and the
+        train steps' own, go to ``tracer``."""
+        with obs_trace.active(self.tracer):
+            return self._run(steps)
+
+    def _run(self, steps: int) -> dict:
         sup = self.sup
-        with obs_trace.span(self.tracer, "build_step"):
+        with obs_trace.span("build_step"):
             self._build()
         i = self._restore_or_init()
         if i:

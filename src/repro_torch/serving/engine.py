@@ -16,6 +16,14 @@
 
 Greedy (argmax) sampling; requests finish on EOS or their token budget,
 and their blocks return to the pool.
+
+With a tracer, each prefill call and each decode step is one span
+(``prefill``, ``decode``; ``serve.prefill`` and ``serve.decode`` on a
+running profiler's host lane).  Their args split the span at the return of
+the model step, when every kernel is enqueued: ``launch_ms`` before it,
+``wait_ms`` the argmax's copy to the host after it.  A prefill's args also
+carry its padding, ``rows`` (pow2 B) x ``bucket`` (S) = ``slot_tokens``
+against ``real_tokens``.
 """
 from __future__ import annotations
 
@@ -25,6 +33,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.common import ModelConfig
+from repro_torch.obs import trace as obs_trace
 from repro_torch.obs.metrics import percentiles
 from repro_torch.serving import steps
 from repro_torch.serving.cache import init_paged_cache
@@ -65,7 +74,10 @@ class ServingEngine:
 
     # -- submission ------------------------------------------------------
     def submit(self, req: Request) -> None:
+        """Queues ``req``; one whose arrival step has come is seen now."""
         self.sched.submit(req)
+        if req.arrival <= self.t and req.wall_visible is None:
+            req.wall_visible = time.perf_counter()
 
     def submit_all(self, reqs) -> None:
         for r in reqs:
@@ -75,7 +87,7 @@ class ServingEngine:
         return torch.from_numpy(a).to(self.device)
 
     # -- prefill ---------------------------------------------------------
-    def _run_prefill(self, reqs: list[Request]) -> None:
+    def _run_prefill(self, reqs: list[Request], sp: obs_trace.Span | None) -> None:
         bs = self.pcfg.block_size
         maxb = self.pcfg.max_blocks_per_seq
         B = _next_pow2(len(reqs))
@@ -93,9 +105,14 @@ class ServingEngine:
         logits, self.cache = steps.paged_prefill_step(
             self.cfg, self.params, self.cache,
             {"tokens": self._dev(tokens), "lens": self._dev(lens)}, self._dev(tables))
+        launch_ms = sp.elapsed_ms() if sp is not None else 0.0
         first = logits.argmax(-1).cpu().numpy()
+        real = int(lens.sum())
         self.stats["prefill_calls"] += 1
-        self.stats["prefill_tokens"] += int(lens.sum())
+        self.stats["prefill_tokens"] += real
+        if sp is not None:
+            sp.args.update(launch_ms=launch_ms, wait_ms=sp.elapsed_ms() - launch_ms, rows=B,
+                           bucket=S, real_tokens=real, slot_tokens=B * S)
         for i, r in enumerate(reqs):
             r.cached = len(r.context)
             self._emit(r, int(first[i]))
@@ -121,22 +138,26 @@ class ServingEngine:
 
     # -- one engine step --------------------------------------------------
     def step(self) -> dict:
+        """Admits and prefills what it can, then decodes every live slot
+        once; the spans go to the engine's ``tracer``."""
+        with obs_trace.active(self.tracer):
+            return self._step()
+
+    def _step(self) -> dict:
         now = self.t
         wall = time.perf_counter()
         # TTFT starts when the engine first SEES a request (arrival step
-        # reached), not when a slot frees up — queueing is part of latency
+        # reached), not when a slot frees up — queueing is part of latency;
+        # one submitted after its arrival step was seen at submission
         for r in self.sched.waiting:
             if r.arrival <= now and r.wall_visible is None:
                 r.wall_visible = wall
         pre_preempt = self.stats["preemptions"]
         admitted = self.sched.admit(now)
         if admitted:
-            if self.tracer is not None:
-                with self.tracer.span("prefill", cat="serve", tid=0, step=now,
-                                      batch=len(admitted)):
-                    self._run_prefill(admitted)
-            else:
-                self._run_prefill(admitted)
+            with obs_trace.span("prefill", cat="serve", tid=0, step=now,
+                                batch=len(admitted)) as sp:
+                self._run_prefill(admitted, sp)
         # capacity for every live request's next write, highest priority
         # first (ensure_block may preempt lower-priority tables)
         for r in sorted(self.sched.running, key=lambda r: (-r.priority, r.arrival)):
@@ -148,15 +169,15 @@ class ServingEngine:
         decoded = 0
         if self.sched.running:
             self._sync_slots()
-            t0 = self.tracer.now_us() if self.tracer is not None else 0.0
-            logits, self.cache = steps.paged_decode_step(
-                self.cfg, self.params, self.cache, self._dev(self._tables),
-                self._dev(self._lens), self._dev(self._tokens))
-            nxt = logits.argmax(-1).cpu().numpy()
-            if self.tracer is not None:
-                self.tracer.complete("decode", ts_us=t0, dur_us=self.tracer.now_us() - t0,
-                                     cat="serve", tid=1,
-                                     args={"step": now, "batch": len(self.sched.running)})
+            with obs_trace.span("decode", cat="serve", tid=1, step=now,
+                                batch=len(self.sched.running)) as sp:
+                logits, self.cache = steps.paged_decode_step(
+                    self.cfg, self.params, self.cache, self._dev(self._tables),
+                    self._dev(self._lens), self._dev(self._tokens))
+                launch_ms = sp.elapsed_ms() if sp is not None else 0.0
+                nxt = logits.argmax(-1).cpu().numpy()
+                if sp is not None:
+                    sp.args.update(launch_ms=launch_ms, wait_ms=sp.elapsed_ms() - launch_ms)
             for r in list(self.sched.running):
                 r.cached += 1
                 self._emit(r, int(nxt[r.slot]))
@@ -171,19 +192,21 @@ class ServingEngine:
 
     # -- latency telemetry -------------------------------------------------
     def latency_summary(self) -> dict:
-        """Wall-clock TTFT / inter-token-latency percentiles (ms) over the
-        finished requests.  TTFT counts from engine visibility (arrival step
-        reached), so queueing and preemption re-prefills show in the tail."""
-        ttft, itl = [], []
+        """Wall-clock TTFT / inter-token-latency / queue-wait percentiles (ms)
+        over the finished requests.  TTFT counts from engine visibility
+        (arrival step reached), so queueing and preemption re-prefills show
+        in the tail; the queue wait runs from visibility to first admission."""
+        ttft, itl, queue = [], [], []
         for r in self.finished.values():
             w = r.token_walls
             if not w:
                 continue
             if r.wall_visible is not None:
                 ttft.append((w[0] - r.wall_visible) * 1e3)
+                queue.append((r.wall_admitted - r.wall_visible) * 1e3)
             itl.extend((b - a) * 1e3 for a, b in zip(w, w[1:]))
-        return {"n_requests": len(self.finished),
-                "ttft_ms": percentiles(ttft), "itl_ms": percentiles(itl)}
+        return {"n_requests": len(self.finished), "ttft_ms": percentiles(ttft),
+                "itl_ms": percentiles(itl), "queue_ms": percentiles(queue)}
 
     def run(self, *, max_steps: int = 100_000) -> dict[int, list[int]]:
         """Drive until every submitted request finishes."""

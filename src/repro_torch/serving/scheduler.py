@@ -35,6 +35,7 @@ Everything here is host-side Python between model steps; the device side
 from __future__ import annotations
 
 import dataclasses
+import time
 from collections import deque
 from typing import Iterable
 
@@ -62,8 +63,9 @@ class Request:
     pending: int | None = None       # last emitted token = next decode input
     preemptions: int = 0
     finish_step: int = -1
-    # wall-clock latency telemetry (engine-stamped; obs/metrics percentiles)
+    # wall-clock latency telemetry (obs/metrics percentiles)
     wall_visible: float | None = None   # host time the engine first saw it
+    wall_admitted: float | None = None  # host time of its first admission
     token_walls: list = dataclasses.field(default_factory=list)
 
     def __post_init__(self):
@@ -164,7 +166,8 @@ class Scheduler:
     # -- admission -------------------------------------------------------
     def admit(self, now: int) -> list[Request]:
         """Move arrived waiting requests into running slots under the block
-        budget.  Returns the newly admitted requests (needing prefill)."""
+        budget, stamping each one's first admission.  Returns the newly
+        admitted requests (needing prefill)."""
         if self.cfg.mode == "static" and self.running:
             return []
         admitted: list[Request] = []
@@ -180,6 +183,8 @@ class Scheduler:
             req.blocks = got
             req.slot = self._free_slots.pop()
             req.state = "running"
+            if req.wall_admitted is None:
+                req.wall_admitted = time.perf_counter()
             self.running.append(req)
             admitted.append(req)
         return admitted

@@ -15,13 +15,20 @@ timeline has exactly the unit identities of JAX's ``table.timeline()``, no
 unit is missing or extra, and the trace holds the measured and the planned
 lanes.  ``launch.serve --trace`` gives the JAX engine's prefill and decode
 spans.
+
+The port's own span machinery: parent links per thread, the active tracer,
+device spans resolved onto the tracer's clock (CUDA events faked on the
+CPU) and the host-only ranges a running profiler sees.
 """
 import dataclasses
 import json
 import sys
+import threading
+import time
 
 import jax.numpy as jnp
 import pytest
+import torch
 
 from repro import configs as jconfigs
 from repro.core.schedules import PipeSpec as JPipeSpec
@@ -155,6 +162,108 @@ def test_chrome_traces_pass_each_others_validator(tmp_path):
     back = obs_trace.timeline_from_chrome(docs[0], pid=3)
     assert {(s, k, v, mb): (a / 1e6, b / 1e6) for s, k, v, mb, a, b in back} == \
         pytest.approx({(s, k, v, mb): (a, b) for s, k, v, mb, a, b in timeline})
+
+
+def test_spans_link_parents_per_thread_and_follow_the_active_tracer():
+    """A span's parent is the span open around it on its own thread; a
+    module-level ``span(name)`` goes to the thread's active tracer (another
+    thread has none) and is a null context without one; a tracer's own
+    ``span`` needs none active."""
+    tr = obs_trace.Tracer()
+    assert obs_trace.span("free") is obs_trace.span("free", cat="c")
+    with obs_trace.active(None):
+        assert obs_trace.span("free") is obs_trace.span("other")
+    seen = []
+
+    def apart():
+        with obs_trace.span("unseen") as none, tr.span("apart"):
+            seen.append(none)
+
+    with obs_trace.active(tr):
+        with obs_trace.span("outer", cat="c", k=1) as o:
+            with tr.span("inner") as i:
+                i.args["late"] = 2
+            other = threading.Thread(target=apart)
+            other.start()
+            other.join(timeout=10)
+            assert not other.is_alive()
+    assert seen == [None] and obs_trace._ACTIVE.tracer is None
+    ev = {e["name"]: e for e in tr.events}
+    assert ev["outer"]["args"] == {"k": 1, "id": o.id, "parent": None}
+    assert ev["inner"]["args"] == {"late": 2, "id": i.id, "parent": o.id}
+    assert ev["apart"]["args"]["parent"] is None
+    assert set(ev) == {"outer", "inner", "apart"}
+
+
+class _FakeEvent:
+    """A CUDA event that stamps the host clock."""
+
+    def __init__(self, enable_timing=False):
+        self.t = None
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def query(self):
+        return True
+
+    def elapsed_time(self, end):
+        return (end.t - self.t) * 1e3
+
+
+def test_device_spans_resolve_onto_the_tracers_clock(monkeypatch):
+    """On the card a span also records an event pair, put on the device
+    lane with its id and parent once passed (here at the top-level span's
+    close), from the origin stamped after the first synchronize; on the CPU
+    a device span has no device times.  ``TickRecorder`` stamps through the
+    same clock."""
+    syncs = []
+    monkeypatch.setattr(torch.cuda, "Event", _FakeEvent)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: syncs.append(1))
+    tr = obs_trace.Tracer()
+    card = torch.device("cuda")
+    with tr.span("outer", cat="t", device=card) as o:
+        with tr.span("inner", cat="t", device=card) as i:
+            time.sleep(0.002)
+        with tr.span("host", cat="t", device=torch.device("cpu")):
+            pass
+    assert len(syncs) == 1
+    dev = [e for e in tr.events if e["ph"] == "X" and e["pid"] == obs_trace.DEVICE_PID]
+    host = {e["name"]: e for e in tr.events if e["ph"] == "X" and e["pid"] == 0}
+    assert [e["name"] for e in dev] == ["inner", "outer"]
+    assert dev[0]["args"] == {"id": i.id, "parent": o.id}
+    assert dev[1]["args"] == {"id": o.id, "parent": None}
+    assert dev[1]["ts"] <= dev[0]["ts"] and dev[0]["dur"] >= 2000.0
+    assert dev[0]["ts"] + dev[0]["dur"] <= dev[1]["ts"] + dev[1]["dur"]
+    assert dev[0]["ts"] == pytest.approx(host["inner"]["ts"], abs=500.0)
+    assert set(host) == {"outer", "inner", "host"}
+    assert tr.to_chrome()["traceEvents"] == tr.events
+    rec = obs_trace.TickRecorder(0, card)
+    rec.start()
+    rec.begin(1, 0, 0)
+    time.sleep(0.001)
+    rec.end()
+    ((_, kind, _, _, a, b),) = rec.timeline()
+    assert kind == "F" and 0.0 <= a < b and len(syncs) == 3
+
+
+def test_spans_are_host_ranges_on_the_profilers_clock():
+    """Under a running profiler a span opens ``<cat>.<name>`` as a
+    function-scope range, not a user annotation, on the host; without the
+    profiler, or without a tracer, it opens none."""
+    from torch.profiler import ProfilerActivity, profile
+    tr = obs_trace.Tracer()
+    with tr.span("early", cat="serve"):
+        pass
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with obs_trace.active(tr), obs_trace.span("gather", cat="accum"):
+            torch.ones(4).add_(1)
+        with obs_trace.span("nobody", cat="accum"):
+            torch.ones(4).add_(1)
+    got = [e for e in prof.events() if "." in e.name and e.name.split(".")[0] in
+           ("serve", "accum")]
+    assert [e.name for e in got] == ["accum.gather"]
+    assert not got[0].is_user_annotation and got[0].device_type == torch.autograd.DeviceType.CPU
 
 
 def test_validate_chrome_rejects_malformed():

@@ -19,6 +19,7 @@ from repro_torch import configs
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve
 from repro_torch.models.common import ModelConfig
+from repro_torch.obs.trace import Tracer
 from repro_torch.serving.cache import BlockAllocator, PagedCacheConfig, kv_bytes_per_token
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.scheduler import Request, Scheduler, SchedulerConfig
@@ -153,6 +154,72 @@ def test_latency_summary_counts_finished_requests():
     lat = eng.latency_summary()
     assert lat["n_requests"] == 3
     assert set(lat["ttft_ms"]) == {"p50", "p95", "p99"} and lat["itl_ms"]["p50"] >= 0
+    assert set(lat["queue_ms"]) == {"p50", "p95", "p99"} and lat["queue_ms"]["p50"] >= 0
+
+
+def _tiny_engine(tracer=None, *, num_blocks=16, block_size=4, max_blocks=4, max_batch=2,
+                 layers=1):
+    from repro_torch.models import transformer as T
+    tcfg = ModelConfig(**dict(SV, num_layers=layers))
+    params = T.init_params(tcfg, torch.Generator().manual_seed(0), "cpu")
+    return ServingEngine(tcfg, params, SchedulerConfig(
+        cache=PagedCacheConfig(num_blocks=num_blocks, block_size=block_size,
+                               max_blocks_per_seq=max_blocks),
+        max_batch=max_batch), tracer=tracer)
+
+
+def test_queue_stamps_and_the_engines_two_spans():
+    """A request whose arrival step has come is seen at ``submit``; one
+    submitted ahead of it when the engine reaches that step.  Its first
+    admission is stamped once: a preemption's re-admission keeps the stamp,
+    and every queue wait (admitted less seen) is >= 0.  The tracer holds
+    only ``prefill`` and ``decode`` complete events, one a prefill call and
+    one a decode step, each split into ``launch_ms`` and ``wait_ms`` within
+    its duration."""
+    tracer = Tracer()
+    eng = _tiny_engine(tracer, num_blocks=7, max_blocks=4, max_batch=3, layers=2)
+    now, later = (Request(rid=i, prompt=(1 + i, 2 + i, 3 + i, 4 + i), max_new_tokens=8,
+                          arrival=a) for i, a in ((0, 0), (1, 2)))
+    eng.submit(now)
+    assert now.wall_visible is not None and now.wall_admitted is None
+    reqs = [now, later, Request(rid=2, prompt=(3, 4, 5, 6), max_new_tokens=8, arrival=0)]
+    eng.submit_all(reqs[1:])
+    assert later.wall_visible is None
+    first = {}
+    for _ in range(200):
+        if not eng.sched.has_work:
+            break
+        eng.step()
+        if eng.t <= 2:
+            assert later.wall_visible is None
+        first.update({r.rid: r.wall_admitted for r in reqs
+                      if r.wall_admitted is not None and r.rid not in first})
+    assert eng.stats["preemptions"] > 0 and len(eng.finished) == 3
+    assert {rid: r.wall_admitted for rid, r in eng.finished.items()} == first
+    for r in eng.finished.values():
+        assert r.wall_admitted >= r.wall_visible
+    spans = [e for e in tracer.events if e["ph"] == "X"]
+    assert {e["name"] for e in spans} == {"prefill", "decode"}
+    assert sum(e["name"] == "decode" for e in spans) == eng.stats["decode_steps"]
+    assert sum(e["name"] == "prefill" for e in spans) == eng.stats["prefill_calls"]
+    for e in spans:
+        a = e["args"]
+        assert a["launch_ms"] >= 0 and a["wait_ms"] >= 0
+        assert a["launch_ms"] + a["wait_ms"] <= e["dur"] / 1e3 + 1e-9
+
+
+def test_prefill_args_count_the_pow2_padding():
+    """Prompts of 5, 9 and 3 tokens at blocks of 4: rows pow2(3) = 4, the
+    bucket 4 x pow2(3 blocks) = 16, so 64 slot tokens for 17 real ones."""
+    tracer = Tracer()
+    eng = _tiny_engine(tracer, num_blocks=32, max_blocks=8, max_batch=4)
+    eng.submit_all([Request(rid=i, prompt=tuple(range(1, n + 1)), max_new_tokens=2)
+                    for i, n in enumerate((5, 9, 3))])
+    eng.step()
+    (args,) = [e["args"] for e in tracer.events if e["name"] == "prefill"]
+    assert (args["rows"], args["bucket"], args["real_tokens"], args["slot_tokens"]) == \
+        (4, 16, 17, 64)
+    assert eng.stats["prefill_tokens"] == 17
 
 
 # ---------------------------------------------------------------------------
@@ -165,6 +232,7 @@ def test_serve_smoke_on_cpu(capsys):
     assert res["device"] == "cpu" and res["requests"] == 4
     assert res["emitted_tokens"] == 3 + 4 + 3 + 4
     assert res["prefill_calls"] >= 1 and res["decode_steps"] >= 3
+    assert set(res["queue_ms"]) == {"p50", "p95", "p99"} and res["queue_ms"]["p50"] >= 0
     assert '"tok_per_s"' in capsys.readouterr().out
 
 

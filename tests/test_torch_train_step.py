@@ -29,6 +29,7 @@ from repro_torch.data.synthetic import DataConfig, make_batch
 from repro_torch.kernels import adamw as aw
 from repro_torch.launch import train
 from repro_torch.models.common import ModelConfig
+from repro_torch.obs import trace as obs_trace
 from repro_torch.optim.adam import AdamConfig, adam_init, adam_step
 from repro_torch.resilience.supervisor import SupervisorError
 
@@ -196,6 +197,66 @@ def test_bf16_train_trajectory_matches_jax(mesh11):
         np.testing.assert_allclose(tm["loss"].item(), float(jm["loss"]), rtol=1e-3)
         np.testing.assert_allclose(tm["grad_norm"].item(), float(jm["grad_norm"]),
                                    rtol=1e-3 if i == 0 else 2e-2)
+
+
+# each schedule's spans in one step of TCFG (L = 3) over M micro-batches,
+# partitioned: the layered schedule's are its layer loop's, the standard one's
+# its micro-batch loop's (its reductions run inside the backward)
+L3 = TCFG.num_layers
+PHASES = {
+    "layered": {"accum.gather": 2 * L3 + 1, "accum.forward": L3, "accum.head": 1,
+                "accum.backward": L3, "accum.add": L3 * M, "accum.reduce": L3 + 1,
+                "accum.embed_grad": 1, "step.update": 1},
+    "standard": {"accum.gather": M, "accum.forward": M, "accum.backward": M, "accum.add": M,
+                 "step.update": 1},
+}
+
+
+@pytest.mark.parametrize("method", list(PHASES))
+def test_traced_step_records_the_schedules_phases(reference, method, monkeypatch):
+    """With no tracer active a step opens no span and makes no CUDA event.
+    With one active, it records each phase of its schedule as often as the
+    loop runs it, each under its parent (a layer's ``accum.add`` under its
+    ``accum.backward``, the rest under the caller's span), none on the
+    device lane on the CPU; its gradients are bit for bit the untraced
+    step's."""
+    params, batch, _ = reference
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    acc = AccumConfig(method=method, partitioned=True, n_microbatches=M)
+    step = stepfn.build_train_step(TCFG, acc, AdamConfig())
+
+    def refuse(*a, **k):
+        raise AssertionError("a span or CUDA event without an active tracer")
+
+    with monkeypatch.context() as mp:
+        mp.setattr(obs_trace.Tracer, "span", refuse)
+        mp.setattr(torch.cuda, "Event", refuse)
+        storage = storage_from_numpy(TCFG, params, partitioned=True)
+        want, _ = step.grad_fn(storage, tb)
+        step(storage, adam_init(storage), tb)
+
+    storage = storage_from_numpy(TCFG, params, partitioned=True)
+    tracer = obs_trace.Tracer()
+    with obs_trace.active(tracer), tracer.span("test", cat="test") as top:
+        got, _ = step.grad_fn(storage, tb)
+    for a, b in zip(tree.leaves(got), tree.leaves(want)):
+        assert torch.equal(a, b)
+    tracer = obs_trace.Tracer()
+    with obs_trace.active(tracer), tracer.span("test", cat="test") as top:
+        step(storage, adam_init(storage), tb)
+    spans = [e for e in tracer.events if e["ph"] == "X" and e["cat"] != "test"]
+    assert all(e["pid"] == 0 for e in spans)
+    names = [f"{e['cat']}.{e['name']}" for e in spans]
+    assert {n: names.count(n) for n in set(names)} == PHASES[method]
+    ids = {e["args"]["id"]: e for e in spans}
+    for e in spans:
+        parent = e["args"]["parent"]
+        if method == "layered" and e["name"] == "add":
+            assert ids[parent]["name"] == "backward"
+            assert ids[parent]["args"]["layer"] == e["args"]["layer"]
+        else:
+            assert parent == top.id
+    assert obs_trace._ACTIVE.tracer is None
 
 
 def test_adam_step_fused_matches_treemap():
